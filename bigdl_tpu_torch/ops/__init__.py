@@ -1,0 +1,11 @@
+"""Kernels of the port and their plain PyTorch versions."""
+from bigdl_tpu_torch.ops.fused_matmul import (LAUNCHES, bn_constants,
+                                              fused_conv3x3_bn,
+                                              fused_conv3x3_bn_plain,
+                                              fused_matmul_bn,
+                                              fused_matmul_bn_plain,
+                                              reset_launches)
+
+__all__ = ["LAUNCHES", "bn_constants", "fused_conv3x3_bn",
+           "fused_conv3x3_bn_plain", "fused_matmul_bn",
+           "fused_matmul_bn_plain", "reset_launches"]
