@@ -91,7 +91,47 @@ __device__ __forceinline__ void copy8(T (&dst)[8], const T* src) {
   for (int i = 0; i < n; ++i) d[i] = s[i];
 }
 
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a,
+                                      float& b) {
+  float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = t.x;
+  b = t.y;
+}
+
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  float2 t = *reinterpret_cast<const float2*>(p);
+  a = t.x;
+  b = t.y;
+}
+
 // ------------------------------------------------------------- tiles
+// Where the 8-vector A[m][k .. k+7] comes from: returns false for
+// padding (a row past M, a column past K, or a 3x3 tap outside the
+// image), else sets the source offset and the channel `c` of its first
+// element.  For CONV the reduction index is k = (dh * 3 + dw) * C + c,
+// the HWIO order; C % 8 == 0, so a vector of 8 never crosses a tap.
+template <bool CONV>
+__device__ __forceinline__ bool a_src(int m, int k, int M, int K, ConvGeom g,
+                                      size_t& off, int& c) {
+  c = k;
+  if (m >= M || k >= K) return false;
+  if (CONV) {
+    const int tap = k / g.C;
+    c = k - tap * g.C;
+    const int dh = tap / 3, dw = tap - 3 * (tap / 3);
+    const int ow = m % g.W;
+    const int t = m / g.W;
+    const int oh = t % g.H;
+    const int b = t / g.H;
+    const int ih = oh + dh - 1, iw = ow + dw - 1;
+    if (ih < 0 || ih >= g.H || iw < 0 || iw >= g.W) return false;
+    off = ((static_cast<size_t>(b) * g.H + ih) * g.W + iw) * g.C + c;
+  } else {
+    off = static_cast<size_t>(m) * K + k;
+  }
+  return true;
+}
+
 // A tile: 128 rows x 32 reduction columns = 512 vectors of 8, two per
 // thread.  The prologue runs here, on the way into shared memory.
 template <typename T, bool CONV>
@@ -106,32 +146,11 @@ __device__ __forceinline__ void load_a_tile(T* As, const T* __restrict__ x,
     const int v = threadIdx.x + i * THREADS;
     const int row = v >> 2;
     const int kv = (v & 3) * 8;
-    const int m = m0 + row;
-    const int k = k0 + kv;
     float f[8];
-    bool ok = (m < M) && (k < K);
-    const T* src = x;
-    int c = k;  // prologue channel of the first element
-    if (ok) {
-      if (CONV) {
-        // reduction index k = (dh * 3 + dw) * C + c, the HWIO order;
-        // C % 8 == 0, so a vector of 8 never crosses a tap
-        const int tap = k / g.C;
-        c = k - tap * g.C;
-        const int dh = tap / 3, dw = tap - 3 * (tap / 3);
-        const int ow = m % g.W;
-        const int t = m / g.W;
-        const int oh = t % g.H;
-        const int b = t / g.H;
-        const int ih = oh + dh - 1, iw = ow + dw - 1;
-        ok = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
-        src = x + ((static_cast<size_t>(b) * g.H + ih) * g.W + iw) * g.C + c;
-      } else {
-        src = x + static_cast<size_t>(m) * K + k;
-      }
-    }
-    if (ok) {
-      load8(src, f);
+    size_t off = 0;
+    int c;  // prologue channel of the first element
+    if (a_src<CONV>(m0 + row, k0 + kv, M, K, g, off, c)) {
+      load8(x + off, f);
       if (prologue) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {

@@ -77,14 +77,17 @@ _IMAGENET_CFG = {
 def ResNet(class_num: int = 1000, depth: int = 50,
            dataset: str = "imagenet", stem: str = "conv7",
            fused: bool = False, device: DeviceLike = None,
-           generator: Optional[torch.Generator] = None) -> nn.Graph:
+           generator: Optional[torch.Generator] = None,
+           remat: bool = True) -> nn.Graph:
     """Build ResNet-``depth`` for ImageNet in eval mode on ``device``
     (default: the card; ``device="cpu"`` for the CPU).
 
     ``stem="space_to_depth"`` is the 2x2 space-to-depth + 4x4/s1 conv
     with ``(1, 2)`` pads, the same function as the 7x7/s2 stem
     (:func:`fold_stem_to_s2d`).  ``fused=True`` builds each bottleneck as
-    a :class:`~bigdl_tpu_torch.nn.FusedBottleneck`.  Weights are drawn
+    a :class:`~bigdl_tpu_torch.nn.FusedBottleneck`, whose training
+    forward is recomputed in the backward when ``remat`` (the JAX
+    package's default).  Call ``.train()`` to train.  Weights are drawn
     from ``generator`` (a CPU ``torch.Generator``); load trained or JAX
     weights with :func:`bigdl_tpu_torch.utils.load_jax_variables`.
     """
@@ -119,7 +122,8 @@ def ResNet(class_num: int = 1000, depth: int = 50,
             stride = 2 if (stage > 0 and b == 0) else 1
             if fused:
                 x = nn.FusedBottleneck(n_in, planes, stride,
-                                       name=f"fused_s{stage}b{b}").inputs(x)
+                                       name=f"fused_s{stage}b{b}",
+                                       remat=remat).inputs(x)
             else:
                 x = block(x, n_in, planes, stride)
             n_in = planes * expansion
@@ -133,9 +137,11 @@ def ResNet(class_num: int = 1000, depth: int = 50,
 
 def ResNet50(class_num: int = 1000, stem: str = "conv7",
              fused: bool = False, device: DeviceLike = None,
-             generator: Optional[torch.Generator] = None) -> nn.Graph:
+             generator: Optional[torch.Generator] = None,
+             remat: bool = True) -> nn.Graph:
     """The bench model's network (bigdl_tpu/models/resnet.py:198)."""
-    return ResNet(class_num, 50, "imagenet", stem, fused, device, generator)
+    return ResNet(class_num, 50, "imagenet", stem, fused, device, generator,
+                  remat)
 
 
 def fold_stem_to_s2d(w7):

@@ -7,8 +7,10 @@ pytrees threaded through a pure ``apply``.  Here they live on
 tree of a model and the port's ``named_parameters``/``named_buffers``
 differ only in the path separator.
 
-Only the eval forward is ported so far; modules whose training forward
-differs (BatchNorm, the fused blocks) refuse to run in training mode.
+``train()``/``eval()`` choose the forward as ``training=True/False``
+chooses it in the JAX ``apply``; the modules that keep running statistics
+(BatchNorm, the fused blocks) update their buffers in place during a
+training forward, where the JAX package returns new state.
 """
 from __future__ import annotations
 
@@ -49,12 +51,6 @@ class Module(torch.nn.Module):
         from bigdl_tpu_torch.nn.graph import Node
 
         return Node(self, list(nodes))
-
-    def _require_eval(self):
-        if self.training:
-            raise NotImplementedError(
-                f"{type(self).__name__}: only the eval forward is ported; "
-                "call .eval() first")
 
     def extra_repr(self) -> str:
         return f"name={self._bigdl_name!r}"

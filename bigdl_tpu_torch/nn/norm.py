@@ -1,9 +1,14 @@
-"""BatchNorm, eval path (counterpart of bigdl_tpu/nn/norm.py).
+"""BatchNorm (counterpart of bigdl_tpu/nn/norm.py).
 
 The running statistics are buffers named as the JAX state leaves
 (``running_mean``, ``running_var``) and stay f32 whatever the compute
-type.  The eval forward rounds exactly as bigdl_tpu/nn/norm.py:92-100:
-the f32 constants are cast to x's type and applied in x's type.
+type.  Both paths round exactly as bigdl_tpu/nn/norm.py:66-101: the f32
+constants are cast to x's type and applied in x's type.
+
+Training takes one-pass f32 batch statistics (``E[x^2] - E[x]^2``,
+clamped at 0) and moves the running statistics once per forward with
+``momentum`` and the unbiased variance.  The JAX layer returns them as
+new state; here they are updated in place, outside autograd.
 """
 from __future__ import annotations
 
@@ -41,16 +46,29 @@ class BatchNormalization(Module):
                 self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def eval_constants(self):
-        """f32 ``(scale, offset)`` with ``y = x * scale + offset``, in the
-        JAX layer's order of operations."""
-        inv = torch.rsqrt(self.running_var + self.eps)
-        w, b = self.weight.float(), self.bias.float()
-        return inv * w, (-self.running_mean * inv) * w + b
+    def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                             count: int):
+        """``running = (1 - m) * running + m * batch`` with the unbiased
+        variance ``var * count / (count - 1)`` (norm.py:82-88)."""
+        m = self.momentum
+        with torch.no_grad():
+            unbiased = var.detach() * (count / max(count - 1, 1))
+            self.running_mean.copy_((1 - m) * self.running_mean
+                                    + m * mean.detach())
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
 
     def forward(self, x):
-        self._require_eval()
-        scale, offset = self.eval_constants()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            self.update_running_stats(mean, var, x.numel() // x.shape[-1])
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        scale = inv * self.weight.float()
+        offset = (-mean * inv) * self.weight.float() + self.bias.float()
         return x * scale.to(x.dtype) + offset.to(x.dtype)
 
 

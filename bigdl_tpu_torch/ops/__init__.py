@@ -1,11 +1,14 @@
 """Kernels of the port and their plain PyTorch versions."""
-from bigdl_tpu_torch.ops.fused_matmul import (LAUNCHES, bn_constants,
-                                              fused_conv3x3_bn,
-                                              fused_conv3x3_bn_plain,
-                                              fused_matmul_bn,
-                                              fused_matmul_bn_plain,
-                                              reset_launches)
+from bigdl_tpu_torch.ops.fused_matmul import (
+    LAUNCHES, bn_constants, conv3x3_wgrad, fused_conv3x3_bn,
+    fused_conv3x3_bn_dgrad, fused_conv3x3_bn_dgrad_plain,
+    fused_conv3x3_bn_plain, fused_matmul_bn, fused_matmul_bn_dgrad,
+    fused_matmul_bn_dgrad_plain, fused_matmul_bn_plain,
+    fused_matmul_bn_wgrad, fused_matmul_bn_wgrad_plain, reset_launches)
 
-__all__ = ["LAUNCHES", "bn_constants", "fused_conv3x3_bn",
+__all__ = ["LAUNCHES", "bn_constants", "conv3x3_wgrad", "fused_conv3x3_bn",
+           "fused_conv3x3_bn_dgrad", "fused_conv3x3_bn_dgrad_plain",
            "fused_conv3x3_bn_plain", "fused_matmul_bn",
-           "fused_matmul_bn_plain", "reset_launches"]
+           "fused_matmul_bn_dgrad", "fused_matmul_bn_dgrad_plain",
+           "fused_matmul_bn_plain", "fused_matmul_bn_wgrad",
+           "fused_matmul_bn_wgrad_plain", "reset_launches"]

@@ -30,6 +30,15 @@ SOURCES: Dict[str, tuple] = {
                         ("fused_matmul_bn_bf16", "fused_matmul_bn_f32")),
     "fused_conv3x3_bn": ("fused_conv3x3_bn.cu",
                          ("fused_conv3x3_bn_bf16", "fused_conv3x3_bn_f32")),
+    "fused_matmul_bn_dgrad": ("fused_matmul_bn_dgrad.cu",
+                              ("fused_matmul_bn_dgrad_bf16",
+                               "fused_matmul_bn_dgrad_f32")),
+    "fused_matmul_bn_wgrad": ("fused_matmul_bn_wgrad.cu",
+                              ("fused_matmul_bn_wgrad_bf16",
+                               "fused_matmul_bn_wgrad_f32")),
+    "fused_conv3x3_bn_dgrad": ("fused_conv3x3_bn_dgrad.cu",
+                               ("fused_conv3x3_bn_dgrad_bf16",
+                                "fused_conv3x3_bn_dgrad_f32")),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,6 +47,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
     "fused_matmul_bn": [_P] * 9 + [_I] * 5 + [_P],
     "fused_conv3x3_bn": [_P] * 9 + [_I] * 7 + [_P],
+    "fused_matmul_bn_dgrad": [_P] * 13 + [_I] * 5 + [_P],
+    "fused_matmul_bn_wgrad": [_P] * 9 + [_I] * 6 + [_P],
+    "fused_conv3x3_bn_dgrad": [_P] * 13 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

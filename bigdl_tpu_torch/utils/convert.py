@@ -11,6 +11,10 @@ layouts (NHWC, HWIO, ``(in, out)``), so the carry is one table:
 
 with no rename and no transpose.  Leaves are numpy arrays (or anything
 ``np.asarray`` takes: a jax array converts on the caller's side).
+
+An optimizer's state carries the same way: SGD's ``{"velocity": tree}``
+has one tree shaped as the params, which becomes a flat dict keyed by
+parameter name (:func:`load_jax_opt_state`, :func:`export_opt_state`).
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 from bigdl_tpu_torch.nn.module import Container
 
 __all__ = ["load_jax_variables", "export_variables", "flatten",
-           "random_variables"]
+           "random_variables", "load_jax_opt_state", "export_opt_state"]
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -127,3 +131,44 @@ def random_variables(template: Mapping, seed: int) -> dict:
         return out
 
     return {kind: fill(template.get(kind, {})) for kind in ("params", "state")}
+
+
+def load_jax_opt_state(opt_state: Mapping,
+                       params: Mapping[str, torch.Tensor]) -> dict:
+    """A JAX optimizer state such as SGD's ``{"velocity": tree}`` (each
+    slot a tree shaped as the params) as the port's ``{"velocity":
+    {name: f32 tensor}}``, each tensor on its parameter's device, so a
+    JAX run's state continues in :func:`make_train_step`.  Raises
+    ``KeyError`` when a slot's keys differ from ``params``' and
+    ``ValueError`` on a shape mismatch."""
+    out = {}
+    for slot, tree in opt_state.items():
+        got = flatten(tree)
+        missing = sorted(set(params) - set(got))
+        extra = sorted(set(got) - set(params))
+        if missing or extra:
+            raise KeyError(f"{slot} keys differ: missing {missing[:8]}, "
+                           f"unexpected {extra[:8]}")
+        out[slot] = {}
+        for k, p in params.items():
+            arr = np.asarray(got[k], np.float32)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{slot} {k}: shape {tuple(arr.shape)} "
+                                 f"!= {tuple(p.shape)}")
+            out[slot][k] = torch.tensor(arr, device=p.device)
+    return out
+
+
+def _fill(template: Mapping, flat: Mapping, prefix: str = "") -> dict:
+    return {k: (_fill(v, flat, f"{prefix}{k}.") if isinstance(v, Mapping)
+                else flat[f"{prefix}{k}"]) for k, v in template.items()}
+
+
+def export_opt_state(model: torch.nn.Module, opt_state: Mapping) -> dict:
+    """The inverse of :func:`load_jax_opt_state`: each slot as a tree of
+    f32 numpy arrays nested as ``export_variables(model)["params"]``
+    (empty subtrees included)."""
+    template = _nest(model, "params")
+    return {slot: _fill(template, {k: v.detach().float().cpu().numpy()
+                                   for k, v in flat.items()})
+            for slot, flat in opt_state.items()}

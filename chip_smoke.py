@@ -8,20 +8,34 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases:
 1. device: require CUDA, print the card's name and power limit, build the
-   port's CUDA kernels from bigdl_tpu_torch/csrc (nvcc, sm_90a) and print
-   the build time;
+   port's CUDA kernels from bigdl_tpu_torch/csrc (nvcc, sm_90a, one
+   process per source, in parallel) and print the build time;
 2. kernels: at ResNet-50's batch-32 shapes in bf16, plus a ragged-M
-   matmul, batch-1 convs and an f32 case of each, hold every kernel's
-   (y, ssum, ssq) against its plain PyTorch version on the card; time
-   the kernel, the plain version and one library call for the same
-   function (CUDA events) and compute the least time the card could
-   take (bytes over 3.35 TB/s or operations over 989 TFLOP/s);
+   matmul, batch-1 convs and an f32 case of each, hold every kernel
+   against its plain PyTorch version on the card: the forward kernels'
+   (y, ssum, ssq) and, with random cotangents, the backward kernels'
+   (dx, d_ps, d_pb) and dW; time the kernel, the plain version and one
+   library call for the same function (CUDA-graph replay) and compute
+   the least time the card could take (bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s);
 3. serve: fused ResNet-50 (space-to-depth stem, 1000 classes) with
    random weights from --seed and randomised BatchNorm, carried in
    through load_jax_variables, served by ServingEngine in bf16 to 4
    client threads; every answer is held against a plain-path forward of
    the same model on the card, and the launch counters must rise by 36
-   (fused_matmul_bn) and 13 (fused_conv3x3_bn) per forward batch.
+   (fused_matmul_bn) and 13 (fused_conv3x3_bn) per forward batch;
+4. train: the same model trained with make_train_step (SGD 0.1, momentum
+   0.9, bf16 compute and features, as bench.py's step): exact launch
+   counts per step with remat on and off, one step at batch 32 held
+   against the plain path in bf16 (loss, running statistics, finite
+   gradients) and in f32 (loss, every gradient, running statistics),
+   two fused blocks at ResNet-50 shapes against the plain path in f32
+   (output, every gradient, running statistics), ten
+   steps on one batch with a falling loss, images/s, ms per step and
+   peak memory at batch 256 with remat on and off (and where the step's
+   device time goes, from torch.profiler), and the user entry point
+   Optimizer.apply(...).optimize() for 5 iterations on 160 images, which
+   prints the reference log lines and must end with a finite loss.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -31,6 +45,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
+import math
 import subprocess
 import sys
 import threading
@@ -43,16 +59,49 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 
-# y: one bf16 rounding apart plus f32 sum order; stats: f32 sum order
+# y, dx, dW: one bf16 rounding apart plus f32 sum order
 Y_RTOL = {"bf16": 2e-2, "f32": 1e-4}
 Y_ATOL = {"bf16": 1e-3, "f32": 1e-6}  # times the largest |y|
 STATS_RTOL = 1e-3
+# d_ps/d_pb: f32 column sums of M terms in another order, and of g that
+# differs by f32 sum order: relative to the largest |d|
+DSUM_ATOL = 2e-3
 BATCH = 32        # kernel shapes: one ResNet-50 forward at 224x224
 REQUESTS = 512    # served by 4 client threads
 ITERS = 20        # timed repetitions
 # served logits vs the plain path, relative to the largest |logit|:
 # bf16 rounding flips from f32 sum order, carried through 53 convs
 SERVE_TOL = 3e-2
+# train step at batch 32, kernels vs plain path from the same weights:
+# loss relative error and relative L2 error per leaf of the gradient and
+# of the running statistics.  The whole model's gradient at these random
+# weights is at its noise floor: scaling the input by (1 + 1e-7) moves
+# the plain path's own f32 gradients by 0.025 median, 0.031 max per leaf
+# (CPU, 224x224, batch 8; 1.8e-6 between the two backward formulations
+# with an identical forward), and moving one pixel by 0.05 moves its
+# bf16 gradients by 1.0 median, 1.28 max.  So f32 gradients are held to
+# 0.1 (a guard against gross faults: a missing or mis-scaled gradient is
+# 1 or more) and bf16 gradients only to being finite; the discriminating
+# gradient check is per block, below.
+TRAIN_F32_TOL = {"loss": 1e-4, "grad": 0.1, "state": 1e-3}
+TRAIN_BF16_TOL = {"loss": 2e-2, "state": 2e-2}
+# one fused block in training at ResNet-50 shapes, f32, kernels vs plain
+# path: output, input gradient and every parameter gradient, relative L2
+# (f32 sums in another order over 100k-sample BatchNorms; measured 5.2e-4
+# and 1.2e-6 for the two blocks on an H100)
+BLOCK_TOL = 2e-3
+BLOCKS = ((256, 64, 1, 56), (256, 128, 2, 56))  # n_in, planes, stride, hw
+TRAIN_BATCH = 256  # bench.py's batch for the throughput steps
+# launches per train step (make_train_step, one batch): forward kernels
+# twice with remat (forward and recompute), each backward kernel once
+STEP_LAUNCHES = {
+    True: {"fused_matmul_bn": 72, "fused_conv3x3_bn": 26,
+           "fused_matmul_bn_dgrad": 36, "fused_matmul_bn_wgrad": 36,
+           "fused_conv3x3_bn_dgrad": 13},
+    False: {"fused_matmul_bn": 36, "fused_conv3x3_bn": 13,
+            "fused_matmul_bn_dgrad": 36, "fused_matmul_bn_wgrad": 36,
+            "fused_conv3x3_bn_dgrad": 13}}
+OPT_ITERS = 5      # Optimizer.optimize() iterations at batch 32
 
 
 def fail(msg: str):
@@ -62,7 +111,8 @@ def fail(msg: str):
 
 def resnet50_calls(batch: int):
     """Kernel calls of one fused ResNet-50 forward at ``batch``:
-    Counter of (M, K, N, prologue) and of (B, H, W, C, Co)."""
+    Counter of (M, K, N, prologue) and of (B, H, W, C, Co).  The
+    backward kernels run once per forward call, at the same shapes."""
     mm, cv = Counter(), Counter()
     n_in, res = 64, 56
     for stage, n_blocks in enumerate((3, 4, 6, 3)):
@@ -137,73 +187,170 @@ def main():
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    def operands(kind_, shape, prologue, dtype):
-        if kind_ == "mm":
-            m, k, n = shape
-            x, w = rand(m, k, dtype=dtype), rand(k, n, scale=k ** -0.5,
-                                                  dtype=dtype)
-            c = k
-        else:
+    def operands(op, shape, prologue, dtype):
+        """Inputs of kernel family ``op`` at ``shape``: x, w, ps, pb and,
+        for a backward kernel, the saved y and the cotangents dy, dssum,
+        dssq (random, at the scales a train step gives them)."""
+        conv = op in ("cv", "cv_dgrad")
+        if conv:
             b, h, wd, c, co = shape
             x = rand(b, h, wd, c, dtype=dtype)
             w = rand(3, 3, c, co, scale=(9 * c) ** -0.5, dtype=dtype)
-        if not prologue:
-            return x, w, None, None
-        ps = torch.rand(c, generator=gen, device=dev) + 0.5
-        pb = torch.randn(c, generator=gen, device=dev) * 0.5
-        return x, w, ps, pb
+            y_shape = (b, h, wd, co)
+        else:
+            m, k, n = shape
+            x, w = rand(m, k, dtype=dtype), rand(k, n, scale=k ** -0.5,
+                                                  dtype=dtype)
+            c, co, y_shape = k, n, (m, n)
+        ps = pb = None
+        if prologue:
+            ps = torch.rand(c, generator=gen, device=dev) + 0.5
+            pb = torch.randn(c, generator=gen, device=dev) * 0.5
+        ops = {"x": x, "w": w, "ps": ps, "pb": pb}
+        if op in ("mm", "cv"):
+            return ops
+        m = math.prod(y_shape[:-1])
+        ops.update(y=rand(*y_shape, dtype=dtype),
+                   dy=rand(*y_shape, scale=m ** -0.5, dtype=dtype),
+                   dssum=torch.randn(co, generator=gen, device=dev) / m,
+                   dssq=torch.randn(co, generator=gen, device=dev) / m)
+        return ops
 
-    def check(name, got, ref, dt):
-        y, s, q = got
-        yr, sr, qr = ref
-        d = (y.float() - yr.float()).abs()
-        scale = yr.float().abs().max().item()
-        bad_y = (d > Y_RTOL[dt] * yr.float().abs() + Y_ATOL[dt] * scale).sum()
-        m = y.numel() // y.shape[-1]
-        sum_atol = 1e-5 * torch.sqrt(m * qr)  # bounds |sum| of the column
-        bad_s = ((s - sr).abs() > STATS_RTOL * sr.abs() + sum_atol).sum()
-        bad_q = ((q - qr).abs() > STATS_RTOL * qr.abs()).sum()
-        if not (torch.isfinite(y.float()).all() and bad_y == 0
-                and bad_s == 0 and bad_q == 0):
-            fail(f"{name}: kernel disagrees with the plain version "
-                 f"(y {int(bad_y)} bad, max |d| {d.max().item():.4g}; "
-                 f"ssum {int(bad_s)} bad; ssq {int(bad_q)} bad)")
+    def ytot(o, dtype):
+        return (o["dy"].float() + o["dssum"]
+                + 2.0 * o["y"].float() * o["dssq"]).to(dtype)
+
+    def prologue_bwd(g, o):
+        """The library version's mask and reductions (on f32 g)."""
+        if o["ps"] is None:
+            return g.to(o["x"].dtype), None, None
+        xf = o["x"].float().reshape(g.shape)
+        g = torch.where(xf * o["ps"] + o["pb"] > 0, g, 0.0)
+        return (g * o["ps"]).to(o["x"].dtype), (g * xf).sum(0), g.sum(0)
+
+    def library(op, o):
+        """One PyTorch library call for the same function, with the
+        elementwise work around it done by plain tensor ops."""
+        x, w, ps, pb = o["x"], o["w"], o["ps"], o["pb"]
+        if op in ("mm", "cv", "mm_wgrad"):
+            u = x if ps is None else torch.relu(
+                x.float() * ps + pb).to(w.dtype)
+        if op == "mm":
+            y = torch.matmul(u, w)
+        elif op == "cv":
+            y = torch.nn.functional.conv2d(
+                u.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1
+            ).permute(0, 2, 3, 1)
+        if op in ("mm", "cv"):
+            yf = y.float().reshape(-1, y.shape[-1])
+            return y, yf.sum(0), (yf * yf).sum(0)
+        t = ytot(o, x.dtype)
+        if op == "mm_dgrad":
+            return prologue_bwd(torch.matmul(t, w.t()).float(), o)
+        if op == "mm_wgrad":
+            return torch.matmul(u.t(), t)
+        b, h, wd, ci = x.shape
+        g = torch.nn.grad.conv2d_input(
+            (b, ci, h, wd), w.permute(3, 2, 0, 1), t.permute(0, 3, 1, 2),
+            padding=1).permute(0, 2, 3, 1)
+        return prologue_bwd(g.float().reshape(-1, ci), o)
+
+    def call(fn, op, o):
+        if op in ("mm", "cv"):
+            return fn(o["x"], o["w"], o["ps"], o["pb"], relu=True)
+        if op == "mm_wgrad":
+            return fn(o["x"], o["ps"], o["pb"], o["dy"], o["y"], o["dssum"],
+                      o["dssq"], relu=True)
+        return fn(o["dy"], o["y"], o["dssum"], o["dssq"], o["w"], o["x"],
+                  o["ps"], o["pb"], relu=True)
+
+    def close(name, what, got, ref, dt):
+        """Elementwise check of a tensor in x's type; max |d|."""
+        d = (got.float() - ref.float()).abs()
+        scale = ref.float().abs().max().item()
+        bad = (d > Y_RTOL[dt] * ref.float().abs() + Y_ATOL[dt] * scale).sum()
+        if not torch.isfinite(got.float()).all() or bad:
+            fail(f"{name}: kernel {what} disagrees with the plain version "
+                 f"({int(bad)} bad, max |d| {d.max().item():.4g})")
         return d.max().item()
 
+    def close_sums(name, what, got, ref, rtol, atol):
+        bad = ((got - ref).abs() > rtol * ref.abs() + atol).sum()
+        if not torch.isfinite(got).all() or bad:
+            fail(f"{name}: kernel {what} disagrees with the plain version "
+                 f"({int(bad)} bad, max |d| "
+                 f"{(got - ref).abs().max().item():.4g})")
+
+    def check(name, op, got, ref, dt, m):
+        if op in ("mm", "cv"):
+            (y, s, q), (yr, sr, qr) = got, ref
+            err = close(name, "y", y, yr, dt)
+            close_sums(name, "ssum", s, sr, STATS_RTOL,
+                       1e-5 * torch.sqrt(m * qr))  # bounds |column sum|
+            close_sums(name, "ssq", q, qr, STATS_RTOL, 0.0)
+            return err
+        if op == "mm_wgrad":
+            return close(name, "dW", got, ref, dt)
+        (dx, dps, dpb), (dxr, dpsr, dpbr) = got, ref
+        err = close(name, "dx", dx, dxr, dt)
+        if (dps is None) != (dpsr is None):
+            fail(f"{name}: d_ps/d_pb present in one version only")
+        for what, g, r in (("d_ps", dps, dpsr), ("d_pb", dpb, dpbr)):
+            if r is not None:
+                close_sums(name, what, g, r, STATS_RTOL,
+                           DSUM_ATOL * r.abs().max())
+        return err
+
+    # op -> (kernel name, wrapper, plain version, source, TPU kernel)
+    src = "bigdl_tpu_torch/csrc/"
+    tpu = "bigdl_tpu/ops/pallas/fused_matmul.py:"
     kernels = {
         "mm": ("fused_matmul_bn", fm.fused_matmul_bn,
-               fm.fused_matmul_bn_plain),
+               fm.fused_matmul_bn_plain, f"{tpu}159"),
+        "mm_dgrad": ("fused_matmul_bn_dgrad", fm.fused_matmul_bn_dgrad,
+                     fm.fused_matmul_bn_dgrad_plain, f"{tpu}218"),
+        "mm_wgrad": ("fused_matmul_bn_wgrad", fm.fused_matmul_bn_wgrad,
+                     fm.fused_matmul_bn_wgrad_plain, f"{tpu}300"),
         "cv": ("fused_conv3x3_bn", fm.fused_conv3x3_bn,
-               fm.fused_conv3x3_bn_plain),
+               fm.fused_conv3x3_bn_plain, f"{tpu}516"),
+        "cv_dgrad": ("fused_conv3x3_bn_dgrad", fm.fused_conv3x3_bn_dgrad,
+                     fm.fused_conv3x3_bn_dgrad_plain, f"{tpu}671"),
     }
     mm_calls, cv_calls = resnet50_calls(BATCH)
     if sum(mm_calls.values()) != 36 or sum(cv_calls.values()) != 13:
         fail(f"call table: {sum(mm_calls.values())} matmuls, "
              f"{sum(cv_calls.values())} convs per forward")
-    main_shapes = [("mm", (m, k, n), p, c) for (m, k, n, p), c
-                   in mm_calls.items()]
-    main_shapes += [("cv", s, True, c) for s, c in cv_calls.items()]
-    extra = [("mm", (147, 2048, 512), True, "bf16"),     # ragged M, 3 x 7x7
-             ("mm", (1000, 64, 256), False, "bf16"),
-             ("cv", (1, 56, 56, 64, 64), True, "bf16"),  # batch 1
-             ("cv", (1, 7, 7, 512, 512), True, "bf16"),
-             ("cv", (3, 7, 7, 512, 512), False, "bf16"),
-             ("mm", (4099, 256, 64), True, "f32"),
-             ("cv", (2, 14, 14, 64, 128), True, "f32")]
-    max_err = {"mm": 0.0, "cv": 0.0}
-    for kind_, shape, prologue, dt in extra + [
-            (k_, s_, p_, "bf16") for k_, s_, p_, _ in main_shapes]:
-        name, kern, plain = kernels[kind_]
+    main_shapes = [(op, (m, k, n), p, c) for (m, k, n, p), c
+                   in mm_calls.items() for op in ("mm", "mm_dgrad",
+                                                  "mm_wgrad")]
+    main_shapes += [(op, s, True, c) for s, c in cv_calls.items()
+                    for op in ("cv", "cv_dgrad")]
+    extra = []
+    for op in ("mm", "mm_dgrad", "mm_wgrad"):
+        extra += [(op, (147, 2048, 512), True, "bf16"),  # ragged M, 3 x 7x7
+                  (op, (1000, 64, 256), False, "bf16"),
+                  (op, (4099, 256, 64), True, "f32")]
+    for op in ("cv", "cv_dgrad"):
+        extra += [(op, (1, 56, 56, 64, 64), True, "bf16"),  # batch 1
+                  (op, (1, 7, 7, 512, 512), True, "bf16"),
+                  (op, (3, 7, 7, 512, 512), False, "bf16"),
+                  (op, (2, 14, 14, 64, 128), True, "f32")]
+    max_err = Counter()
+    for op, shape, prologue, dt in extra + [
+            (o_, s_, p_, "bf16") for o_, s_, p_, _ in main_shapes]:
+        name, kern, plain, _ = kernels[op]
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        x, w, ps, pb = operands(kind_, shape, prologue, dtype)
-        got = kern(x, w, ps, pb, relu=True)
+        o = operands(op, shape, prologue, dtype)
+        got = call(kern, op, o)
         torch.cuda.synchronize()
-        ref = plain(x, w, ps, pb, relu=True)
-        err = check(f"{name}{shape} {dt}", got, ref, dt)
+        ref = call(plain, op, o)
+        m = math.prod(shape[:-2]) if op.startswith("cv") else shape[0]
+        err = check(f"{name}{shape} {dt}", op, got, ref, dt, m)
         if dt == "bf16":
-            max_err[kind_] = max(max_err[kind_], err)
+            max_err[op] = max(max_err[op], err)
+        del o, got, ref
     print(f"kernel checks passed: {len(extra) + len(main_shapes)} cases, "
-          f"max |y - plain| {max_err}", flush=True)
+          f"max |kernel - plain| {dict(max_err)}", flush=True)
     if args.quick:
         print("quick: kernels build, launch and agree; stopping")
         return
@@ -247,44 +394,45 @@ def main():
         del graph
         return a.elapsed_time(b) / (ITERS * reps)
 
-    def library(kind_, x, w, ps, pb):
-        u = x if ps is None else torch.relu(
-            x.float() * ps + pb).to(w.dtype)
-        if kind_ == "mm":
-            y = torch.matmul(u, w)
-        else:
-            y = torch.nn.functional.conv2d(
-                u.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1
-            ).permute(0, 2, 3, 1)
-        yf = y.float().reshape(-1, y.shape[-1])
-        return y, yf.sum(0), (yf * yf).sum(0)
-
-    def bound(kind_, shape):
-        if kind_ == "mm":
+    def bound(op, shape):
+        """(bytes ms, operations ms): each input read once, each output
+        written once, over the card's memory rate and bf16 peak."""
+        if op.startswith("mm"):
             m, k, n = shape
-            elems, flops, c, co = m * k + k * n + m * n, 2 * m * k * n, k, n
+            flops = 2 * m * k * n
+            elems, vec = {"mm": m * k + k * n + m * n,
+                          "mm_dgrad": 2 * m * n + k * n + 2 * m * k,
+                          "mm_wgrad": m * k + 2 * m * n}[op], 2 * k + 2 * n
+            if op == "mm_dgrad":
+                vec += 2 * k  # d_ps, d_pb
+            nbytes = 2 * elems + 4 * vec + (4 * k * n if op == "mm_wgrad"
+                                            else 0)
         else:
             b, h, wd, c, co = shape
             m = b * h * wd
-            elems = m * c + 9 * c * co + m * co
             flops = 18 * m * c * co
-        nbytes = 2 * elems + 4 * (2 * c + 2 * co)
+            if op == "cv":  # x, w, y; ps, pb, ssum, ssq
+                elems, vec = m * c + 9 * c * co + m * co, 2 * c + 2 * co
+            else:  # dy, y, x, dx, w; ps, pb, d_ps, d_pb, dssum, dssq
+                elems = 2 * m * co + 2 * m * c + 9 * c * co
+                vec = 4 * c + 2 * co
+            nbytes = 2 * elems + 4 * vec
         return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
     rows, agg = [], {}
-    for kind_, shape, prologue, count in main_shapes:
-        name, kern, plain = kernels[kind_]
-        x, w, ps, pb = operands(kind_, shape, prologue, torch.bfloat16)
+    for op, shape, prologue, count in main_shapes:
+        name, kern, plain, _ = kernels[op]
+        o = operands(op, shape, prologue, torch.bfloat16)
         r = {"kernel": name, "shape": list(shape), "prologue": prologue,
              "calls_per_forward": count,
-             "ms": device_ms(lambda: kern(x, w, ps, pb, relu=True)),
-             "plain_ms": device_ms(lambda: plain(x, w, ps, pb, relu=True)),
-             "library_ms": device_ms(lambda: library(kind_, x, w, ps, pb)),
-             "call_ms": call_ms(lambda: kern(x, w, ps, pb, relu=True))}
-        r["bytes_ms"], r["ops_ms"] = bound(kind_, shape)
+             "ms": device_ms(lambda: call(kern, op, o)),
+             "plain_ms": device_ms(lambda: call(plain, op, o)),
+             "library_ms": device_ms(lambda: library(op, o)),
+             "call_ms": call_ms(lambda: call(kern, op, o))}
+        r["bytes_ms"], r["ops_ms"] = bound(op, shape)
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
         rows.append(r)
-        a = agg.setdefault(kind_, Counter())
+        a = agg.setdefault(op, Counter())
         for key in ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
                     "bytes_ms", "ops_ms"):
             a[key] += count * r[key]
@@ -292,7 +440,7 @@ def main():
               f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f}, eager call {r['call_ms']:.4f})",
               flush=True)
-        del x, w
+        del o
 
     # ----------------------------------------------------------- 3. serve
     from bigdl_tpu_torch.models import ResNet50
@@ -336,16 +484,16 @@ def main():
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
-    launches = dict(fm.LAUNCHES)
+    serve_launches = dict(fm.LAUNCHES)
     batches = engine.metrics.batches - batches0
     log_line = engine.log_line()
     p50, p99 = engine.metrics.latency_ms(50), engine.metrics.latency_ms(99)
     engine.close()
     if errors:
         fail(f"client errors: {errors[:3]}")
-    if launches["fused_matmul_bn"] != 36 * batches or \
-            launches["fused_conv3x3_bn"] != 13 * batches:
-        fail(f"launches {launches} over {batches} forward batches; "
+    if serve_launches["fused_matmul_bn"] != 36 * batches or \
+            serve_launches["fused_conv3x3_bn"] != 13 * batches or batches == 0:
+        fail(f"launches {serve_launches} over {batches} forward batches; "
              "expected 36 and 13 per batch")
 
     # one batch-32 forward: eager (host included) against the device
@@ -377,39 +525,280 @@ def main():
              f"{serve_err:.4g} > {SERVE_TOL} x {serve_scale:.4g}")
     print(f"serve: {REQUESTS} requests from {n_clients} threads in "
           f"{batches} batches, {REQUESTS / wall:.1f} images/s, "
-          f"p50 {p50:.2f} ms, p99 {p99:.2f} ms; launches {launches}; "
+          f"p50 {p50:.2f} ms, p99 {p99:.2f} ms; launches {serve_launches}; "
           f"max |logit - plain| {serve_err:.4g} (max |logit| "
           f"{serve_scale:.4g})", flush=True)
     print(log_line, flush=True)
+    del engine, model, images, answers, got, ref_np
+
+    # ----------------------------------------------------------- 4. train
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, FusedBottleneck
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger, make_train_step
+
+    bf16 = torch.bfloat16
+    crit = ClassNLLCriterion(logits=True)
+
+    def set_remat(m, on):
+        for blk in m.modules():
+            if isinstance(blk, FusedBottleneck):
+                blk.remat = on
+
+    def fresh(m):
+        """(params, model_state, opt_states) of ``m`` for the step."""
+        params = {k: p.detach().clone() for k, p in m.named_parameters()}
+        state = {k: b.detach().clone() for k, b in m.named_buffers()}
+        return params, state, {"__all__": SGD(0.1, momentum=0.9)
+                               .init_state(params)}
+
+    tmodel = ResNet50(1000, stem="space_to_depth", fused=True)
+    load_jax_variables(tmodel, variables)
+    step = make_train_step(tmodel, crit, {"__all__": SGD(0.1, momentum=0.9)},
+                           compute_dtype=bf16)
+    plain_step = make_train_step(reference, crit,
+                                 {"__all__": SGD(0.1, momentum=0.9)},
+                                 compute_dtype=bf16)
+    rs = np.random.RandomState(args.seed + 2)
+    xt = torch.from_numpy(rs.rand(32, 224, 224, 3).astype(np.float32)
+                          ).to(dev).to(bf16)  # bench.py:109
+    tt = torch.from_numpy(rs.randint(0, 1000, 32)).to(dev)
+
+    # 4.1 one step against the plain path, and the launches per step
+    step_launches = {}
+    for remat in (False, True):  # the remat-on step is compared below
+        set_remat(tmodel, remat)
+        fm.reset_launches()
+        kern_out = step(*fresh(tmodel), 1, None, xt, tt, [0.1])
+        torch.cuda.synchronize()
+        step_launches[remat] = dict(fm.LAUNCHES)
+        if step_launches[remat] != STEP_LAUNCHES[remat]:
+            fail(f"train step launches with remat={remat}: "
+                 f"{step_launches[remat]}, expected {STEP_LAUNCHES[remat]}")
+    print(f"train step launches: remat on {step_launches[True]}, "
+          f"remat off {step_launches[False]}", flush=True)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
+
+    def compare(what, kern, plain, tol):
+        """Kernel-path step outputs against the plain path's."""
+        (pk, sk, ok, lk), (_, sp, op_, lp) = kern, plain
+        vk, vp = ok["__all__"]["velocity"], op_["__all__"]["velocity"]
+        bad = [k for k in pk if not (torch.isfinite(vk[k]).all()
+                                     and torch.isfinite(pk[k]).all())]
+        if bad or not math.isfinite(lk.item()):
+            fail(f"{what}: non-finite loss, gradients or parameters "
+                 f"{bad[:4]}")
+        err = {"loss": abs(lk.item() - lp.item()) / abs(lp.item())}
+        grad = {k: rel(vk[k], vp[k]) for k in pk}
+        state = {k: rel(sk[k], sp[k]) for k in sk}
+        err["grad"], err["state"] = max(grad.values()), max(state.values())
+        worst = max(grad, key=grad.get)
+        print(f"train step parity, {what} at batch 32 (kernels vs plain "
+              f"path): loss {lk.item():.6g} vs {lp.item():.6g} (rel "
+              f"{err['loss']:.3g}); gradient rel L2 per leaf max "
+              f"{err['grad']:.3g} ({worst}), median "
+              f"{sorted(grad.values())[len(grad) // 2]:.3g}; running "
+              f"stats max {err['state']:.3g}", flush=True)
+        over = {k: (err[k], t) for k, t in tol.items() if err[k] > t}
+        if over:
+            fail(f"{what} train step disagrees with the plain path: "
+                 f"(error, limit) {over}")
+        return err
+
+    parity = {"bf16": compare("bf16", kern_out, plain_step(
+        *fresh(reference), 1, None, xt, tt, [0.1]), TRAIN_BF16_TOL)}
+    f32_step = make_train_step(tmodel, crit,
+                               {"__all__": SGD(0.1, momentum=0.9)})
+    f32_plain = make_train_step(reference, crit,
+                                {"__all__": SGD(0.1, momentum=0.9)})
+    xf = xt.float()
+    parity["f32"] = compare(
+        "f32", f32_step(*fresh(tmodel), 1, None, xf, tt, [0.1]),
+        f32_plain(*fresh(reference), 1, None, xf, tt, [0.1]), TRAIN_F32_TOL)
+    del kern_out, plain_step, f32_step, f32_plain, reference, xf
+
+    # one fused block at a time, f32: the gradients are well-conditioned
+    parity["blocks"] = {}
+    for n_in, planes, stride, hw in BLOCKS:
+        bv = random_variables(export_variables(
+            FusedBottleneck(n_in, planes, stride)), args.seed + 4)
+        xb = torch.randn((BATCH, hw, hw, n_in), generator=gen, device=dev)
+        cot = torch.randn((BATCH, hw // stride, hw // stride, 4 * planes),
+                          generator=gen, device=dev)
+        got = []
+        for plain in (False, True):
+            blk = FusedBottleneck(n_in, planes, stride).to(dev)
+            load_jax_variables(blk, bv)
+            use_plain_ops(blk, plain).train()
+            xx = xb.clone().requires_grad_(True)
+            yb = blk(xx)
+            (yb * cot).sum().backward()
+            got.append({"out": yb.detach(), "dx": xx.grad,
+                        **{k: p.grad for k, p in blk.named_parameters()},
+                        **dict(blk.named_buffers())})
+        err = {k: rel(got[0][k], got[1][k]) for k in got[1]}
+        worst = max(err, key=err.get)
+        what = f"block({n_in}, {planes}, stride {stride}) at {hw}x{hw}"
+        parity["blocks"][what] = err[worst]
+        print(f"train parity, {what}, f32: output, gradients and running "
+              f"stats rel L2 max {err[worst]:.3g} ({worst})", flush=True)
+        if err[worst] > BLOCK_TOL or not all(
+                torch.isfinite(t).all() for t in got[0].values()):
+            fail(f"{what}: kernels disagree with the plain path: "
+                 f"{worst} {err[worst]:.3g} > {BLOCK_TOL}")
+        del got, xb, cot
+
+    # 4.2 ten steps on one batch: the loss falls
+    trees = fresh(tmodel)
+    losses = []
+    for i in range(10):
+        *trees, loss = step(*trees, i + 1, None, xt, tt, [0.1])
+        losses.append(loss.item())
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"loss did not fall over 10 steps on one batch: {losses}")
+    print(f"learning: 10 steps on one batch of 32, loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    del trees
+
+    # 4.3 throughput at batch 256, remat on and off
+    x256 = torch.rand((TRAIN_BATCH, 224, 224, 3), generator=gen,
+                      device=dev).to(bf16)
+    t256 = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+    train = {}
+    for remat in (True, False):
+        set_remat(tmodel, remat)
+        trees = fresh(tmodel)
+        for i in range(3):
+            *trees, loss = step(*trees, i + 1, None, x256, t256, [0.1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(10):
+            *trees, loss = step(*trees, i + 4, None, x256, t256, [0.1])
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b) / 10
+        train[remat] = {"ms_per_step": ms,
+                        "images_per_s": TRAIN_BATCH / ms * 1e3,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "loss": loss.item()}
+        if not math.isfinite(train[remat]["loss"]):
+            fail(f"non-finite loss at batch {TRAIN_BATCH}, remat={remat}")
+        print(f"train at batch {TRAIN_BATCH}, remat {'on' if remat else 'off'}"
+              f": {train[remat]['images_per_s']:.1f} images/s, "
+              f"{ms:.2f} ms per step, peak memory "
+              f"{train[remat]['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        del trees
+
+    # where one remat-on step's device time goes (informational)
+    set_remat(tmodel, True)
+    trees = fresh(tmodel)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*trees, 1, None, x256, t256, [0.1])
+        torch.cuda.synchronize()
+    groups = Counter()
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # a CPU op: its kernels are counted as themselves
+        t_us = getattr(evt, "device_time_total", None)
+        if t_us is None:
+            t_us = getattr(evt, "cuda_time_total", 0)
+        key = evt.key
+        if "fused_gemm_bn_kernel" in key:
+            grp = ("kernel 4 (conv forward)" if "true>" in key
+                   else "kernel 1 (matmul forward)")
+        elif "fused_dgrad_kernel" in key:
+            grp = ("kernel 5 (conv dgrad)" if "true>" in key
+                   else "kernel 2 (matmul dgrad)")
+        elif "wgrad" in key:
+            grp = "kernel 3 (matmul wgrad)"
+        elif "colsum_kernel" in key:
+            grp = "column sums (kernels 1, 2, 4, 5)"
+        else:
+            grp = "library and elementwise"
+        groups[grp] += t_us / 1e3
+    device_total = sum(groups.values())
+    breakdown = {k: round(v, 3) for k, v in groups.most_common()}
+    print(f"one step at batch {TRAIN_BATCH} (remat on), device ms by part "
+          f"(torch.profiler, {device_total:.1f} ms in all): {breakdown}",
+          flush=True)
+    del trees, x256, t256, prof
+
+    # 4.4 the user entry point
+    optlog = logging.getLogger("bigdl_tpu_torch.optim")
+    optlog.setLevel(logging.INFO)
+    optlog.addHandler(logging.StreamHandler(sys.stdout))
+    rs = np.random.RandomState(args.seed + 3)
+    feats = rs.rand(160, 224, 224, 3).astype(np.float32)
+    labels = rs.randint(0, 1000, 160)
+    umodel = ResNet50(1000, stem="space_to_depth", fused=True)
+    load_jax_variables(umodel, variables)
+    fm.reset_launches()
+    t0 = time.perf_counter()
+    opt = (Optimizer.apply(umodel, DataSet.from_arrays(feats, labels,
+                                                       batch_size=32),
+                           ClassNLLCriterion(logits=True),
+                           end_trigger=Trigger.max_iteration(OPT_ITERS))
+           .set_optim_method(SGD(0.1, momentum=0.9))
+           .set_compute_dtype(bf16))
+    opt.optimize()
+    opt_s = time.perf_counter() - t0
+    opt_launches = dict(fm.LAUNCHES)
+    final_loss = opt._loop_state["loss"]
+    print(opt.train_log_line(), flush=True)
+    if not math.isfinite(final_loss):
+        fail(f"Optimizer.optimize() ended with loss {final_loss}")
+    want = {k: OPT_ITERS * v for k, v in STEP_LAUNCHES[True].items()}
+    if opt_launches != want:
+        fail(f"Optimizer.optimize() launches {opt_launches}, expected "
+             f"{want}")
+    print(f"optimize: {OPT_ITERS} iterations at batch 32 (f32 features, "
+          f"bf16 parameters: the f32 kernels) in {opt_s:.1f} s, final loss "
+          f"{final_loss:.4f}; launches {opt_launches}", flush=True)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
          "serve": {"requests": REQUESTS, "batches": batches,
                    "images_per_s": REQUESTS / wall, "p50_ms": p50,
                    "p99_ms": p99, "max_abs_err": serve_err,
-                   "max_abs_logit": serve_scale}}, indent=1))
+                   "max_abs_logit": serve_scale},
+         "train": {"batch": TRAIN_BATCH,
+                   "remat_on": train[True], "remat_off": train[False],
+                   "step_device_ms_by_part": breakdown,
+                   "parity": parity,
+                   "losses_one_batch": losses,
+                   "optimize": {"seconds": opt_s, "loss": final_loss}}},
+        indent=1))
 
     # ---------------------------------------------------------- summary
-    src = "bigdl_tpu_torch/csrc/"
-    replaces = {"mm": "bigdl_tpu/ops/pallas/fused_matmul.py:159",
-                "cv": "bigdl_tpu/ops/pallas/fused_matmul.py:516"}
     line = []
-    for kind_ in ("mm", "cv"):
-        name = kernels[kind_][0]
-        a = agg[kind_]
+    for op in ("mm", "mm_dgrad", "mm_wgrad", "cv", "cv_dgrad"):
+        name, _, _, replaces = kernels[op]
+        a = agg[op]
+        calls = sum((cv_calls if op.startswith("cv") else mm_calls).values())
         line.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
-            "replaces": replaces[kind_],
-            "launches": launches[name],
-            "max_abs_err": max_err[kind_],
+            "replaces": replaces,
+            "launches": opt_launches[name],
+            "max_abs_err": max_err[op],
             "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"],
             "bound_by": "bytes" if a["bytes_ms"] >= a["ops_ms"]
             else "operations",
             "library_ms": a["library_ms"],
-            "shapes": f"one ResNet-50 forward at batch {BATCH}: "
-                      f"{sum((mm_calls if kind_ == 'mm' else cv_calls).values())}"
-                      " calls, times summed",
+            "launches_by_path": {
+                "serve": serve_launches[name],
+                "train_step_remat_on": step_launches[True][name],
+                "train_step_remat_off": step_launches[False][name],
+                "optimize": opt_launches[name]},
+            "shapes": f"one ResNet-50 {'backward' if 'grad' in op else 'forward'}"
+                      f" at batch {BATCH}: {calls} calls, times summed",
         })
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -138,7 +138,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     want = tfm.fused_matmul_bn_plain(x, w, relu=False)
     for g, v in zip(got, want):
         assert torch.equal(g, v)
-    assert tfm.LAUNCHES == {"fused_matmul_bn": 0, "fused_conv3x3_bn": 0}
+    assert all(v == 0 for v in tfm.LAUNCHES.values())
 
 
 def test_other_devices_raise_instead_of_falling_back():

@@ -19,8 +19,9 @@ def _modules():
 
 def test_every_submodule_imports_without_jax_or_bigdl_tpu():
     mods = _modules()
-    assert "bigdl_tpu_torch.ops.fused_matmul" in mods
-    assert "bigdl_tpu_torch.serving.engine" in mods
+    for m in ("ops.fused_matmul", "serving.engine", "optim.optimizer",
+              "optim.optim_method", "dataset.dataset", "nn.criterion"):
+        assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

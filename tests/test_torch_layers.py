@@ -94,9 +94,18 @@ def test_batch_norm_bf16_rounds_like_jax():
 
 
 def test_batch_norm_refuses_training_mode():
+    """BatchNorm no longer refuses training mode: its training forward is
+    ported (tests/test_torch_train_layers.py holds it against JAX).  A
+    training forward normalises with the batch statistics and moves the
+    running statistics; an eval forward leaves them alone."""
     bn = tnn.SpatialBatchNormalization(3)
-    with pytest.raises(NotImplementedError):
-        bn.train()(torch.zeros(1, 2, 2, 3))
+    x = torch.arange(12, dtype=torch.float32).reshape(1, 2, 2, 3)
+    y = bn.train()(x)
+    assert torch.allclose(y.mean((0, 1, 2)), torch.zeros(3), atol=1e-6)
+    assert not torch.equal(bn.running_mean, torch.zeros(3))
+    before = bn.running_mean.clone()
+    bn.eval()(x)
+    assert torch.equal(bn.running_mean, before)
 
 
 def test_global_average_pooling_linear_relu_cadd():
