@@ -1,4 +1,5 @@
-"""Loss functions (counterpart of bigdl_tpu/nn/criterion.py:19-84).
+"""Loss functions (counterpart of bigdl_tpu/nn/criterion.py:19-84,
+293-309).
 
 A :class:`Criterion` is a callable ``loss = crit(input, target)``
 returning a scalar in the input's type; gradients come from autograd.
@@ -65,3 +66,21 @@ class ClassNLLCriterion(Criterion):
             denom = torch.clamp_min(torch.where(valid, w, 0.0).sum(), 1e-8)
             return nll * (nll.shape[0] / denom)  # folded into mean()
         return nll
+
+
+class TimeDistributedCriterion(Criterion):
+    """``critrn`` applied at every timestep of ``(N, T, ...)`` inputs
+    (reference nn/TimeDistributedCriterion.scala): input and target are
+    folded to ``(N * T, ...)`` and the inner criterion's reduction (a
+    mean over all N * T rows for ``ClassNLLCriterion``) is the loss."""
+
+    def __init__(self, critrn: Criterion, size_average: bool = True,
+                 dimension: int = 1):
+        super().__init__(size_average)
+        self.critrn = critrn
+
+    def forward(self, input, target):
+        n, t = input.shape[0], input.shape[1]
+        flat_in = input.reshape((n * t,) + tuple(input.shape[2:]))
+        flat_tgt = target.reshape((n * t,) + tuple(target.shape[2:]))
+        return self.critrn.forward(flat_in, flat_tgt)

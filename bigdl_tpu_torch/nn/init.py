@@ -50,3 +50,27 @@ class MsraFiller(InitializationMethod):
                  fan_out=None):
         std = math.sqrt(2.0 / (fan_in or shape[-1]))
         return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+class RandomNormal(InitializationMethod):
+    """``mean + stdv * N(0, 1)``."""
+
+    def __init__(self, mean: float = 0.0, stdv: float = 0.01):
+        self.mean, self.stdv = mean, stdv
+
+    def __call__(self, generator, shape, dtype=torch.float32, fan_in=None,
+                 fan_out=None):
+        return self.mean + self.stdv * torch.randn(shape, generator=generator,
+                                                   dtype=dtype)
+
+
+class Xavier(InitializationMethod):
+    """Glorot uniform: U(+-sqrt(6 / (fan_in + fan_out)))."""
+
+    def __call__(self, generator, shape, dtype=torch.float32, fan_in=None,
+                 fan_out=None):
+        fan_in = fan_in or shape[-1]
+        fan_out = fan_out or shape[0]
+        bound = math.sqrt(6.0 / (fan_in + fan_out))
+        return torch.empty(shape, dtype=dtype).uniform_(
+            -bound, bound, generator=generator)

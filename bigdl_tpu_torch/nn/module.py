@@ -18,6 +18,26 @@ from typing import List, Optional
 
 import torch
 
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """splitmix64's finaliser: a bijection of 64-bit integers."""
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def split_rng(rng: Optional[int], i: int) -> Optional[int]:
+    """The seed of stream ``i`` derived from the seed ``rng``, as
+    ``jax.random.fold_in(rng, i)`` derives a key (bigdl_tpu/nn/module.py:
+    37-40); ``None`` stays ``None``.  The port's random streams are
+    integer seeds, turned into a ``torch.Generator`` where numbers are
+    drawn; the result is a 63-bit seed ``manual_seed`` takes."""
+    if rng is None:
+        return None
+    return _mix64((_mix64(rng & _MASK64) + i + 1) & _MASK64) >> 1
+
 
 class Module(torch.nn.Module):
     """Base of every layer and container: a ``torch.nn.Module`` with a

@@ -1,4 +1,4 @@
-"""BatchNorm (counterpart of bigdl_tpu/nn/norm.py).
+"""BatchNorm and LayerNorm (counterpart of bigdl_tpu/nn/norm.py).
 
 The running statistics are buffers named as the JAX state leaves
 (``running_mean``, ``running_var``) and stay f32 whatever the compute
@@ -74,3 +74,30 @@ class BatchNormalization(Module):
 
 class SpatialBatchNormalization(BatchNormalization):
     """BatchNorm over NHWC images (reduction over N, H, W)."""
+
+
+class LayerNormalization(Module):
+    """LayerNorm over the last axis (bigdl_tpu/nn/norm.py:115-138): mean,
+    variance, normalisation and the affine in f32 whatever x's type, the
+    result cast back to x's type."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-6,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.hidden_size = hidden_size
+        self.eps = eps
+        self.weight = torch.nn.Parameter(torch.ones(hidden_size))
+        self.bias = torch.nn.Parameter(torch.zeros(hidden_size))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.square(xf - mean).mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)

@@ -39,9 +39,12 @@ SOURCES: Dict[str, tuple] = {
     "fused_conv3x3_bn_dgrad": ("fused_conv3x3_bn_dgrad.cu",
                                ("fused_conv3x3_bn_dgrad_bf16",
                                 "fused_conv3x3_bn_dgrad_f32")),
+    "flash_attention": ("flash_attention.cu",
+                        ("flash_attention_fwd_bf16",
+                         "flash_attention_fwd_f32")),
 }
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argument types of each entry point (pointers as c_void_p: a Python
 #: int passed bare would be cut to 32 bits)
 ARGTYPES = {
@@ -50,6 +53,9 @@ ARGTYPES = {
     "fused_matmul_bn_dgrad": [_P] * 13 + [_I] * 5 + [_P],
     "fused_matmul_bn_wgrad": [_P] * 9 + [_I] * 6 + [_P],
     "fused_conv3x3_bn_dgrad": [_P] * 13 + [_I] * 7 + [_P],
+    # q, k, v, o, lse; B, H, T, S, D; the 12 strides (a host array);
+    # sm_scale, causal, stream
+    "flash_attention": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
 }
 
 _lock = threading.Lock()

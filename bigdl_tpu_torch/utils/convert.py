@@ -13,8 +13,9 @@ with no rename and no transpose.  Leaves are numpy arrays (or anything
 ``np.asarray`` takes: a jax array converts on the caller's side).
 
 An optimizer's state carries the same way: SGD's ``{"velocity": tree}``
-has one tree shaped as the params, which becomes a flat dict keyed by
-parameter name (:func:`load_jax_opt_state`, :func:`export_opt_state`).
+and Adam's ``{"m": tree, "v": tree}`` hold trees shaped as the params,
+each of which becomes a flat dict keyed by parameter name
+(:func:`load_jax_opt_state`, :func:`export_opt_state`).
 """
 from __future__ import annotations
 
@@ -135,8 +136,9 @@ def random_variables(template: Mapping, seed: int) -> dict:
 
 def load_jax_opt_state(opt_state: Mapping,
                        params: Mapping[str, torch.Tensor]) -> dict:
-    """A JAX optimizer state such as SGD's ``{"velocity": tree}`` (each
-    slot a tree shaped as the params) as the port's ``{"velocity":
+    """A JAX optimizer state such as SGD's ``{"velocity": tree}`` or
+    Adam's ``{"m": tree, "v": tree}`` (each slot a tree shaped as the
+    params) as the port's ``{"velocity":
     {name: f32 tensor}}``, each tensor on its parameter's device, so a
     JAX run's state continues in :func:`make_train_step`.  Raises
     ``KeyError`` when a slot's keys differ from ``params``' and

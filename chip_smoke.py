@@ -35,7 +35,19 @@ Phases:
    peak memory at batch 256 with remat on and off (and where the step's
    device time goes, from torch.profiler), and the user entry point
    Optimizer.apply(...).optimize() for 5 iterations on 160 images, which
-   prints the reference log lines and must end with a finite loss.
+   prints the reference log lines and must end with a finite loss;
+5. lm: the flash-attention kernel held against its plain version (O and
+   lse) at the LM's (8, 8, 512, 32) causal shape as MultiHeadAttention
+   gives it, the FLASH shape, a ragged T, KV longer than Q, f32 and a
+   causal (1, 8, 8192, 128), timed beside its plain version and SDPA;
+   the default Transformer LM (10001 tokens, hidden 256, 8 heads, filter
+   1024, 4 layers) with random weights from --seed carried in through
+   load_jax_variables: one Adam + clipping train step in bf16 and in f32
+   held against the plain attention path (use_flash=False), exactly 4
+   flash launches per forward, ms per step, tokens/s and peak memory at
+   batch 8 and T 512 and 4096 with a profiler breakdown, and the user
+   entry point transformer_train.main([]), whose loss must fall and whose
+   flash launches must be (iterations + validation batches) x 4.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -109,6 +121,51 @@ def fail(msg: str):
     sys.exit(1)
 
 
+def call_ms(fn):
+    """Per call, eager, CUDA events: host launch cost included."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(ITERS):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / ITERS
+
+
+def device_ms(fn, reps=10):
+    """Per call on the device alone: ``reps`` calls captured in one
+    CUDA graph, replayed ``ITERS`` times between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(ITERS):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / (ITERS * reps)
+
+
 def resnet50_calls(batch: int):
     """Kernel calls of one fused ResNet-50 forward at ``batch``:
     Counter of (M, K, N, prologue) and of (B, H, W, C, Co).  The
@@ -128,6 +185,359 @@ def resnet50_calls(batch: int):
                 mm[(batch * ro * ro, n_in, 4 * planes, False)] += 1
             n_in, res = 4 * planes, ro
     return mm, cv
+
+
+# ---------------------------------------------------------------- LM slice
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+# flash kernel vs its plain version (same key blocks, same rounding
+# points): O within one bf16 step at the largest |O| (f32: 1e-5 of it),
+# lse (f32 in both types) within 1e-5 of the largest |lse|
+FLASH_CASES = (  # (B, H, T, S, D), causal, dtype, as the main path gives it
+    ((8, 8, 512, 512, 32), True, "bf16", "mha"),  # LM default, head view
+    ((1, 2, 1024, 1024, 128), False, "bf16", ""),  # kernel_shapes FLASH
+    ((2, 4, 1000, 1000, 64), True, "bf16", ""),    # ragged T
+    ((2, 4, 256, 640, 64), False, "bf16", ""),     # KV longer than Q
+    ((8, 8, 512, 512, 32), True, "f32", "mha"),    # evaluation's f32
+    ((1, 8, 8192, 8192, 128), True, "bf16", ""),   # long context
+)
+LM = dict(vocab_size=10001, hidden_size=256, num_heads=8, filter_size=1024,
+          num_layers=4)  # bigdl_tpu/models/transformer_train.py defaults
+LM_BATCH, LM_SEQ, LM_LONG_SEQ = 8, 512, 4096
+# one LM train step, flash kernel vs the plain attention path
+# (use_flash=False: f32 scores, one softmax), same weights, same dropout
+# seeds: loss relative error and, per leaf, the relative L2 error of
+# Adam's m (0.1 x the clipped gradient).  f32 differs by sum order only;
+# bf16 rounds p against a running max in the kernel and against the
+# row max in the plain path (0.066 max at the CPU tests' size against
+# JAX); a missing or mis-scaled gradient is 1 or more.
+LM_F32_TOL = {"loss": 1e-5, "grad": 1e-3}
+LM_BF16_TOL = {"loss": 2e-2, "grad": 0.25}
+
+
+def flash_bound(shape, causal, dt):
+    """(bytes ms, operations ms): q, k, v read once, O and the f32 lse
+    written once; 4*B*H*T*S*D operations, halved under causal, over the
+    bf16 tensor-core peak (f32: the f32 peak)."""
+    b, h, t, s, d = shape
+    size = 2 if dt == "bf16" else 4
+    nbytes = size * b * h * (2 * t * d + 2 * s * d) + 4 * b * h * t
+    ops = 4 * b * h * t * s * d / (2 if causal else 1)
+    peak = PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS
+    return nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+
+
+def flash_phase(gen, timing: bool):
+    """Hold the flash kernel against flash_attention_plain at every case
+    and, with ``timing``, time the kernel, the plain version and SDPA
+    (the yardstick, never on the port's path).  Returns the case rows
+    and the largest bf16 |O| error."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rows, max_err = [], 0.0
+    for shape, causal, dt, layout in FLASH_CASES:
+        b, h, t, s, d = shape
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+
+        def rand(n):
+            if layout == "mha":  # (N, T, H, D) viewed as (N, H, T, D)
+                return torch.randn((b, n, h, d), generator=gen, device=dev
+                                   ).to(dtype).transpose(1, 2)
+            return torch.randn((b, h, n, d), generator=gen, device=dev
+                               ).to(dtype)
+
+        q, k, v = rand(t), rand(s), rand(s)
+        o, lse = fa.flash_attention_lse(q, k, v, causal)
+        torch.cuda.synchronize()
+        po, pl = fa.flash_attention_plain(q, k, v, causal)
+        err = (o.float() - po.float()).abs().max().item()
+        lse_err = (lse - pl).abs().max().item()
+        scale = po.float().abs().max().item()
+        tol = (2.0 ** (math.floor(math.log2(scale)) - 7) if dt == "bf16"
+               else 1e-5 * scale)
+        name = f"flash_attention{shape} causal={causal} {dt} {layout}"
+        if (not torch.isfinite(o.float()).all() or err > tol
+                or lse_err > 1e-5 * pl.abs().max().item()):
+            fail(f"{name}: kernel disagrees with the plain version: max "
+                 f"|dO| {err:.4g} (limit {tol:.4g}), max |dlse| "
+                 f"{lse_err:.4g}")
+        if dt == "bf16":
+            max_err = max(max_err, err)
+        r = {"shape": list(shape), "causal": causal, "dtype": dt,
+             "layout": layout or "contiguous", "max_abs_err": err,
+             "lse_err": lse_err}
+        if timing:
+            sm = 1.0 / math.sqrt(d)
+            r.update(
+                ms=device_ms(lambda: fa.flash_attention_lse(q, k, v, causal)),
+                plain_ms=device_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, causal), reps=2),
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=sm)))
+            r["bytes_ms"], r["ops_ms"] = flash_bound(shape, causal, dt)
+            r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+            print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                  f"SDPA {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}); "
+                  f"max |dO| {err:.3g}", flush=True)
+        rows.append(r)
+        del q, k, v, o, lse, po, pl
+    print(f"flash kernel checks passed: {len(rows)} cases, max bf16 "
+          f"|kernel - plain| {max_err:.4g}", flush=True)
+    return rows, max_err
+
+
+def lm_variables(model, seed):
+    """Random LM weights made with numpy from ``seed``, shaped as the
+    model's JAX tree: the embedding N(0, d^-1/2) as the LM initialises
+    it, (in, out) weights N(0, 1/in), LayerNorm weights 1 + N(0, 0.1^2),
+    biases N(0, 0.1^2)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.utils import export_variables
+
+    rs = np.random.RandomState(seed)
+
+    def fill(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = fill(v)
+                continue
+            shape = np.shape(v)
+            if k == "weight" and len(shape) == 2:  # embedding
+                a = rs.randn(*shape) * shape[1] ** -0.5
+            elif len(shape) == 2:
+                a = rs.randn(*shape) / math.sqrt(shape[0])
+            elif k == "weight":
+                a = 1.0 + 0.1 * rs.randn(*shape)
+            else:
+                a = 0.1 * rs.randn(*shape)
+            out[k] = a.astype(np.float32)
+        return out
+
+    return {"params": fill(export_variables(model)["params"]), "state": {}}
+
+
+def lm_phase(args):
+    """The LM slice's main path: one train step against the plain
+    attention path in bf16 and f32, exact launches per forward, ms per
+    step, tokens/s and peak memory at T 512 and 4096 with a profiler
+    breakdown, then ``transformer_train.main([])``.  Returns the
+    results and the main path's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import transformer_train
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.optim import Adam, make_train_step
+    from bigdl_tpu_torch.utils import load_jax_variables
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(logits=True))
+    model = nn.Transformer(**LM, dropout=0.1).to(dev)
+    variables = lm_variables(model, args.seed)
+    load_jax_variables(model, variables)
+    reference = nn.Transformer(**LM, dropout=0.1, use_flash=False).to(dev)
+    load_jax_variables(reference, variables)
+    rs = np.random.RandomState(args.seed + 5)
+
+    def batch(t):
+        return [torch.from_numpy(rs.randint(0, LM["vocab_size"],
+                                            (LM_BATCH, t))).to(dev)
+                for _ in range(2)]
+
+    def trees(m):
+        params = {k: p.detach().clone() for k, p in m.named_parameters()}
+        return params, {}, {"__all__": Adam(1e-3).init_state(params)}
+
+    def steps(m, dtype):
+        return make_train_step(m, crit, {"__all__": Adam(1e-3)},
+                               grad_clip_norm=1.0, compute_dtype=dtype)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
+
+    # one step, kernel path vs plain attention path, and launches
+    x, y = batch(LM_SEQ)
+    parity = {}
+    for what, dtype, tol in (("bf16", bf16, LM_BF16_TOL),
+                             ("f32", None, LM_F32_TOL)):
+        fa.reset_launches()
+        pk, _, ok, lk = steps(model, dtype)(*trees(model), 1, args.seed, x,
+                                            y, [1e-3])
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        pp, _, op_, lp = steps(reference, dtype)(*trees(reference), 1,
+                                                 args.seed, x, y, [1e-3])
+        if launches != LM["num_layers"]:
+            fail(f"LM {what} train step launched the flash kernel "
+                 f"{launches} times, expected {LM['num_layers']}")
+        mk, mp = ok["__all__"]["m"], op_["__all__"]["m"]
+        bad = [k for k in pk if not (torch.isfinite(pk[k]).all()
+                                     and torch.isfinite(mk[k]).all())]
+        if bad or not math.isfinite(lk.item()):
+            fail(f"LM {what} step: non-finite loss, gradients or "
+                 f"parameters {bad[:4]}")
+        grad = {k: rel(mk[k], mp[k]) for k in mk}
+        err = {"loss": abs(lk.item() - lp.item()) / abs(lp.item()),
+               "grad": max(grad.values())}
+        worst = max(grad, key=grad.get)
+        parity[what] = {"loss": lk.item(), "plain_loss": lp.item(), **err,
+                        "grad_median": sorted(grad.values())[len(grad) // 2],
+                        "worst_leaf": worst}
+        print(f"LM step parity, {what} (flash kernel vs plain attention): "
+              f"loss {lk.item():.6g} vs {lp.item():.6g} (rel "
+              f"{err['loss']:.3g}); gradient rel L2 per leaf max "
+              f"{err['grad']:.3g} ({worst}), median "
+              f"{parity[what]['grad_median']:.3g}; {launches} launches",
+              flush=True)
+        over = {k: (err[k], t) for k, t in tol.items() if err[k] > t}
+        if over:
+            fail(f"LM {what} step disagrees with the plain path: "
+                 f"(error, limit) {over}")
+    with torch.no_grad():
+        fa.reset_launches()
+        logits = model.eval()(x)
+        torch.cuda.synchronize()
+    if fa.LAUNCHES["flash_attention"] != LM["num_layers"] or not bool(
+            torch.isfinite(logits.float()).all()) or tuple(
+            logits.shape) != (LM_BATCH, LM_SEQ, LM["vocab_size"]):
+        fail(f"LM eval forward: {fa.LAUNCHES} launches, logits "
+             f"{tuple(logits.shape)}")
+    del logits, reference
+
+    # speed and memory at the trainer's step (bf16 compute, dropout)
+    step = steps(model, bf16)
+    speed = {}
+    for t in (LM_SEQ, LM_LONG_SEQ):
+        x, y = batch(t)
+        tr = trees(model)
+        for i in range(3):
+            *tr, loss = step(*tr, i + 1, i, x, y, [1e-3])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(10):
+            *tr, loss = step(*tr, i + 4, i + 3, x, y, [1e-3])
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b) / 10
+        speed[t] = {"ms_per_step": ms,
+                    "tokens_per_s": LM_BATCH * t / ms * 1e3,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "loss": loss.item()}
+        if not math.isfinite(speed[t]["loss"]):
+            fail(f"LM: non-finite loss at T {t}")
+        print(f"LM train step at batch {LM_BATCH}, T {t}: {ms:.3f} ms, "
+              f"{speed[t]['tokens_per_s']:.0f} tokens/s, peak memory "
+              f"{speed[t]['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        del tr
+
+    # where one step's device time goes: the whole step under the
+    # profiler, and the flash backward (plain PyTorch) alone at the same
+    # shapes, so that its matrix products are not counted twice
+    def device_kernels(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = Counter()
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                got[evt.key] += getattr(evt, "device_time_total",
+                                        getattr(evt, "cuda_time_total",
+                                                0)) / 1e3
+        return got
+
+    def is_matmul(key):
+        return any(w in key.lower() for w in ("gemm", "xmma", "cutlass",
+                                              "nvjet", "splitk"))
+
+    x, y = batch(LM_SEQ)
+    tr = trees(model)
+    step_k = device_kernels(lambda: step(*tr, 1, 0, x, y, [1e-3]))
+    hd = LM["hidden_size"] // LM["num_heads"]
+    qkv = [torch.randn((LM_BATCH, LM_SEQ, LM["num_heads"], hd), device=dev
+                       ).to(bf16).transpose(1, 2) for _ in range(3)]
+    o, lse = fa.flash_attention_lse(*qkv, True)
+    g = torch.randn_like(o)
+    bwd_k = device_kernels(lambda: [fa._flash_backward(
+        *qkv, o, lse, g, True, hd ** -0.5) for _ in range(LM["num_layers"])])
+    total = sum(step_k.values())
+    flash_fwd = sum(v for k, v in step_k.items() if "flash_fwd_kernel" in k)
+    bwd = sum(bwd_k.values())
+    bwd_mm = sum(v for k, v in bwd_k.items() if is_matmul(k))
+    mm = sum(v for k, v in step_k.items() if is_matmul(k)) - bwd_mm
+    breakdown = {"kernel 6 (flash forward, 4 calls)": flash_fwd,
+                 "flash backward (plain PyTorch, 4 calls, timed alone)": bwd,
+                 "matrix products outside the flash backward": mm,
+                 "the rest (log-softmax, LayerNorm, dropout, Adam, casts, "
+                 "embedding)": total - flash_fwd - bwd - mm}
+    breakdown = {k: round(v, 3) for k, v in breakdown.items()}
+    print(f"one LM step at batch {LM_BATCH}, T {LM_SEQ}, device ms by part "
+          f"(torch.profiler, {total:.3f} ms in all): {breakdown}",
+          flush=True)
+    top = {k: round(v, 3) for k, v in step_k.most_common(10)}
+    del qkv, o, lse, g, model, tr
+
+    # the user entry point, as a user runs it: its flash launches are the
+    # main path's count
+    train_ids, valid_ids, _ = transformer_train._load_corpus(
+        None, LM["vocab_size"], 16 * LM_SEQ * LM_BATCH)
+    n_train = transformer_train._window_dataset(
+        train_ids, LM_BATCH, LM_SEQ).batches_per_epoch()
+    n_val = transformer_train._window_dataset(
+        valid_ids, LM_BATCH, LM_SEQ).batches_per_epoch()
+    epochs = 5  # the driver's --maxEpoch default
+    want = (epochs * n_train + epochs * n_val + n_val) * LM["num_layers"]
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "Loss is " in msg:
+                losses.append(msg)
+
+    grab = Losses()
+    logging.getLogger("bigdl_tpu_torch.optim").addHandler(grab)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    res = transformer_train.main([])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    logging.getLogger("bigdl_tpu_torch.optim").removeHandler(grab)
+    # "... Loss is 9.2103. compute: ..." (optimizer.py's log line)
+    train_losses = [float(m.split("Loss is ")[1].split(". ")[0])
+                    for m in losses if m.startswith("[Epoch")]
+    val_lines = [m for m in losses if m.startswith("Loss is Loss(")]
+    if launches != want:
+        fail(f"transformer_train.main([]) launched the flash kernel "
+             f"{launches} times, expected {want} ((5 x {n_train} "
+             f"iterations + 6 x {n_val} validation batches) x 4)")
+    if not (math.isfinite(res["val_loss"]) and train_losses
+            and res["val_loss"] < train_losses[0]
+            and len(val_lines) == epochs):
+        fail(f"transformer_train.main([]): loss did not fall or validation "
+             f"missing: first train loss {train_losses[:1]}, "
+             f"{len(val_lines)} validations, result {res}")
+    print(f"transformer_train.main([]): {epochs} epochs of {n_train} "
+          f"iterations in {main_s:.1f} s, first loss {train_losses[0]}, "
+          f"validation {val_lines[0]} -> {val_lines[-1]}, final "
+          f"{res}; flash launches {launches}", flush=True)
+    return {"parity": parity, "speed": speed, "breakdown": breakdown,
+            "step_top_kernels": top, "main": {
+                "seconds": main_s, "result": res, "launches": launches,
+                "train_losses": train_losses, "validation": val_lines}}
 
 
 def main():
@@ -351,48 +761,10 @@ def main():
         del o, got, ref
     print(f"kernel checks passed: {len(extra) + len(main_shapes)} cases, "
           f"max |kernel - plain| {dict(max_err)}", flush=True)
+    flash_rows, flash_err = flash_phase(gen, timing=not args.quick)
     if args.quick:
         print("quick: kernels build, launch and agree; stopping")
         return
-
-    def call_ms(fn):
-        """Per call, eager, CUDA events: host launch cost included."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(ITERS):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / ITERS
-
-    def device_ms(fn, reps=10):
-        """Per call on the device alone: ``reps`` calls captured in one
-        CUDA graph, replayed ``ITERS`` times between CUDA events."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(ITERS):
-            graph.replay()
-        b.record()
-        b.synchronize()
-        del graph
-        return a.elapsed_time(b) / (ITERS * reps)
 
     def bound(op, shape):
         """(bytes ms, operations ms): each input read once, each output
@@ -761,6 +1133,11 @@ def main():
     print(f"optimize: {OPT_ITERS} iterations at batch 32 (f32 features, "
           f"bf16 parameters: the f32 kernels) in {opt_s:.1f} s, final loss "
           f"{final_loss:.4f}; launches {opt_launches}", flush=True)
+    del tmodel, umodel, opt, feats, xt
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- 5. lm
+    lm = lm_phase(args)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -773,8 +1150,9 @@ def main():
                    "step_device_ms_by_part": breakdown,
                    "parity": parity,
                    "losses_one_batch": losses,
-                   "optimize": {"seconds": opt_s, "loss": final_loss}}},
-        indent=1))
+                   "optimize": {"seconds": opt_s, "loss": final_loss}},
+         "flash": flash_rows, "lm": lm},
+        indent=1, default=str))
 
     # ---------------------------------------------------------- summary
     line = []
@@ -800,6 +1178,24 @@ def main():
             "shapes": f"one ResNet-50 {'backward' if 'grad' in op else 'forward'}"
                       f" at batch {BATCH}: {calls} calls, times summed",
         })
+    lm_row = flash_rows[0]  # the LM default, as MultiHeadAttention gives it
+    line.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": f"{src}flash_attention.cu",
+        "replaces": "bigdl_tpu/ops/pallas/flash_attention.py:36",
+        "launches": lm["main"]["launches"], "max_abs_err": flash_err,
+        "ms": lm_row["ms"], "plain_ms": lm_row["plain_ms"],
+        "bound_ms": lm_row["bound_ms"],
+        "bound_by": "bytes" if lm_row["bytes_ms"] >= lm_row["ops_ms"]
+        else "operations",
+        "library_ms": lm_row["library_ms"],
+        "launches_by_path": {
+            "lm_train_step": LM["num_layers"],
+            "lm_eval_forward": LM["num_layers"],
+            "transformer_train_main": lm["main"]["launches"]},
+        "shapes": f"{tuple(lm_row['shape'])} causal bf16 as "
+                  "MultiHeadAttention gives it, per call; "
+                  f"{LM['num_layers']} calls per LM forward"})
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,11 @@ def _modules():
 def test_every_submodule_imports_without_jax_or_bigdl_tpu():
     mods = _modules()
     for m in ("ops.fused_matmul", "serving.engine", "optim.optimizer",
-              "optim.optim_method", "dataset.dataset", "nn.criterion"):
+              "optim.optim_method", "dataset.dataset", "nn.criterion",
+              "ops.flash_attention", "ops.attention", "nn.attention",
+              "nn.dropout", "nn.embedding", "optim.validation",
+              "dataset.text", "models.train_utils",
+              "models.transformer_train"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
