@@ -19,6 +19,10 @@ from bigdl_tpu_torch.nn.module import (Container, Module, Sequential,
 from bigdl_tpu_torch.nn.norm import (BatchNormalization, LayerNormalization,
                                      SpatialBatchNormalization)
 from bigdl_tpu_torch.nn.pool import GlobalAveragePooling2D, SpatialMaxPooling
+from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
+                                          QuantizedSpatialConvolution,
+                                          load_quantized, quantize,
+                                          quantize_weight, save_quantized)
 from bigdl_tpu_torch.nn.reshape import SpaceToDepth
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
@@ -27,9 +31,11 @@ __all__ = [
     "Container", "Criterion", "Dropout", "FeedForwardNetwork",
     "FusedBottleneck", "GlobalAveragePooling2D", "Graph", "Input",
     "LayerNormalization", "Linear", "LookupTable", "Module", "MsraFiller",
-    "MultiHeadAttention", "Node", "PositionEncode", "RandomNormal",
-    "RandomUniform", "ReLU", "Sequential", "SpaceToDepth",
-    "SpatialBatchNormalization", "SpatialConvolution", "SpatialMaxPooling",
-    "TimeDistributedCriterion", "Transformer", "TransformerLayer", "Xavier",
-    "Zeros", "split_rng", "use_plain_ops",
+    "MultiHeadAttention", "Node", "PositionEncode", "QuantizedLinear",
+    "QuantizedSpatialConvolution", "RandomNormal", "RandomUniform", "ReLU",
+    "Sequential", "SpaceToDepth", "SpatialBatchNormalization",
+    "SpatialConvolution", "SpatialMaxPooling", "TimeDistributedCriterion",
+    "Transformer", "TransformerLayer", "Xavier", "Zeros", "load_quantized",
+    "quantize", "quantize_weight", "save_quantized", "split_rng",
+    "use_plain_ops",
 ]

@@ -40,6 +40,8 @@ from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.init import MsraFiller, Zeros
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.norm import SpatialBatchNormalization
+from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
+                                          QuantizedSpatialConvolution)
 from bigdl_tpu_torch.ops import fused_matmul as fm
 
 __all__ = ["FusedBottleneck", "use_plain_ops"]
@@ -187,9 +189,10 @@ class FusedBottleneck(Module):
 
 
 def use_plain_ops(model: torch.nn.Module, plain: bool = True):
-    """Switch every fused block of ``model`` to (or back from) the
-    kernels' plain PyTorch versions."""
+    """Switch every fused block and quantized layer of ``model`` to (or
+    back from) the kernels' plain PyTorch versions."""
     for m in model.modules():
-        if isinstance(m, FusedBottleneck):
+        if isinstance(m, (FusedBottleneck, QuantizedLinear,
+                          QuantizedSpatialConvolution)):
             m.plain = plain
     return model

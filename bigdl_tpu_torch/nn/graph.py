@@ -59,6 +59,14 @@ class Graph(Container):
             self._node_key[node.id] = key
             self._register_child(key, node.module)
 
+    def replace_child(self, key: str, module: Module) -> Module:
+        """Replace the child under ``key``, in the node that holds it too."""
+        old = super().replace_child(key, module)
+        for node in self._order:
+            if node.module is old:
+                node.module = module
+        return old
+
     def _topo_sort(self) -> List[Node]:
         """DFS topological order over the nodes reachable from outputs."""
         state: Dict[int, int] = {}  # 0 = in progress, 1 = done

@@ -105,6 +105,16 @@ class Container(Module):
     def child_keys(self) -> List[str]:
         return list(self._keys)
 
+    def replace_child(self, key: str, module: Module) -> Module:
+        """Put ``module`` in place of the child under ``key`` and return
+        the old one.  The key stays, and with it every ``state_dict``
+        path below it (the quantizer's rewrite, bigdl_tpu/nn/
+        quantized.py:311-320)."""
+        if key not in self._modules:
+            raise KeyError(f"{self.name} has no child {key!r}")
+        old = self._modules[key]
+        self.add_module(key, module)
+        return old
 
 
 class Sequential(Container):

@@ -42,9 +42,12 @@ SOURCES: Dict[str, tuple] = {
     "flash_attention": ("flash_attention.cu",
                         ("flash_attention_fwd_bf16",
                          "flash_attention_fwd_f32")),
+    "int8_matmul": ("int8_matmul.cu",
+                    ("int8_matmul_dequant_bf16", "int8_matmul_dequant_f32")),
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: argument types of each entry point (pointers as c_void_p: a Python
 #: int passed bare would be cut to 32 bits)
 ARGTYPES = {
@@ -56,6 +59,8 @@ ARGTYPES = {
     # q, k, v, o, lse; B, H, T, S, D; the 12 strides (a host array);
     # sm_scale, causal, stream
     "flash_attention": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
+    # x, w, scale, y; M, K, N; x's row stride, w's two strides; stream
+    "int8_matmul": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -3,6 +3,7 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Adam, OptimMethod
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
                                              evaluate, make_train_step)
+from bigdl_tpu_torch.optim.prediction_service import PredictionService
 from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
@@ -12,5 +13,6 @@ from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
 
 __all__ = ["AccuracyResult", "Adam", "Default", "LearningRateSchedule",
            "LocalOptimizer", "Loss", "LossResult", "Metrics", "OptimMethod",
-           "Optimizer", "SGD", "Top1Accuracy", "Trigger", "ValidationMethod",
-           "ValidationResult", "evaluate", "make_train_step"]
+           "Optimizer", "PredictionService", "SGD", "Top1Accuracy",
+           "Trigger", "ValidationMethod", "ValidationResult", "evaluate",
+           "make_train_step"]

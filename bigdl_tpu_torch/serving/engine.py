@@ -24,7 +24,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +61,8 @@ class ServingFuture:
         self._ev = threading.Event()
         self._value: Any = None
         self._exc: Optional[BaseException] = None
+        self._callbacks: List[Callable] = []
+        self._lock = threading.Lock()
 
     def done(self) -> bool:
         return self._ev.is_set()
@@ -77,13 +79,31 @@ class ServingFuture:
             raise TimeoutError("serving result not ready")
         return self._exc
 
+    def add_done_callback(self, fn: Callable[["ServingFuture"], None]):
+        """Call ``fn(self)`` once the request is done (at once if it is)."""
+        with self._lock:
+            if not self._ev.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
+    def _finish(self):
+        with self._lock:
+            self._ev.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for fn in callbacks:
+            try:
+                fn(self)
+            except Exception:  # a callback must not stop the engine
+                logger.exception("serving future callback failed")
+
     def set_result(self, value):
         self._value = value
-        self._ev.set()
+        self._finish()
 
     def set_exception(self, exc: BaseException):
         self._exc = exc
-        self._ev.set()
+        self._finish()
 
 
 class _Request:

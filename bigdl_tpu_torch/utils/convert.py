@@ -53,9 +53,11 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> dict:
     """Copy a JAX ``{"params", "state"}`` tree into ``model`` in place.
 
     Raises ``KeyError`` when the key sets differ (naming the missing and
-    unexpected keys) and ``ValueError`` on a shape mismatch, before
-    anything is copied.  Values are cast to each tensor's dtype and
-    device.  Returns :func:`export_variables` of the loaded model.
+    unexpected keys), ``ValueError`` on a shape mismatch and
+    ``TypeError`` when a non-integer leaf would land in an integer
+    tensor (an int8 ``weight_q``), before anything is copied.  Values are
+    cast to each tensor's dtype and device.  Returns
+    :func:`export_variables` of the loaded model.
     """
     table = _table(model)
     plan = []
@@ -74,11 +76,22 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> dict:
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{kind} {key}: shape {tuple(arr.shape)} "
                                  f"!= {tuple(t.shape)}")
+            if not (t.is_floating_point() or np.issubdtype(arr.dtype,
+                                                           np.integer)):
+                raise TypeError(f"{kind} {key}: a {arr.dtype} leaf for a "
+                                f"{t.dtype} tensor")
             plan.append((t, arr))
     with torch.no_grad():
         for t, arr in plan:
             t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
     return export_variables(model)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A leaf as numpy: floating types as f32, integer types (the int8
+    ``weight_q`` of a quantized layer) as they are."""
+    t = t.detach()
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
 
 def _nest(module: torch.nn.Module, kind: str) -> dict:
@@ -87,7 +100,7 @@ def _nest(module: torch.nn.Module, kind: str) -> dict:
     have leaves."""
     leaves = (module.named_parameters(recurse=False) if kind == "params"
               else module.named_buffers(recurse=False))
-    out = {k: v.detach().float().cpu().numpy() for k, v in leaves}
+    out = {k: _numpy(v) for k, v in leaves}
     for key, child in module.named_children():
         sub = _nest(child, kind)
         if sub or isinstance(module, Container):
@@ -97,7 +110,8 @@ def _nest(module: torch.nn.Module, kind: str) -> dict:
 
 def export_variables(model: torch.nn.Module) -> dict:
     """The port's weights as a JAX-shaped ``{"params", "state"}`` tree of
-    f32 numpy arrays (the inverse of :func:`load_jax_variables`)."""
+    numpy arrays, f32 for floating leaves and integer leaves in their own
+    type (the inverse of :func:`load_jax_variables`)."""
     return {"params": _nest(model, "params"), "state": _nest(model, "state")}
 
 

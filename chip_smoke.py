@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # all phases, exit 0 only if all pass
-    python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py --quick    # build + kernel checks (all seven)
 
 Phases:
 1. device: require CUDA, print the card's name and power limit, build the
@@ -47,7 +47,23 @@ Phases:
    flash launches per forward, ms per step, tokens/s and peak memory at
    batch 8 and T 512 and 4096 with a profiler breakdown, and the user
    entry point transformer_train.main([]), whose loss must fall and whose
-   flash launches must be (iterations + validation batches) x 4.
+   flash launches must be (iterations + validation batches) x 4;
+6. quant: the int8 kernel held bit for bit against its plain version
+   (bf16 and f32 output) at every shape of one quantized ResNet-50
+   forward at batch 32 and at tools/kernel_shapes.INT8's shapes (the
+   int8 KV score shape with w_q as a transposed view), the large-FC
+   MLP's and a ragged one, timed beside its plain version and
+   torch._int_mm (before --quick stops); then the unfused ResNet-50 (conv7
+   stem, 1000 classes) with random weights from --seed carried in through
+   load_jax_variables and quantized: exactly 34 int8 launches per dynamic
+   forward and none in weight_only mode, the kernel path against the
+   plain path in bf16 and f32, the quantization error against the float
+   model, save_quantized/load_quantized with every leaf held equal, 512
+   requests from 4 threads through PredictionService plus a few through
+   predict_serialized, each answer held against the same image alone on
+   the plain path, the three forwards of tools/quant_bench.py (ResNet-50 at
+   batch 32 and the large-FC MLP at batch 8, which must launch the kernel
+   3 times) and a profiler breakdown of the dynamic-int8 forward.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -540,6 +556,413 @@ def lm_phase(args):
                 "train_losses": train_losses, "validation": val_lines}}
 
 
+# ------------------------------------------------------------ quant slice
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
+QUANT_BATCH = 32         # the quantized ResNet-50 forward kernel 7 is timed at
+MLP = (8192, 8192, 1000)  # tools/quant_bench.py's large-FC MLP widths
+MLP_BATCH = 8
+# kernel 7 beyond one quantized ResNet-50 forward: (M, K, N), w_q's layout
+# ("kn": a contiguous (K, N) tensor; "nk": the transposed view of a
+# contiguous (N, K) tensor, as int8_scores will pass k_q.T), what it is
+INT8_EXTRA = (
+    ((4096, 768, 3072), "kn", "kernel_shapes.INT8, FFN in"),
+    ((4096, 3072, 768), "kn", "kernel_shapes.INT8, FFN out"),
+    ((8, 128, 4096), "nk", "kernel_shapes.INT8, int8 KV scores (k_q.T view)"),
+    ((8, 8192, 8192), "kn", "large-FC MLP hidden layers"),
+    ((8, 8192, 1000), "kn", "large-FC MLP head"),
+    ((37, 200, 1000), "kn", "ragged M, K and N"),
+)
+# whole quantized ResNet-50, kernel path vs plain path on the same images:
+# the kernel is bit-equal to its plain version, so this is 0 unless cuDNN
+# picks another algorithm for a library conv; of the largest |logit|
+QUANT_PARITY_TOL = 1e-3
+# a served answer vs the same image's plain-path forward alone, relative
+# L2 per image: the per-tensor activation scales depend on the batch-mates
+# (measured on the CPU at 224x224 in bf16, batch of 8 vs alone: 0.57% to
+# 0.98% per image; the quantization error itself is 1.1%)
+SERVE_QUANT_TOL = 0.05
+
+
+def int8_calls(batch: int) -> Counter:
+    """(M, K, N) of the int8 matmuls of one quantized ResNet-50 forward:
+    every bottleneck's conv1 and conv3 (1x1, stride 1), layer1's stride-1
+    projection and the fc; the stride-2 projections, the 3x3 convs and
+    the stem are library convs."""
+    calls = Counter()
+    n_in, res = 64, 56
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** stage
+        for b in range(n_blocks):
+            s = 2 if stage > 0 and b == 0 else 1
+            ro = res // s
+            calls[(batch * res * res, n_in, planes)] += 1
+            calls[(batch * ro * ro, planes, 4 * planes)] += 1
+            if s == 1 and n_in != 4 * planes:
+                calls[(batch * res * res, n_in, 4 * planes)] += 1
+            n_in, res = 4 * planes, ro
+    calls[(batch, 2048, 1000)] += 1
+    return calls
+
+
+def int8_bound(shape):
+    """(bytes ms, operations ms): x, w_q and the f32 scale read once, the
+    bf16 y written once; 2*M*N*K int8 operations over the int8 peak."""
+    m, k, n = shape
+    nbytes = m * k + k * n + 4 * n + 2 * m * n
+    return nbytes / PEAK_BYTES * 1e3, 2 * m * n * k / PEAK_INT8_OPS * 1e3
+
+
+def int8_phase(gen, timing: bool):
+    """Hold kernel 7 against int8_matmul_dequant_plain at every shape of
+    one quantized ResNet-50 forward and at INT8_EXTRA, bf16 and f32 out,
+    requiring max |d| = 0; with ``timing``, time the kernel, the plain
+    version and torch._int_mm plus the same epilogue (the yardstick, never
+    on the port's path).  Returns the rows."""
+    import torch
+
+    from bigdl_tpu_torch.ops import int8_matmul as im
+
+    dev = torch.device("cuda")
+
+    def randint8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    cases = [(shape, "kn", f"ResNet-50 forward, {c} call(s)", c)
+             for shape, c in sorted(int8_calls(QUANT_BATCH).items())]
+    cases += [(shape, layout, what, 0) for shape, layout, what in INT8_EXTRA]
+    rows = []
+    for (m, k, n), layout, what, count in cases:
+        x = randint8(m, k)
+        w = randint8(n, k).t() if layout == "nk" else randint8(k, n)
+        s = (torch.rand(n, generator=gen, device=dev) + 0.05) * 1e-4
+        for dtype in (torch.bfloat16, torch.float32):
+            y = im.int8_matmul_dequant(x, w, s, dtype)
+            torch.cuda.synchronize()
+            ref = im.int8_matmul_dequant_plain(x, w, s, dtype)
+            err = (y.float() - ref.float()).abs().max().item()
+            if err != 0 or not torch.equal(y, ref):
+                fail(f"int8_matmul{(m, k, n)} {layout} {dtype}: kernel "
+                     f"differs from the plain version, max |d| {err:.4g}")
+        r = {"shape": [m, k, n], "layout": layout, "what": what,
+             "calls_per_forward": count, "max_abs_err": 0.0}
+        if timing:
+            # _int_mm wants M > 16 and K, N multiples of 8; it is timed at
+            # the shape padded up to one it takes
+            mp, kp, np_ = (-(-max(m, 17) // 8) * 8, -(-k // 8) * 8,
+                           -(-n // 8) * 8)
+            xp = torch.zeros((mp, kp), dtype=torch.int8, device=dev)
+            xp[:m, :k] = x
+            wp = torch.zeros((kp, np_), dtype=torch.int8, device=dev)
+            wp[:k, :n] = w
+            r["library_shape"] = [mp, kp, np_]
+
+            def library():
+                acc = torch._int_mm(xp, wp)
+                return (acc[:m, :n].float() * s).to(torch.bfloat16)
+
+            r.update(
+                ms=device_ms(lambda: im.int8_matmul_dequant(x, w, s)),
+                plain_ms=device_ms(lambda: im.int8_matmul_dequant_plain(
+                    x, w, s), reps=2),
+                library_ms=device_ms(library))
+            r["bytes_ms"], r["ops_ms"] = int8_bound((m, k, n))
+            r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+            pad = "" if [mp, kp, np_] == [m, k, n] else \
+                f" (_int_mm at {(mp, kp, np_)})"
+            print(f"  int8_matmul{(m, k, n)} {layout} [{what}]: "
+                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, _int_mm "
+                  f"{r['library_ms']:.4f}{pad}, bound {r['bound_ms']:.4f})",
+                  flush=True)
+            del xp, wp
+        rows.append(r)
+        del x, w, s
+    print(f"int8 kernel checks passed: {len(rows)} shapes, bf16 and f32 "
+          "output, max |kernel - plain| 0", flush=True)
+    return rows
+
+
+def quant_phase(args, out):
+    """The quantization slice's main path on the unfused ResNet-50 at 224:
+    launches per forward, the kernel path against the plain path, the
+    quantization error, save_quantized/load_quantized and 512 requests
+    through PredictionService (the main path's launches), then the
+    counterpart of tools/quant_bench.py with a profiler breakdown."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.ops import int8_matmul as im
+    from bigdl_tpu_torch.optim import PredictionService
+    from bigdl_tpu_torch.utils import (export_variables, flatten,
+                                       load_jax_variables, random_variables)
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    model = ResNet50(1000)  # unfused, conv7 stem
+    variables = random_variables(export_variables(model), args.seed)
+    load_jax_variables(model, variables)
+    t0 = time.perf_counter()
+    qmodel, qvars = nn.quantize(model, variables)
+    quantize_s = time.perf_counter() - t0
+    wmodel, _ = nn.quantize(model, variables, weight_only=True)
+    rs = np.random.RandomState(args.seed + 6)
+    images = rs.randn(REQUESTS, 224, 224, 3).astype(np.float32)
+    xb = torch.from_numpy(images[:QUANT_BATCH]).to(dev)
+    res = {"quantize_s": quantize_s}
+
+    def rel_l2(a, b):  # per row, of b
+        return ((a.float() - b.float()).norm(dim=-1)
+                / b.float().norm(dim=-1).clamp_min(1e-30))
+
+    # launches per forward, and the shapes the wrapper was given
+    with torch.inference_mode():
+        im.reset_launches()
+        with im.record_calls() as calls:
+            qmodel(xb.to(bf16))
+            torch.cuda.synchronize()
+        fwd_launches = im.LAUNCHES["int8_matmul"]
+        seen = Counter(c[:3] for c in calls)
+        if fwd_launches != 34 or seen != int8_calls(QUANT_BATCH):
+            fail(f"quantized ResNet-50 forward: {fwd_launches} int8 "
+                 f"launches at shapes {dict(seen)}, expected 34 at "
+                 f"{dict(int8_calls(QUANT_BATCH))}")
+        im.reset_launches()
+        wmodel(xb.to(bf16))
+        torch.cuda.synchronize()
+        wo_launches = im.LAUNCHES["int8_matmul"]
+        if wo_launches != 0:
+            fail(f"weight_only forward launched the int8 kernel "
+                 f"{wo_launches} times")
+    res["launches"] = {"dynamic_forward": fwd_launches,
+                       "weight_only_forward": wo_launches}
+
+    # the kernel path against the plain path, and the quantization error
+    # against the float model in bf16 (parameters cast, as quant_bench)
+    res["parity"] = {}
+    with torch.inference_mode():
+        for name, dtype in (("bf16", bf16), ("f32", torch.float32)):
+            yk = qmodel(xb.to(dtype)).float()
+            nn.use_plain_ops(qmodel, True)
+            yp = qmodel(xb.to(dtype)).float()
+            nn.use_plain_ops(qmodel, False)
+            err = (yk - yp).abs().max().item()
+            scale = yp.abs().max().item()
+            res["parity"][name] = {"max_abs_err": err, "max_abs_logit": scale}
+            print(f"quantized ResNet-50 at batch {QUANT_BATCH}, {name}: "
+                  f"kernel path vs plain path max |d logit| {err:.4g} (max "
+                  f"|logit| {scale:.4g})", flush=True)
+            if (tuple(yk.shape) != (QUANT_BATCH, 1000)
+                    or not torch.isfinite(yk).all()
+                    or err > QUANT_PARITY_TOL * scale):
+                fail(f"quantized ResNet-50 {name}: kernel path disagrees "
+                     f"with the plain path ({err:.4g} > {QUANT_PARITY_TOL} x "
+                     f"{scale:.4g}) or bad logits {tuple(yk.shape)}")
+        for p in model.parameters():
+            p.data = p.data.to(bf16)
+        yq = qmodel(xb.to(bf16)).float()
+        yf = model(xb.to(bf16)).float()
+        qerr = rel_l2(yq, yf)
+        res["quant_error"] = {
+            "rel_l2_median": qerr.median().item(),
+            "rel_l2_max": qerr.max().item(),
+            "top1_agreement": (yq.argmax(-1) == yf.argmax(-1)
+                               ).float().mean().item()}
+    print(f"quantization error vs the float model in bf16: relative L2 per "
+          f"image median {res['quant_error']['rel_l2_median']:.4g}, max "
+          f"{res['quant_error']['rel_l2_max']:.4g}; top-1 agreement "
+          f"{res['quant_error']['top1_agreement']:.3f}", flush=True)
+
+    # the user path: save, load into a fresh float model, serve
+    path = out / "resnet50_int8.npz"
+    nn.save_quantized(str(path), qmodel, qvars)
+    res["file_bytes"] = path.stat().st_size
+    qmodel2, qvars2 = nn.load_quantized(str(path), ResNet50(1000))
+    path.unlink()  # 26 MB; the output directory keeps only results
+    fa, fb = flatten(qvars["params"]), flatten(qvars2["params"])
+    loaded = flatten(export_variables(qmodel2)["params"])
+    if sorted(fa) != sorted(fb) or any(
+            fa[k].dtype != fb[k].dtype or not np.array_equal(fa[k], fb[k])
+            or not np.array_equal(loaded[k], fa[k]) for k in fa):
+        fail("load_quantized did not give back the saved leaves")
+    nbytes = {"int8_params": sum(a.nbytes for a in fa.values()),
+              "f32_params": sum(a.nbytes for a in
+                                flatten(variables["params"]).values())}
+    if nbytes["int8_params"] >= 0.3 * nbytes["f32_params"]:
+        fail(f"quantized parameters {nbytes}: not < 0.3 x the f32 bytes")
+    res["bytes"] = nbytes
+    svc = PredictionService(qmodel2, qvars2, buckets=[(224, 224, 3)],
+                            batch_sizes=(1, 8, 32), input_dtype=bf16)
+    answers = [None] * REQUESTS
+    errors = []
+    n_clients = 4
+
+    def client(idx):
+        try:
+            qs = [(i, svc.predict_async(images[i]))
+                  for i in range(idx, REQUESTS, n_clients)]
+            for i, q in qs:
+                v = q.get(timeout=300)
+                if isinstance(v, Exception):
+                    raise v
+                answers[i] = v
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    im.reset_launches()
+    batches0 = svc.metrics.batches
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    serve_launches = im.LAUNCHES["int8_matmul"]
+    batches = svc.metrics.batches - batches0
+    p50, p99 = svc.metrics.latency_ms(50), svc.metrics.latency_ms(99)
+    log_line = svc.engine.log_line()
+    ser = svc.decode_response(svc.predict_serialized(
+        svc.encode_request(images[:4])))
+    svc.close()
+    if errors:
+        fail(f"PredictionService client errors: {errors[:3]}")
+    if batches == 0 or serve_launches != 34 * batches:
+        fail(f"served {batches} batches with {serve_launches} int8 launches,"
+             " expected 34 per batch")
+    got = np.stack(answers)
+    if got.shape != (REQUESTS, 1000) or not np.isfinite(got).all() or \
+            ser.shape != (4, 1000) or not np.isfinite(ser).all():
+        fail(f"served answers {got.shape}, serialized {ser.shape}, or "
+             "non-finite values")
+    # each answer against the plain-path forward of the same image alone
+    nn.use_plain_ops(qmodel2, True)
+    with torch.inference_mode():
+        alone = torch.cat([qmodel2(torch.from_numpy(images[i:i + 1]).to(dev)
+                                   .to(bf16)).float().cpu()
+                           for i in range(REQUESTS)])
+    spread = rel_l2(torch.from_numpy(got), alone)
+    ser_spread = rel_l2(torch.from_numpy(ser), alone[:4])
+    top1 = (torch.from_numpy(got).argmax(-1) == alone.argmax(-1)
+            ).float().mean().item()
+    res["serve"] = {
+        "requests": REQUESTS, "threads": n_clients, "batches": batches,
+        "launches": serve_launches, "images_per_s": REQUESTS / wall,
+        "p50_ms": p50, "p99_ms": p99,
+        "rel_l2_vs_alone_median": spread.median().item(),
+        "rel_l2_vs_alone_max": spread.max().item(),
+        "serialized_rel_l2_max": ser_spread.max().item(),
+        "top1_agreement_vs_alone": top1}
+    print(f"quantized serve: {REQUESTS} requests from {n_clients} threads in "
+          f"{batches} batches through PredictionService after "
+          f"save_quantized/load_quantized, {REQUESTS / wall:.1f} images/s, "
+          f"p50 {p50:.2f} ms, p99 {p99:.2f} ms; int8 launches "
+          f"{serve_launches}; vs each image alone on the plain path: "
+          f"relative L2 median {spread.median().item():.4g}, max "
+          f"{spread.max().item():.4g}, top-1 agreement {top1:.3f}; "
+          f"predict_serialized max {ser_spread.max().item():.4g}; parameters "
+          f"{nbytes['int8_params']} bytes int8 vs {nbytes['f32_params']} f32",
+          flush=True)
+    print(log_line, flush=True)
+    if spread.max().item() > SERVE_QUANT_TOL or \
+            ser_spread.max().item() > SERVE_QUANT_TOL:
+        fail(f"served answers differ from the image alone by relative L2 "
+             f"{spread.max().item():.4g} (serialized "
+             f"{ser_spread.max().item():.4g}) > {SERVE_QUANT_TOL}")
+    del svc, qmodel2, alone, got
+
+    # tools/quant_bench.py's three forwards, eager, CUDA events
+    def fwd_ms(m, x):
+        with torch.inference_mode():
+            for _ in range(3):
+                m(x)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(ITERS):
+                m(x)
+            b.record()
+            b.synchronize()
+        return a.elapsed_time(b) / ITERS
+
+    xb16 = xb.to(bf16)
+    bench = {"resnet50": {"batch": QUANT_BATCH,
+                          "bf16_ms": fwd_ms(model, xb16),
+                          "weight_only_ms": fwd_ms(wmodel, xb16),
+                          "dynamic_int8_ms": fwd_ms(qmodel, xb16)}}
+    mlp = nn.Sequential(nn.Linear(MLP[0], MLP[1]), nn.ReLU(),
+                        nn.Linear(MLP[1], MLP[1]), nn.ReLU(),
+                        nn.Linear(MLP[1], MLP[2])).to(dev).eval()
+    mvars = random_variables(export_variables(mlp), args.seed + 7)
+    load_jax_variables(mlp, mvars)
+    mq, _ = nn.quantize(mlp, mvars)
+    mw, _ = nn.quantize(mlp, mvars, weight_only=True)
+    for p in mlp.parameters():
+        p.data = p.data.to(bf16)
+    xm = torch.randn((MLP_BATCH, MLP[0]), generator=torch.Generator(
+        device=dev).manual_seed(args.seed), device=dev).to(bf16)
+    with torch.inference_mode():
+        im.reset_launches()
+        ym = mq(xm)
+        torch.cuda.synchronize()
+    mlp_launches = im.LAUNCHES["int8_matmul"]
+    if mlp_launches != 3 or not torch.isfinite(ym.float()).all():
+        fail(f"quantized MLP forward: {mlp_launches} int8 launches "
+             "(expected 3) or non-finite output")
+    res["launches"]["mlp_forward"] = mlp_launches
+    bench["large_fc_mlp"] = {"batch": MLP_BATCH,
+                             "bf16_ms": fwd_ms(mlp, xm),
+                             "weight_only_ms": fwd_ms(mw, xm),
+                             "dynamic_int8_ms": fwd_ms(mq, xm)}
+    res["quant_bench"] = bench
+    for name, b in bench.items():
+        print(f"quant_bench {name} at batch {b['batch']}: bf16 "
+              f"{b['bf16_ms']:.3f} ms, weight_only int8 "
+              f"{b['weight_only_ms']:.3f} ms, dynamic int8 "
+              f"{b['dynamic_int8_ms']:.3f} ms", flush=True)
+    del mlp, mq, mw, mvars
+
+    # where the dynamic-int8 forward's device time goes: kernel 7, the
+    # library int8 convs and the activation quantization passes (their
+    # record_function ranges, kernels of the ops inside), the rest
+    with torch.inference_mode():
+        qmodel(xb16)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            qmodel(xb16)
+            torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    parts = Counter()
+    for evt in prof.events():
+        if evt.name in ("int8.quantize_activation", "int8.library_conv"):
+            if evt.device_type != cuda_t:
+                parts[evt.name] += evt.device_time_total / 1e3
+        elif evt.device_type == cuda_t:
+            parts["total"] += evt.device_time_total / 1e3
+            if "int8_mm_kernel" in evt.name:
+                parts["kernel7"] += evt.device_time_total / 1e3
+    breakdown = {
+        "kernel 7 (int8 matmul, 34 calls)": parts["kernel7"],
+        "library int8 convs (20 calls, f32 over int8 values, with the "
+        "casts)": parts["int8.library_conv"],
+        "activation quantization (54 passes: amax, divide, round, clamp, "
+        "cast)": parts["int8.quantize_activation"],
+        "the rest (BatchNorm, ReLU, residual adds, pools, dequant of the "
+        "conv route)": parts["total"] - parts["kernel7"]
+        - parts["int8.library_conv"] - parts["int8.quantize_activation"]}
+    res["breakdown"] = {k: round(v, 3) for k, v in breakdown.items()}
+    res["breakdown_total_ms"] = parts["total"]
+    print(f"dynamic-int8 ResNet-50 forward at batch {QUANT_BATCH}, device ms "
+          f"by part (torch.profiler, {parts['total']:.3f} ms in all): "
+          f"{res['breakdown']}", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -762,6 +1185,7 @@ def main():
     print(f"kernel checks passed: {len(extra) + len(main_shapes)} cases, "
           f"max |kernel - plain| {dict(max_err)}", flush=True)
     flash_rows, flash_err = flash_phase(gen, timing=not args.quick)
+    int8_rows = int8_phase(gen, timing=not args.quick)
     if args.quick:
         print("quick: kernels build, launch and agree; stopping")
         return
@@ -1138,6 +1562,10 @@ def main():
 
     # -------------------------------------------------------------- 5. lm
     lm = lm_phase(args)
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 6. quant
+    quant = quant_phase(args, out)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -1151,7 +1579,7 @@ def main():
                    "parity": parity,
                    "losses_one_batch": losses,
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
-         "flash": flash_rows, "lm": lm},
+         "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -1196,6 +1624,31 @@ def main():
         "shapes": f"{tuple(lm_row['shape'])} causal bf16 as "
                   "MultiHeadAttention gives it, per call; "
                   f"{LM['num_layers']} calls per LM forward"})
+    fwd7 = [r for r in int8_rows if r["calls_per_forward"]]
+    k7 = {key: sum(r["calls_per_forward"] * r[key] for r in fwd7)
+          for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                      "ops_ms")}
+    line.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": f"{src}int8_matmul.cu",
+        "replaces": "bigdl_tpu/ops/pallas/int8_matmul.py:60",
+        "launches": quant["serve"]["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
+        "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"],
+        "bound_by": "bytes" if k7["bytes_ms"] >= k7["ops_ms"]
+        else "operations",
+        "library_ms": k7["library_ms"],
+        "launches_by_path": {
+            "serve": quant["serve"]["launches"],
+            "resnet50_dynamic_forward": quant["launches"]["dynamic_forward"],
+            "resnet50_weight_only_forward":
+                quant["launches"]["weight_only_forward"],
+            "mlp_forward": quant["launches"]["mlp_forward"]},
+        "shapes": f"one quantized ResNet-50 forward at batch {QUANT_BATCH}: "
+                  f"{sum(r['calls_per_forward'] for r in fwd7)} calls at "
+                  f"{len(fwd7)} shapes, times summed; library is "
+                  "torch._int_mm plus the same epilogue"})
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

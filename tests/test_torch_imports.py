@@ -24,7 +24,8 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "ops.flash_attention", "ops.attention", "nn.attention",
               "nn.dropout", "nn.embedding", "optim.validation",
               "dataset.text", "models.train_utils",
-              "models.transformer_train"):
+              "models.transformer_train", "nn.quantized", "ops.int8_matmul",
+              "utils.serialization", "optim.prediction_service"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
