@@ -52,7 +52,9 @@ _L = ctypes.c_longlong
 #: int passed bare would be cut to 32 bits)
 ARGTYPES = {
     "fused_matmul_bn": [_P] * 9 + [_I] * 5 + [_P],
-    "fused_conv3x3_bn": [_P] * 9 + [_I] * 7 + [_P],
+    # x, w, ps, pb, y, ws, 4 column-sum buffers; B, H, W, C, Co,
+    # prologue, relu, bn, per; stream
+    "fused_conv3x3_bn": [_P] * 10 + [_I] * 9 + [_P],
     "fused_matmul_bn_dgrad": [_P] * 13 + [_I] * 5 + [_P],
     "fused_matmul_bn_wgrad": [_P] * 9 + [_I] * 6 + [_P],
     "fused_conv3x3_bn_dgrad": [_P] * 13 + [_I] * 7 + [_P],

@@ -24,7 +24,7 @@ The forward takes one of two routes, decided by where ``q`` lies:
   q's strides, so the attention output folds back into ``(N, T, H * D)``
   as a view;
 - a CPU tensor runs :func:`flash_attention_plain`, which repeats the
-  kernel's arithmetic block for block.
+  kernel's arithmetic block for block (key blocks of ``BLOCK_K``).
 
 Rounding points, as the TPU kernel keeps them: ``sm_scale`` and
 ``q * sm_scale`` round to q's type before the product; scores, the
@@ -55,7 +55,11 @@ Tensor = torch.Tensor
 LAUNCHES = {"flash_attention": 0}
 _launch_lock = threading.Lock()
 
-BLOCK_K = 64     # keys per step of the kernel (csrc/flash_attention.cu BKV)
+#: keys per step of the bf16 kernel (csrc/flash_attention.cu wg::BKV): p
+#: rounds against the running max of its key block, so the plain version
+#: blocks keys alike.  The f32 kernel steps 64 keys, which changes only
+#: the order of f32 sums (p is not rounded in f32).
+BLOCK_K = 128
 BLOCK_Q = 1024   # query rows per block of the backward (JAX's block_q)
 NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -106,8 +110,8 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
     The online softmax of ``_attn_kernel`` (flash_attention.py:36-86)
     over key blocks of ``block_k``, with its rounding points.  All query
     rows go at once: a row's result depends only on the key blocking, so
-    this equals the kernel's 64-row tiles.  A short last block is the
-    kernel's masked ragged edge (a masked key adds exactly 0)."""
+    this equals the kernel's 64- or 128-row tiles.  A short last block is
+    the kernel's masked ragged edge (a masked key adds exactly 0)."""
     _check_shapes(q, k, v, causal)
     t, s = q.shape[2], k.shape[2]
     qs = (q * _in_type(_scale(q, sm_scale), q.dtype)).float()

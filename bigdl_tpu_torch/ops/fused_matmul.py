@@ -36,7 +36,7 @@ not count.
 from __future__ import annotations
 
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +63,8 @@ _launch_lock = threading.Lock()
 _BM = 128  # row tile of the kernels (fused_gemm_bn.cuh BM)
 _BN = 64   # column tile
 _BK = 32   # reduction step
+_CONV3_BM = 128  # kernel 4's bf16 row tile: two consumer warpgroups of 64
+_CONV3_BK = 64   # kernel 4's bf16 reduction step: one tap, 64 channels
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -284,11 +286,12 @@ def _call(name: str, x: Tensor, *args):
         LAUNCHES[name] += 1
 
 
-def _colsum_scratch(m: int, n: int, device):
+def _colsum_scratch(m: int, n: int, device, bm: int = _BM):
     """One f32 allocation for the two-pass column sums: the two
-    (ceil(m / BM), n) partial arrays, then the two (n,) results.
-    Returns (four addresses, the two results)."""
-    grid_m = -(-m // _BM)
+    (ceil(m / bm), n) partial arrays (one row per tile of ``bm`` rows),
+    then the two (n,) results.  Returns (four addresses, the two
+    results)."""
+    grid_m = -(-m // bm)
     buf = torch.empty((2 * grid_m + 2, n), device=device,
                       dtype=torch.float32)
     p0, row = buf.data_ptr(), 4 * n
@@ -326,6 +329,46 @@ def _matmul_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
     return y, ssum, ssq
 
 
+class Conv3Plan(NamedTuple):
+    """How kernel 4's bf16 path tiles one call: ``bm`` output pixels by
+    ``bn`` output channels per block, the reduction's ``steps`` (one tap
+    and 64 channels each, taps innermost) cut into ``slices`` of ``per``
+    whole steps, a multiple of 3 (the taps that share one x window)."""
+    bm: int
+    bn: int
+    steps: int
+    per: int
+    slices: int
+
+
+def _conv3_plan(b: int, h: int, w: int, c: int, co: int,
+                sms: int) -> Conv3Plan:
+    """Kernel 4's tiling for an (b, h, w, c) -> co conv on ``sms`` SMs.
+
+    The column tile is the widest of 256, 128, 64 (at most ``co``) whose
+    (128-pixel x bn) tiles still fill the card twice; else 128 (64 where
+    ``co`` is 64).  Where the tiles number fewer than the SMs, the
+    reduction is split: among ceil(sms / tiles) to twice that many
+    slices (at least one x window of 3 steps each), the one that wastes
+    the least of the last wave, ceil(tiles * s / sms) / s, fewest slices
+    first."""
+    m, bm = b * h * w, _CONV3_BM
+    steps = 9 * -(-c // _CONV3_BK)
+    rows = -(-m // bm)
+    bn = next((t for t in (256, 128, 64)
+               if t <= max(co, 64) and rows * -(-co // t) >= 2 * sms),
+              128 if co > 64 else 64)
+    tiles = rows * -(-co // bn)
+    slices = 1
+    if tiles < sms:
+        lo = -(-sms // tiles)
+        cap = steps // 3
+        cands = range(min(lo, cap), min(2 * lo, cap) + 1)
+        slices = min(cands, key=lambda s: (-(-tiles * s // sms) / s, s))
+    per = 3 * -(-steps // (3 * slices))
+    return Conv3Plan(bm, bn, steps, per, -(-steps // per))
+
+
 def _conv3x3_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
     if tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[3]:
         raise ValueError(f"fused_conv3x3_bn: x {tuple(x.shape)}, "
@@ -340,9 +383,15 @@ def _conv3x3_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
         raise ValueError("fused_conv3x3_bn: x has no pixels")
     psv, pbv = _prologue_vectors("fused_conv3x3_bn", x.device, c, ps, pb)
     y = torch.empty((b, h, wd, co), device=x.device, dtype=x.dtype)
-    ptrs, (ssum, ssq) = _colsum_scratch(m, co, x.device)
-    _call("fused_conv3x3_bn", x, x, w, psv, pbv, y, *ptrs, b, h, wd, c, co,
-          int(ps is not None), int(relu))
+    plan = _conv3_plan(b, h, wd, c, co, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    ws = 0  # the split reduction's (slices, m, co) f32 partial tiles
+    if x.dtype == torch.bfloat16 and plan.slices > 1:
+        ws = torch.empty((plan.slices, m, co), device=x.device,
+                         dtype=torch.float32)
+    ptrs, (ssum, ssq) = _colsum_scratch(m, co, x.device, plan.bm)
+    _call("fused_conv3x3_bn", x, x, w, psv, pbv, y, ws, *ptrs, b, h, wd, c,
+          co, int(ps is not None), int(relu), plan.bn, plan.per)
     return y, ssum, ssq
 
 

@@ -9,7 +9,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases:
 1. device: require CUDA, print the card's name and power limit, build the
    port's CUDA kernels from bigdl_tpu_torch/csrc (nvcc, sm_90a, one
-   process per source, in parallel) and print the build time;
+   process per source, in parallel) and print the build time; count the
+   wgmma instructions (HGMMA) in the SASS of the two wgmma kernels
+   (fused_conv3x3_bn, flash_attention) and fail if either has none;
 2. kernels: at ResNet-50's batch-32 shapes in bf16, plus a ragged-M
    matmul, batch-1 convs and an f32 case of each, hold every kernel
    against its plain PyTorch version on the card: the forward kernels'
@@ -17,7 +19,10 @@ Phases:
    (dx, d_ps, d_pb) and dW; time the kernel, the plain version and one
    library call for the same function (CUDA-graph replay) and compute
    the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s);
+   operations over 989 TFLOP/s); every bf16 3x3-conv case runs twice and
+   must give bit-equal y, ssum and ssq (the split reduction is summed in
+   a fixed order); the 3x3 conv is also checked and timed beside its
+   library call at the four batch-256 shapes of the train step;
 3. serve: fused ResNet-50 (space-to-depth stem, 1000 classes) with
    random weights from --seed and randomised BatchNorm, carried in
    through load_jax_variables, served by ServingEngine in bf16 to 4
@@ -37,9 +42,10 @@ Phases:
    Optimizer.apply(...).optimize() for 5 iterations on 160 images, which
    prints the reference log lines and must end with a finite loss;
 5. lm: the flash-attention kernel held against its plain version (O and
-   lse) at the LM's (8, 8, 512, 32) causal shape as MultiHeadAttention
-   gives it, the FLASH shape, a ragged T, KV longer than Q, f32 and a
-   causal (1, 8, 8192, 128), timed beside its plain version and SDPA;
+   lse) at the LM's (8, 8, 512, 32) and (8, 8, 4096, 32) causal shapes
+   as MultiHeadAttention gives them, the FLASH shape, a ragged T, KV
+   longer than Q, f32 and a causal (1, 8, 8192, 128), timed beside its
+   plain version and SDPA;
    the default Transformer LM (10001 tokens, hidden 256, 8 heads, filter
    1024, 4 layers) with random weights from --seed carried in through
    load_jax_variables: one Adam + clipping train step in bf16 and in f32
@@ -215,6 +221,7 @@ FLASH_CASES = (  # (B, H, T, S, D), causal, dtype, as the main path gives it
     ((2, 4, 256, 640, 64), False, "bf16", ""),     # KV longer than Q
     ((8, 8, 512, 512, 32), True, "f32", "mha"),    # evaluation's f32
     ((1, 8, 8192, 8192, 128), True, "bf16", ""),   # long context
+    ((8, 8, 4096, 4096, 32), True, "bf16", "mha"),  # LM's long step
 )
 LM = dict(vocab_size=10001, hidden_size=256, num_heads=8, filter_size=1024,
           num_layers=4)  # bigdl_tpu/models/transformer_train.py defaults
@@ -489,7 +496,7 @@ def lm_phase(args):
     bwd_k = device_kernels(lambda: [fa._flash_backward(
         *qkv, o, lse, g, True, hd ** -0.5) for _ in range(LM["num_layers"])])
     total = sum(step_k.values())
-    flash_fwd = sum(v for k, v in step_k.items() if "flash_fwd_kernel" in k)
+    flash_fwd = sum(v for k, v in step_k.items() if "flash_fwd_" in k)
     bwd = sum(bwd_k.values())
     bwd_mm = sum(v for k, v in bwd_k.items() if is_matmul(k))
     mm = sum(v for k, v in step_k.items() if is_matmul(k)) - bwd_mm
@@ -1005,12 +1012,22 @@ def main():
     out = args.out
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    libs = _build.build(verbose=True)
     build_s = time.perf_counter() - t0
     (out / "kernel_build.log").write_text("\n".join(
         f"== {n}\n{log}" for n, log in _build.build_info["logs"].items()))
     print(f"kernels built in {build_s:.1f} s "
           f"({', '.join(_build.build_info['compiled'])})", flush=True)
+    hgmma = {}
+    for name in ("fused_conv3x3_bn", "flash_attention"):
+        sass = subprocess.run(
+            [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+             str(libs[name])], capture_output=True, text=True)
+        hgmma[name] = sass.stdout.count("HGMMA")
+        if sass.returncode != 0 or hgmma[name] == 0:
+            fail(f"{name}: no wgmma (HGMMA) in its SASS "
+                 f"({sass.stderr.strip()[:200]})")
+    print(f"wgmma instructions (HGMMA) in the SASS: {hgmma}", flush=True)
     dev = torch.device("cuda")
 
     # --------------------------------------------------------- 2. kernels
@@ -1176,6 +1193,9 @@ def main():
         o = operands(op, shape, prologue, dtype)
         got = call(kern, op, o)
         torch.cuda.synchronize()
+        if op == "cv" and dt == "bf16" and not all(
+                torch.equal(a, b) for a, b in zip(got, call(kern, op, o))):
+            fail(f"{name}{shape}: two runs differ (y, ssum or ssq)")
         ref = call(plain, op, o)
         m = math.prod(shape[:-2]) if op.startswith("cv") else shape[0]
         err = check(f"{name}{shape} {dt}", op, got, ref, dt, m)
@@ -1236,6 +1256,26 @@ def main():
               f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f}, eager call {r['call_ms']:.4f})",
               flush=True)
+        del o
+
+    # kernel 4 at the batch-256 shapes of the train step: checked against
+    # its plain version, timed beside its library call
+    rows256 = []
+    for shape, count in resnet50_calls(TRAIN_BATCH)[1].items():
+        name, kern, plain, _ = kernels["cv"]
+        o = operands("cv", shape, True, torch.bfloat16)
+        check(f"{name}{shape} bf16", "cv", call(kern, "cv", o),
+              call(plain, "cv", o), "bf16", math.prod(shape[:-2]))
+        r = {"kernel": name, "shape": list(shape),
+             "calls_per_forward": count,
+             "ms": device_ms(lambda: call(kern, "cv", o)),
+             "library_ms": device_ms(lambda: library("cv", o))}
+        r["bytes_ms"], r["ops_ms"] = bound("cv", shape)
+        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        rows256.append(r)
+        print(f"  {name} {tuple(shape)}: {r['ms']:.4f} ms (library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)", flush=True)
         del o
 
     # ----------------------------------------------------------- 3. serve
@@ -1506,7 +1546,9 @@ def main():
         if t_us is None:
             t_us = getattr(evt, "cuda_time_total", 0)
         key = evt.key
-        if "fused_gemm_bn_kernel" in key:
+        if "conv3_wgmma" in key or "conv3_split_sum" in key:
+            grp = "kernel 4 (conv forward)"
+        elif "fused_gemm_bn_kernel" in key:
             grp = ("kernel 4 (conv forward)" if "true>" in key
                    else "kernel 1 (matmul forward)")
         elif "fused_dgrad_kernel" in key:
@@ -1569,6 +1611,7 @@ def main():
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
+         "conv3_batch256": rows256, "hgmma": hgmma,
          "serve": {"requests": REQUESTS, "batches": batches,
                    "images_per_s": REQUESTS / wall, "p50_ms": p50,
                    "p99_ms": p99, "max_abs_err": serve_err,
@@ -1606,6 +1649,10 @@ def main():
             "shapes": f"one ResNet-50 {'backward' if 'grad' in op else 'forward'}"
                       f" at batch {BATCH}: {calls} calls, times summed",
         })
+        if op == "cv":  # the train step's batch as well
+            line[-1]["batch_256"] = {key: sum(
+                r["calls_per_forward"] * r[key] for r in rows256)
+                for key in ("ms", "library_ms", "bound_ms")}
     lm_row = flash_rows[0]  # the LM default, as MultiHeadAttention gives it
     line.append({
         "name": "flash_attention", "route": "cuda",

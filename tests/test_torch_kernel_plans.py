@@ -1,0 +1,118 @@
+"""Host-side plans of the two wgmma kernels, on the CPU.
+
+- ``_conv3_plan`` (kernel 4's tiling) at ResNet-50's four 3x3 shapes at
+  batches 1, 32 and 256, plus ragged ones: its row and column tiles cover
+  M and Co exactly once, its slices cut the reduction (9 taps x 64-channel
+  chunks) into whole steps, in whole x windows of 3 taps, and at batch 32
+  on 132 SMs it launches at least 132 blocks.
+- The flash kernel's plain version at the bf16 kernel's key block
+  (``BLOCK_K``, 128; p rounds against the running max of its key block)
+  against JAX's Pallas kernel in interpret mode at the same block, at
+  D 32/64/128, causal and not, f32 within 1e-5 of max|O| (max|lse|) and
+  bf16 within one bf16 step at the largest |O| (|lse|), as
+  ``test_torch_flash_attention.py`` states; and against JAX's XLA path
+  (``dot_product_attention(use_flash=False)``) at ragged T and S in f32,
+  1e-5 of max|O|.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from bigdl_tpu.ops.attention import dot_product_attention as jax_dpa
+from bigdl_tpu.ops.pallas.flash_attention import _flash_fwd_pallas
+from bigdl_tpu_torch.ops import flash_attention as fa
+from bigdl_tpu_torch.ops import fused_matmul as tfm
+
+SMS = 132  # an H100 SXM
+RESNET50_CONV3 = [(56, 64), (28, 128), (14, 256), (7, 512)]  # (hw, c = co)
+TOL = {"f32": lambda m: 1e-5 * m,
+       "bf16": lambda m: 2.0 ** (np.floor(np.log2(m)) - 7)}  # one step
+DT = {"f32": (torch.float32, jnp.float32),
+      "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _check_plan(b, h, w, c, co, sms=SMS):
+    plan = tfm._conv3_plan(b, h, w, c, co, sms)
+    m = b * h * w
+    rows, cols = -(-m // plan.bm), -(-co // plan.bn)
+    # tiles cover M and Co exactly once: no tile starts past the end
+    assert (rows - 1) * plan.bm < m <= rows * plan.bm
+    assert (cols - 1) * plan.bn < co <= cols * plan.bn
+    assert plan.bn in (64, 128, 256) and plan.bm == 128
+    # the slices partition the reduction into whole steps and windows
+    assert plan.steps == 9 * -(-c // 64)
+    assert plan.per % 3 == 0 and plan.per > 0
+    assert (plan.slices - 1) * plan.per < plan.steps <= plan.slices * plan.per
+    bounds = [(z * plan.per, min(plan.steps, (z + 1) * plan.per))
+              for z in range(plan.slices)]
+    assert all(lo < hi for lo, hi in bounds)
+    assert sum(hi - lo for lo, hi in bounds) == plan.steps
+    return plan, rows * cols * plan.slices
+
+
+@pytest.mark.parametrize("batch", [1, 32, 256])
+@pytest.mark.parametrize("hw,c", RESNET50_CONV3)
+def test_conv3_plan_covers_and_fills(batch, hw, c):
+    plan, blocks = _check_plan(batch, hw, hw, c, c)
+    if batch == 32:
+        assert blocks >= SMS, plan
+    if batch == 256:  # the grid fills the card without a split
+        assert plan.slices == 1, plan
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 7, 512, 512), (2, 5, 5, 16, 24),
+                                   (1, 1, 1, 8, 8), (5, 9, 11, 72, 200)])
+def test_conv3_plan_ragged_shapes(shape):
+    _check_plan(*shape)
+    _check_plan(*shape, sms=16)
+
+
+def test_conv3_plan_is_a_function_of_its_arguments():
+    assert tfm._conv3_plan(32, 7, 7, 512, 512, SMS) == \
+        tfm._conv3_plan(32, 7, 7, 512, 512, SMS)
+    # fewer SMs need fewer slices to fill
+    assert tfm._conv3_plan(32, 7, 7, 512, 512, 16).slices <= \
+        tfm._conv3_plan(32, 7, 7, 512, 512, SMS).slices
+
+
+def _qkv(seed, b, h, t, s, d):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(b, h, n, d).astype(np.float32) for n in (t, s, s)]
+
+
+def _close(got, want, tol, what):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= tol(scale), (what, err, scale)
+
+
+def test_key_block_is_the_kernels():
+    assert fa.BLOCK_K == 128
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_plain_at_the_key_block_matches_interpret_kernel(d, causal, dt):
+    tdt, jdt = DT[dt]
+    q, k, v = _qkv(d + causal, 1, 2, 256, 256, d)
+    jo, jl = _flash_fwd_pallas(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                               causal, 1.0 / np.sqrt(d), 64, fa.BLOCK_K,
+                               True)
+    to, tl = fa.flash_attention_plain(
+        *(torch.tensor(x).to(tdt) for x in (q, k, v)), causal)
+    _close(to.float().numpy(), jo.astype(jnp.float32), TOL[dt], "O")
+    _close(tl.numpy(), jl, TOL[dt], "lse")
+
+
+@pytest.mark.parametrize("t,s,causal", [(200, 200, True), (100, 300, False)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_plain_at_ragged_lengths_matches_xla(d, t, s, causal):
+    q, k, v = _qkv(7, 1, 2, t, s, d)
+    want = jax_dpa(*(jnp.asarray(x) for x in (q, k, v)), causal=causal,
+                   use_flash=False)
+    o, _ = fa.flash_attention_plain(*(torch.tensor(x) for x in (q, k, v)),
+                                    causal)
+    _close(o.numpy(), want, TOL["f32"], "O")
