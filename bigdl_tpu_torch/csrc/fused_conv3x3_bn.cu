@@ -47,9 +47,9 @@
 // - the plan (ops/fused_matmul.py `_conv3_plan`) splits the reduction
 //   into slices (gridDim.z, whole x windows each) where the output tiles
 //   alone would not fill the card.  A split block writes its f32 partial
-//   tile to a workspace; conv3_split_sum then adds the slices in a fixed
-//   order, rounds y once and takes the column partials of the summed f32
-//   values.  No atomics: the result is the same on every run.
+//   tile to a workspace; split_sum (wgmma_bn.cuh) then adds the slices
+//   in a fixed order, rounds y once and takes the column partials of the
+//   summed f32 values.  No atomics: the result is the same on every run.
 // Epilogue without a split: y rounded once from the f32 accumulator into
 // a swizzled tile in shared memory and written by TMA stores, and the
 // tile's column sums of acc and acc^2 reduced in a fixed order (one row
@@ -65,6 +65,7 @@
 // the f32 entry point ignores all three.
 #include "fused_gemm_bn.cuh"
 #include "hopper.cuh"
+#include "wgmma_bn.cuh"
 
 namespace {
 
@@ -95,66 +96,6 @@ struct Cfg {
   static constexpr int CONSUMER_REGS = BN == 64 ? 104 : 232;
 };
 
-// bf16 pair of raw x -> [relu](x * s + b) in f32 (a separate multiply
-// and add) -> bf16 pair, and-ed with `keep` (0 outside the image).
-// Without a prologue the tables hold s = 1, b = 0, which gives x back.
-// Branch-free: a branch per pair kept the compiler from overlapping the
-// fragments' loads and arithmetic.
-__device__ __forceinline__ uint32_t prologue2(uint32_t raw, float2 s,
-                                              float2 b, bool relu,
-                                              uint32_t keep) {
-  const float2 f =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-  float u0 = __fadd_rn(__fmul_rn(f.x, s.x), b.x);
-  float u1 = __fadd_rn(__fmul_rn(f.y, s.y), b.y);
-  u0 = relu ? fmaxf(u0, 0.0f) : u0;
-  u1 = relu ? fmaxf(u1, 0.0f) : u1;
-  return hopper::pack_bf16(u0, u1) & keep;
-}
-
-// Builds the A fragments of one reduction step (tap `tap`, channels from
-// c0) in `a`: reads the raw x fragments of the tap's window with
-// ldmatrix, the tile's pixel r at window row r + dw, then applies the
-// prologue and the validity mask.
-__device__ __forceinline__ void build_a(uint32_t (&a)[4][4], int tap, int c0,
-                                        uint32_t window, const float* ps_s,
-                                        const float* pb_s,
-                                        const uint32_t (&vmask)[2], int lrow,
-                                        int lhalf, int t, bool relu) {
-  using namespace hopper;
-  const uint32_t k0 = 0u - ((vmask[0] >> tap) & 1);  // all ones if valid
-  const uint32_t k1 = 0u - ((vmask[1] >> tap) & 1);
-  const int row = lrow + tap % 3;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    uint32_t raw[4];
-    ldmatrix_x4(window + swz<128>(row, 2 * ks + lhalf), raw);
-    const int c = c0 + ks * 16 + 2 * t;
-    const float2 sl = *reinterpret_cast<const float2*>(ps_s + c);
-    const float2 sh = *reinterpret_cast<const float2*>(ps_s + c + 8);
-    const float2 bl = *reinterpret_cast<const float2*>(pb_s + c);
-    const float2 bh = *reinterpret_cast<const float2*>(pb_s + c + 8);
-    a[ks][0] = prologue2(raw[0], sl, bl, relu, k0);
-    a[ks][1] = prologue2(raw[1], sl, bl, relu, k1);
-    a[ks][2] = prologue2(raw[2], sh, bh, relu, k0);
-    a[ks][3] = prologue2(raw[3], sh, bh, relu, k1);
-  }
-}
-
-// Issues the 4 wgmmas of one step (A from `a`, B the stage's weight
-// tile at b_tile) as one commit group.
-template <int BN>
-__device__ __forceinline__ void issue(float (&acc)[BN / 2],
-                                      uint32_t (&a)[4][4], uint32_t b_tile) {
-  using namespace hopper;
-  reg_fence(a);
-  wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    wgmma_rs<BN>(acc, a[ks], desc_mn<128>(b_tile, BK, ks * 16), 1);
-  wgmma_commit();
-}
-
 // Shared memory of the x-window and weight rings and their barriers.
 struct Ring {
   uint32_t base;
@@ -180,15 +121,18 @@ __device__ __forceinline__ void consume_step(float (&acc)[BN / 2],
   const int tap = (s_begin + j) % 9, c0 = (s_begin + j) / 9 * BK;
   const int wi = j / 3, ast = wi % A_STAGES, bst = j % B_STAGES;
   if (tap % 3 == 0) mbar_wait(&r.a_full[ast], (wi / A_STAGES) & 1);
-  build_a(a, tap, c0, r.base + ast * Cf::A_BYTES, ps_s, pb_s, vmask, lrow,
-          lhalf, t, relu);
+  // the tile's pixel r at window row r + dw; 0 where the tap leaves the
+  // image (all ones in keep where it is inside)
+  wgbn::build_a(a, c0, r.base + ast * Cf::A_BYTES, lrow + tap % 3, lhalf, t,
+                ps_s, pb_s, 0u - ((vmask[0] >> tap) & 1),
+                0u - ((vmask[1] >> tap) & 1), relu);
   if (tap % 3 == 2) mbar_arrive(&r.a_empty[ast]);
   mbar_wait(&r.b_full[bst], (j / B_STAGES) & 1);
   if (j > 0) {
     wgmma_wait<0>();
     mbar_arrive(&r.b_empty[(j - 1) % B_STAGES]);
   }
-  issue<BN>(acc, a, r.base + Cf::B_OFF + bst * Cf::B_BYTES);
+  wgbn::issue<BN>(acc, a, r.base + Cf::B_OFF + bst * Cf::B_BYTES);
 }
 
 template <int BN>
@@ -312,19 +256,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
     reg_fence(acc);
 
     if (ws != nullptr) {  // a slice: its f32 partial tile
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * t;
-        if (n >= Co) continue;  // Co % 8 == 0: n + 1 < Co as well
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int m = m0 + rw + g + 8 * i;
-          if (m < M)
-            *reinterpret_cast<float2*>(
-                ws + (static_cast<size_t>(blockIdx.z) * M + m) * Co + n) =
-                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-        }
-      }
+      wgbn::store_slice<BN>(acc, ws, blockIdx.z, m0, n0, M, Co, rw, g, t);
       return;
     }
 
@@ -336,30 +268,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
     unsigned char* ytile = smem;
     float* red_s = reinterpret_cast<float*>(smem + BM * BN * 2);
     float* red_q = red_s + 8 * BN;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = rw + g + 8 * i;
-        *reinterpret_cast<uint32_t*>(
-            ytile + (j / 8) * BM * 128 + swz<128>(r, j % 8) + 4 * t) =
-            pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float u = acc[4 * j + e], v = acc[4 * j + 2 + e];
-        float s = u + v, q = u * u + v * v;
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {  // over the 8 row groups
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-          q += __shfl_xor_sync(0xffffffffu, q, off);
-        }
-        if (g == 0) {
-          red_s[(4 * wgi + warp) * BN + 8 * j + 2 * t + e] = s;
-          red_q[(4 * wgi + warp) * BN + 8 * j + 2 * t + e] = q;
-        }
-      }
-    }
+    wgbn::stage_tile<BN>(acc, ytile, red_s, red_q, wgi, warp, rw, g, t);
     fence_proxy_async();  // the y tile is read by the TMA stores
     named_sync(1, 256);
     if (threadIdx.x == 0) {
@@ -371,51 +280,13 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
     }
     const int col = threadIdx.x;  // 0..255 over both warpgroups
     if (col < BN && n0 + col < Co) {
-      float s = 0.0f, q = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s += red_s[i * BN + col];
-        q += red_q[i * BN + col];
-      }
+      float s, q;
+      wgbn::reduce_tile<BN>(red_s, red_q, col, s, q);
       const size_t o = static_cast<size_t>(blockIdx.x) * Co + n0 + col;
       part_sum[o] = s;
       part_sq[o] = q;
     }
     if (threadIdx.x == 0) tma_store_wait_read();  // before the block exits
-  }
-}
-
-// Adds the slices of the split reduction in slice order, rounds y once
-// and writes the column partials of the summed f32 values per 128-row
-// tile (the layout of the unsplit kernel's partials).
-__global__ void __launch_bounds__(256)
-    conv3_split_sum(const float* __restrict__ ws, bf16* __restrict__ y,
-                    float* __restrict__ part_sum, float* __restrict__ part_sq,
-                    int M, int Co, int slices) {
-  __shared__ float rs[4][64];
-  __shared__ float rq[4][64];
-  const int tx = threadIdx.x & 63, ty = threadIdx.x >> 6;
-  const int n = blockIdx.y * 64 + tx;
-  const int m0 = blockIdx.x * BM;
-  float s = 0.0f, q = 0.0f;
-  if (n < Co) {
-    for (int r = ty; r < BM && m0 + r < M; r += 4) {
-      const size_t o = static_cast<size_t>(m0 + r) * Co + n;
-      float v = 0.0f;
-      for (int z = 0; z < slices; ++z)
-        v += ws[static_cast<size_t>(z) * M * Co + o];
-      y[o] = __float2bfloat16(v);
-      s += v;
-      q += v * v;
-    }
-  }
-  rs[ty][tx] = s;
-  rq[ty][tx] = q;
-  __syncthreads();
-  if (ty == 0 && n < Co) {
-    const size_t o = static_cast<size_t>(blockIdx.x) * Co + n;
-    part_sum[o] = ((rs[0][tx] + rs[1][tx]) + rs[2][tx]) + rs[3][tx];
-    part_sq[o] = ((rq[0][tx] + rq[1][tx]) + rq[2][tx]) + rq[3][tx];
   }
 }
 
@@ -456,17 +327,10 @@ int launch(const void* x, const void* w, const float* ps, const float* pb,
   conv3_wgmma<BN><<<grid, THREADS, Cfg<BN>::bytes(nch * BK), stream>>>(
       xmap, wmap, ymap, ps, pb, slices > 1 ? ws : nullptr,
       part_sum, part_sq, M, H, W, C, Co, prologue, relu, per);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (slices > 1) {
-    conv3_split_sum<<<dim3(grid.x, (Co + 63) / 64), 256, 0, stream>>>(
-        ws, static_cast<bf16*>(y), part_sum, part_sq, M, Co, slices);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  fgbn::colsum_kernel<<<(Co + 31) / 32, 256, 0, stream>>>(
-      part_sum, part_sq, ssum, ssq, grid.x, Co);
-  return static_cast<int>(cudaGetLastError());
+  return wgbn::finish(ws, y, part_sum, part_sq, ssum, ssq, M, Co, slices,
+                      grid.x, stream);
 }
 
 }  // namespace wg

@@ -1,6 +1,9 @@
-// Shared tiled GEMM with a BatchNorm prologue and a statistics epilogue,
-// used by fused_matmul_bn.cu (1x1 conv as a matmul) and
-// fused_conv3x3_bn.cu (3x3 stride-1 SAME conv as an implicit GEMM).
+// Shared tiled GEMM with a BatchNorm prologue and a statistics epilogue:
+// the f32 paths of fused_matmul_bn.cu (1x1 conv as a matmul) and
+// fused_conv3x3_bn.cu (3x3 stride-1 SAME conv as an implicit GEMM),
+// whose bf16 paths are wgmma kernels, and, through fused_dgrad_bn.cuh,
+// both paths of the data-gradient kernels.  colsum_kernel and relu_nan
+// serve all of them.
 //
 //   u   = [relu](x * ps + pb)   in f32, rounded to the weight type
 //   acc = u @ W                 f32 accumulation
@@ -40,6 +43,15 @@ constexpr int THREADS = 256;
 struct ConvGeom {  // input image geometry of the implicit GEMM
   int H, W, C;
 };
+
+// max(u, 0) that keeps a NaN, as jnp.maximum does (fmaxf turns it into
+// 0, and then no NaN reaches the loss for its detector to see); one
+// instruction, as fmaxf is
+__device__ __forceinline__ float relu_nan(float u) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(u));
+  return r;
+}
 
 // ---------------------------------------------------------------- I/O
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
@@ -157,7 +169,7 @@ __device__ __forceinline__ void load_a_tile(T* As, const T* __restrict__ x,
           // separate multiply and add (no FMA contraction), as the
           // plain version computes it
           float u = __fadd_rn(__fmul_rn(f[j], ps[c + j]), pb[c + j]);
-          f[j] = relu ? fmaxf(u, 0.0f) : u;
+          f[j] = relu ? relu_nan(u) : u;
         }
       }
     } else {

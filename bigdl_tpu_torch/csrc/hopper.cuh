@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (fused_conv3x3_bn.cu, flash_attention.cu): shared-memory tile layout
-// and swizzle, wgmma matrix descriptors, the wgmma instructions for bf16
-// with f32 accumulation, mbarriers, TMA tensor-map loads and stores, named
-// barriers, ldmatrix and register reallocation between warpgroups.
+// (fused_matmul_bn.cu, fused_matmul_bn_wgrad.cu, fused_conv3x3_bn.cu,
+// flash_attention.cu): shared-memory tile layout and swizzle, wgmma
+// matrix descriptors, the wgmma instructions for bf16 with f32
+// accumulation, mbarriers, TMA tensor-map loads and stores, named
+// barriers, ldmatrix (plain and transposed) and register reallocation
+// between warpgroups.
 //
 // Tile layout.  A bf16 tile of R rows (R a multiple of 8) is stored in
 // column blocks of CB = SWB / 2 elements (SWB = 64 or 128 bytes, the
@@ -415,6 +417,19 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t saddr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr));
+}
+
+// the same four matrices transposed: register i receives this lane's
+// pair of column l / 4 of matrix i (rows 2 (l % 4) and 2 (l % 4) + 1),
+// so a tile stored (k rows, m columns) gives the A fragments of its
+// transpose
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t saddr,
+                                                  uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(saddr));
 }

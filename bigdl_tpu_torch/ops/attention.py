@@ -3,8 +3,11 @@
 The mask-free, bias-free case goes to the flash kernel
 (:func:`bigdl_tpu_torch.ops.flash_attention.flash_attention`), with no
 fallback: on a CUDA tensor the kernel runs or the call raises.  A mask or
-a bias (or ``use_flash=False``) takes the plain path: f32 scores, masked
-scores set to -1e30, an f32 softmax cast to q's type, then ``p @ v``.
+a bias (or ``use_flash=False``), or causal attention whose query and key
+lengths differ, takes the plain path: f32 scores, masked scores set to
+-1e30, an f32 softmax cast to q's type, then ``p @ v``.  The flash
+kernel's causal mask is top-left and needs Tq == Tk; the JAX function
+gets the same routing by catching the kernel's error.
 """
 from __future__ import annotations
 
@@ -25,10 +28,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over ``(B, H, Tq, D)`` queries and ``(B, H, Tk, D)``
     keys/values.  ``mask`` broadcasts to ``(B, H, Tq, Tk)`` (True keeps a
     score); ``use_flash=None`` takes the kernel exactly when there is no
-    mask and no bias.  The plain path's causal mask is bottom-right
-    aligned (``tril(k=Tk-Tq)``), as the JAX function's."""
+    mask and no bias, unless causal with Tq != Tk.  The plain path's
+    causal mask is bottom-right aligned (``tril(k=Tk-Tq)``), as the JAX
+    function's."""
     if use_flash is None:
         use_flash = mask is None and bias is None
+    if causal and q.shape[-2] != k.shape[-2]:
+        use_flash = False  # bottom-right causal: the plain path's mask
     if use_flash and mask is None and bias is None:
         return flash_attention(q, k, v, causal=causal, sm_scale=scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])

@@ -22,7 +22,10 @@ The forward takes one of two routes, decided by where ``q`` lies:
   that ``MultiHeadAttention`` makes pass without a copy.  Any other
   layout is copied to a contiguous tensor first.  O is allocated with
   q's strides, so the attention output folds back into ``(N, T, H * D)``
-  as a view;
+  as a view.  A head dim below 128 and not in that set is zero-padded to
+  the next one (:func:`_padded`: zero columns add nothing to a score,
+  ``sm_scale`` stays ``1/sqrt(D)`` of the true D, and O's extra columns
+  are dropped); a head dim above 128 raises;
 - a CPU tensor runs :func:`flash_attention_plain`, which repeats the
   kernel's arithmetic block for block (key blocks of ``BLOCK_K``).
 
@@ -182,6 +185,19 @@ def _kernel_operand(t: Tensor) -> Tensor:
     return t
 
 
+def _padded(forward, q: Tensor, k: Tensor, v: Tensor, causal: bool,
+            sm_scale: float) -> Tuple[Tensor, Tensor]:
+    """``forward`` (the kernel launch, or on the CPU its plain version)
+    on q, k, v zero-padded along D to the next head dim the kernel
+    takes: ``(O[..., :D], lse)``.  The zero columns add exactly 0 to
+    every score, and ``sm_scale`` is the caller's, from the true D."""
+    d = q.shape[-1]
+    pad = next(p for p in _HEAD_DIMS if p >= d) - d
+    o, lse = forward(*(torch.nn.functional.pad(x, (0, pad))
+                       for x in (q, k, v)), causal, sm_scale)
+    return o[..., :d], lse
+
+
 def _flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                         sm_scale: float) -> Tuple[Tensor, Tensor]:
     name = "flash_attention"
@@ -200,12 +216,14 @@ def _flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                          f"is cuda:{torch.cuda.current_device()}")
     b, h, t, d = q.shape
     s = k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel takes head dims {_HEAD_DIMS}, "
-                         f"got {d}")
+    if d > _HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: the kernel takes head dims up to "
+                         f"{_HEAD_DIMS[-1]}, got {d}")
     if t == 0 or s == 0 or b * h == 0:
         raise ValueError(f"{name}: empty operand {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
+    if d not in _HEAD_DIMS:
+        return _padded(_flash_forward_cuda, q, k, v, causal, sm_scale)
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     o = torch.empty_like(q)  # q's strides: a (B, T, H, D) buffer stays one
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32)

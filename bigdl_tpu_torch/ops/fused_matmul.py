@@ -61,10 +61,12 @@ LAUNCHES = {"fused_matmul_bn": 0, "fused_conv3x3_bn": 0,
 _launch_lock = threading.Lock()
 
 _BM = 128  # row tile of the kernels (fused_gemm_bn.cuh BM)
-_BN = 64   # column tile
-_BK = 32   # reduction step
 _CONV3_BM = 128  # kernel 4's bf16 row tile: two consumer warpgroups of 64
 _CONV3_BK = 64   # kernel 4's bf16 reduction step: one tap, 64 channels
+_MM_BM = 128     # kernel 1's bf16 row tile: two consumer warpgroups of 64
+_MM_BK = 64      # kernel 1's bf16 reduction step: 64 channels
+_WGRAD_BN = 128  # kernel 3's bf16 tile of dW^T rows (N): two warpgroups
+_WGRAD_BM = 64   # kernel 3's reduction step: 64 rows of M
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -286,18 +288,21 @@ def _call(name: str, x: Tensor, *args):
         LAUNCHES[name] += 1
 
 
-def _colsum_scratch(m: int, n: int, device, bm: int = _BM):
+def _colsum_scratch(grid_m: int, n: int, device):
     """One f32 allocation for the two-pass column sums: the two
-    (ceil(m / bm), n) partial arrays (one row per tile of ``bm`` rows),
-    then the two (n,) results.  Returns (four addresses, the two
-    results)."""
-    grid_m = -(-m // bm)
+    (grid_m, n) partial arrays (one row per row tile, or per block of a
+    persistent kernel), then the two (n,) results.  Returns (four
+    addresses, the two results)."""
     buf = torch.empty((2 * grid_m + 2, n), device=device,
                       dtype=torch.float32)
     p0, row = buf.data_ptr(), 4 * n
     ptrs = (p0, p0 + grid_m * row, p0 + 2 * grid_m * row,
             p0 + (2 * grid_m + 1) * row)
     return ptrs, (buf[2 * grid_m], buf[2 * grid_m + 1])
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _route(name: str, x: Tensor) -> bool:
@@ -308,6 +313,54 @@ def _route(name: str, x: Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
     return True
+
+
+def _slices(tiles: int, slots: int, cap: int) -> int:
+    """Slices of a split reduction: 1 where ``tiles`` output tiles fill
+    the card's ``slots`` (blocks in flight at once); else, among
+    ceil(slots / tiles) to twice that many (at most ``cap``), the count
+    that wastes the least of the last wave, ceil(tiles * s / slots) / s,
+    fewest slices first."""
+    if tiles >= slots:
+        return 1
+    lo = -(-slots // tiles)
+    cands = range(min(lo, cap), min(2 * lo, cap) + 1)
+    return min(cands, key=lambda s: (-(-tiles * s // slots) / s, s))
+
+
+class MatmulPlan(NamedTuple):
+    """How kernel 1's bf16 path tiles one call: ``bm`` rows by ``bn``
+    columns per tile, the reduction's ``steps`` (64 channels each) cut
+    into ``slices`` of ``per`` steps, and ``blocks`` persistent blocks
+    walking the tiles: one per SM, but without a split a multiple of the
+    column tiles (rounded down, at least one per column tile), so that
+    each block keeps one column tile."""
+    bm: int
+    bn: int
+    steps: int
+    per: int
+    slices: int
+    blocks: int
+
+
+def _matmul_plan(m: int, k: int, n: int, sms: int) -> MatmulPlan:
+    """Kernel 1's tiling for an (m, k) @ (k, n) product on ``sms`` SMs:
+    128 columns per tile, or 64 where ``n`` is 64 or 128-column tiles
+    would leave half the SMs idle; the reduction split (:func:`_slices`)
+    only where the tiles leave three quarters of the SMs idle: on an
+    H100 a split's f32 round trip through the workspace cost more than
+    the SMs it filled at every ResNet-50 shape at batch 32."""
+    rows = -(-m // _MM_BM)
+    bn = 64 if n <= 64 or 2 * rows * -(-n // 128) < sms else 128
+    steps = -(-k // _MM_BK)
+    cols = -(-n // bn)
+    slices = 1 if 4 * rows * cols >= sms else _slices(rows * cols, sms,
+                                                      steps)
+    per = -(-steps // slices)
+    slices = -(-steps // per)
+    blocks = min(rows * cols * slices, sms if slices > 1
+                 else max(1, sms // cols) * cols)
+    return MatmulPlan(_MM_BM, bn, steps, per, slices, blocks)
 
 
 def _matmul_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
@@ -323,9 +376,17 @@ def _matmul_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
         raise ValueError("fused_matmul_bn: x has no rows")
     psv, pbv = _prologue_vectors("fused_matmul_bn", x.device, k, ps, pb)
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
-    ptrs, (ssum, ssq) = _colsum_scratch(m, n, x.device)
-    _call("fused_matmul_bn", x, x, w, psv, pbv, y, *ptrs, m, k, n,
-          int(ps is not None), int(relu))
+    plan = _matmul_plan(m, k, n, _sms(x.device))
+    ws = 0  # the split reduction's (slices, m, n) f32 partial tiles
+    if x.dtype == torch.bfloat16 and plan.slices > 1:
+        ws = torch.empty((plan.slices, m, n), device=x.device,
+                         dtype=torch.float32)
+    # partial rows: one per block (bf16 without a split) or per 128-row
+    # tile (bf16 split, f32)
+    ptrs, (ssum, ssq) = _colsum_scratch(max(plan.blocks, -(-m // _BM)), n,
+                                        x.device)
+    _call("fused_matmul_bn", x, x, w, psv, pbv, y, ws, *ptrs, m, k, n,
+          int(ps is not None), int(relu), plan.bn, plan.per, plan.blocks)
     return y, ssum, ssq
 
 
@@ -351,20 +412,14 @@ def _conv3_plan(b: int, h: int, w: int, c: int, co: int,
     reduction is split: among ceil(sms / tiles) to twice that many
     slices (at least one x window of 3 steps each), the one that wastes
     the least of the last wave, ceil(tiles * s / sms) / s, fewest slices
-    first."""
+    first (:func:`_slices`)."""
     m, bm = b * h * w, _CONV3_BM
     steps = 9 * -(-c // _CONV3_BK)
     rows = -(-m // bm)
     bn = next((t for t in (256, 128, 64)
                if t <= max(co, 64) and rows * -(-co // t) >= 2 * sms),
               128 if co > 64 else 64)
-    tiles = rows * -(-co // bn)
-    slices = 1
-    if tiles < sms:
-        lo = -(-sms // tiles)
-        cap = steps // 3
-        cands = range(min(lo, cap), min(2 * lo, cap) + 1)
-        slices = min(cands, key=lambda s: (-(-tiles * s // sms) / s, s))
+    slices = _slices(rows * -(-co // bn), sms, steps // 3)
     per = 3 * -(-steps // (3 * slices))
     return Conv3Plan(bm, bn, steps, per, -(-steps // per))
 
@@ -383,13 +438,12 @@ def _conv3x3_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
         raise ValueError("fused_conv3x3_bn: x has no pixels")
     psv, pbv = _prologue_vectors("fused_conv3x3_bn", x.device, c, ps, pb)
     y = torch.empty((b, h, wd, co), device=x.device, dtype=x.dtype)
-    plan = _conv3_plan(b, h, wd, c, co, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+    plan = _conv3_plan(b, h, wd, c, co, _sms(x.device))
     ws = 0  # the split reduction's (slices, m, co) f32 partial tiles
     if x.dtype == torch.bfloat16 and plan.slices > 1:
         ws = torch.empty((plan.slices, m, co), device=x.device,
                          dtype=torch.float32)
-    ptrs, (ssum, ssq) = _colsum_scratch(m, co, x.device, plan.bm)
+    ptrs, (ssum, ssq) = _colsum_scratch(-(-m // plan.bm), co, x.device)
     _call("fused_conv3x3_bn", x, x, w, psv, pbv, y, ws, *ptrs, b, h, wd, c,
           co, int(ps is not None), int(relu), plan.bn, plan.per)
     return y, ssum, ssq
@@ -404,7 +458,7 @@ def _dgrad_launch(name: str, dy, y, dssum, dssq, bmat, x, ps, pb, relu,
     dssq = _vector(name, dssq, n_in, x.device)
     psv, pbv = _prologue_vectors(name, x.device, n_out, ps, pb)
     dx = torch.empty_like(x)
-    ptrs, (dps, dpb) = _colsum_scratch(m, n_out, x.device)
+    ptrs, (dps, dpb) = _colsum_scratch(-(-m // _BM), n_out, x.device)
     _call(name, x, dy, y, dssum, dssq, bmat, x, psv, pbv, dx, *ptrs, *dims,
           int(ps is not None), int(relu))
     return (dx, None, None) if ps is None else (dx, dps, dpb)
@@ -440,15 +494,31 @@ def fused_matmul_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
                          (m, k, n))
 
 
-def _wgrad_chunk(m: int, k: int, n: int, device) -> int:
-    """Rows of M per slice of kernel 3's split reduction: enough slices
-    that the (K/128) x (N/64) output tiles fill about two waves of the
-    card's SMs; a multiple of the 32-row reduction step."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-k // _BM) * -(-n // _BN)
-    slices = max(1, -(-2 * sms // tiles))
-    rows = -(-m // slices)
-    return -(-rows // _BK) * _BK
+class WgradPlan(NamedTuple):
+    """How kernel 3's bf16 path tiles one call: ``bn`` rows of dW^T (N)
+    by ``bk`` columns (K) per block, the reduction over M in ``steps`` of
+    64 rows cut into ``slices`` of ``per`` steps.  The f32 path takes
+    slices of the same ``64 * per`` rows."""
+    bn: int
+    bk: int
+    steps: int
+    per: int
+    slices: int
+
+
+def _wgrad_plan(m: int, k: int, n: int, sms: int) -> WgradPlan:
+    """Kernel 3's tiling for dW (k, n) over m rows on ``sms`` SMs: the
+    widest column tile of 64, 128, 256 that ``k`` fills, and the M
+    reduction split (:func:`_slices`) until the tiles fill the card, with
+    at least 6 steps (384 rows) per slice: each slice writes a (k, n) f32
+    partial, and on an H100 shorter slices cost more in partials than
+    they gained at the ResNet-50 shapes at batch 32."""
+    bk = 64 if k <= 64 else 128 if k <= 128 else 256
+    steps = -(-m // _WGRAD_BM)
+    slices = _slices(-(-n // _WGRAD_BN) * -(-k // bk), sms,
+                     max(1, steps // 6))
+    per = -(-steps // slices)
+    return WgradPlan(_WGRAD_BN, bk, steps, per, -(-steps // per))
 
 
 def fused_matmul_bn_wgrad(x: Tensor, prologue_scale: Optional[Tensor],
@@ -474,12 +544,12 @@ def fused_matmul_bn_wgrad(x: Tensor, prologue_scale: Optional[Tensor],
     dssq = _vector(name, dssq, n, x.device)
     psv, pbv = _prologue_vectors(name, x.device, k, prologue_scale,
                                  prologue_bias)
-    chunk = _wgrad_chunk(m, k, n, x.device)
-    part = torch.empty((-(-m // chunk), k, n), device=x.device,
+    plan = _wgrad_plan(m, k, n, _sms(x.device))
+    part = torch.empty((plan.slices, k, n), device=x.device,
                        dtype=torch.float32)
     dw = torch.empty((k, n), device=x.device, dtype=x.dtype)
-    _call(name, x, x, psv, pbv, dy, y, dssum, dssq, part, dw, m, k, n, chunk,
-          int(prologue_scale is not None), int(relu))
+    _call(name, x, x, psv, pbv, dy, y, dssum, dssq, part, dw, m, k, n,
+          plan.bk, plan.per, int(prologue_scale is not None), int(relu))
     return dw
 
 

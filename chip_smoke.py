@@ -10,8 +10,9 @@ Phases:
 1. device: require CUDA, print the card's name and power limit, build the
    port's CUDA kernels from bigdl_tpu_torch/csrc (nvcc, sm_90a, one
    process per source, in parallel) and print the build time; count the
-   wgmma instructions (HGMMA) in the SASS of the two wgmma kernels
-   (fused_conv3x3_bn, flash_attention) and fail if either has none;
+   wgmma instructions (HGMMA) in the SASS of the four wgmma kernels
+   (fused_matmul_bn, fused_matmul_bn_wgrad, fused_conv3x3_bn,
+   flash_attention) and fail if any has none;
 2. kernels: at ResNet-50's batch-32 shapes in bf16, plus a ragged-M
    matmul, batch-1 convs and an f32 case of each, hold every kernel
    against its plain PyTorch version on the card: the forward kernels'
@@ -19,10 +20,14 @@ Phases:
    (dx, d_ps, d_pb) and dW; time the kernel, the plain version and one
    library call for the same function (CUDA-graph replay) and compute
    the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s); every bf16 3x3-conv case runs twice and
-   must give bit-equal y, ssum and ssq (the split reduction is summed in
-   a fixed order); the 3x3 conv is also checked and timed beside its
-   library call at the four batch-256 shapes of the train step;
+   operations over 989 TFLOP/s); every bf16 case of the matmul, its
+   weight gradient and the 3x3 conv runs twice and must give bit-equal
+   results (split reductions are summed in a fixed order); a NaN in one
+   row of x must reach the matmul's, its weight gradient's and the 3x3
+   conv's outputs exactly where it reaches the plain versions' (bf16 and
+   f32; the prologue's ReLU keeps a NaN); the matmul, its weight
+   gradient and the 3x3 conv are also checked and timed beside their
+   library calls at the batch-256 shapes of the train step;
 3. serve: fused ResNet-50 (space-to-depth stem, 1000 classes) with
    random weights from --seed and randomised BatchNorm, carried in
    through load_jax_variables, served by ServingEngine in bf16 to 4
@@ -44,8 +49,9 @@ Phases:
 5. lm: the flash-attention kernel held against its plain version (O and
    lse) at the LM's (8, 8, 512, 32) and (8, 8, 4096, 32) causal shapes
    as MultiHeadAttention gives them, the FLASH shape, a ragged T, KV
-   longer than Q, f32 and a causal (1, 8, 8192, 128), timed beside its
-   plain version and SDPA;
+   longer than Q, f32, a causal (1, 8, 8192, 128) and head dims 12 and
+   8 (zero-padded to 32 by the wrapper), timed beside its plain version
+   and SDPA;
    the default Transformer LM (10001 tokens, hidden 256, 8 heads, filter
    1024, 4 layers) with random weights from --seed carried in through
    load_jax_variables: one Adam + clipping train step in bf16 and in f32
@@ -126,6 +132,13 @@ TRAIN_BF16_TOL = {"loss": 2e-2, "state": 2e-2}
 BLOCK_TOL = 2e-3
 BLOCKS = ((256, 64, 1, 56), (256, 128, 2, 56))  # n_in, planes, stride, hw
 TRAIN_BATCH = 256  # bench.py's batch for the throughput steps
+# kernels whose bf16 results must be bit-equal from run to run (their
+# split reductions are summed in a fixed order)
+BIT_EQUAL = ("mm", "mm_wgrad", "cv")
+# a NaN in x (row 37, channel 5) with a relu prologue, bf16 and f32
+NAN_CASES = (("mm", (1000, 64, 256)), ("mm", (147, 2048, 512)),
+             ("mm_wgrad", (1000, 64, 256)), ("mm_wgrad", (147, 2048, 512)),
+             ("cv", (2, 14, 14, 64, 128)))
 # launches per train step (make_train_step, one batch): forward kernels
 # twice with remat (forward and recompute), each backward kernel once
 STEP_LAUNCHES = {
@@ -222,6 +235,8 @@ FLASH_CASES = (  # (B, H, T, S, D), causal, dtype, as the main path gives it
     ((8, 8, 512, 512, 32), True, "f32", "mha"),    # evaluation's f32
     ((1, 8, 8192, 8192, 128), True, "bf16", ""),   # long context
     ((8, 8, 4096, 4096, 32), True, "bf16", "mha"),  # LM's long step
+    ((2, 4, 256, 256, 12), True, "bf16", ""),  # the decode model's D
+    ((2, 4, 300, 300, 8), False, "bf16", ""),  # D padded to 32
 )
 LM = dict(vocab_size=10001, hidden_size=256, num_heads=8, filter_size=1024,
           num_layers=4)  # bigdl_tpu/models/transformer_train.py defaults
@@ -1019,7 +1034,8 @@ def main():
     print(f"kernels built in {build_s:.1f} s "
           f"({', '.join(_build.build_info['compiled'])})", flush=True)
     hgmma = {}
-    for name in ("fused_conv3x3_bn", "flash_attention"):
+    for name in ("fused_matmul_bn", "fused_matmul_bn_wgrad",
+                 "fused_conv3x3_bn", "flash_attention"):
         sass = subprocess.run(
             [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
              str(libs[name])], capture_output=True, text=True)
@@ -1179,12 +1195,18 @@ def main():
     for op in ("mm", "mm_dgrad", "mm_wgrad"):
         extra += [(op, (147, 2048, 512), True, "bf16"),  # ragged M, 3 x 7x7
                   (op, (1000, 64, 256), False, "bf16"),
+                  (op, (300, 72, 136), True, "bf16"),  # ragged K and N
                   (op, (4099, 256, 64), True, "f32")]
     for op in ("cv", "cv_dgrad"):
         extra += [(op, (1, 56, 56, 64, 64), True, "bf16"),  # batch 1
                   (op, (1, 7, 7, 512, 512), True, "bf16"),
                   (op, (3, 7, 7, 512, 512), False, "bf16"),
                   (op, (2, 14, 14, 64, 128), True, "f32")]
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return all(same(u, v) for u, v in zip(a, b))
+
     max_err = Counter()
     for op, shape, prologue, dt in extra + [
             (o_, s_, p_, "bf16") for o_, s_, p_, _ in main_shapes]:
@@ -1193,9 +1215,9 @@ def main():
         o = operands(op, shape, prologue, dtype)
         got = call(kern, op, o)
         torch.cuda.synchronize()
-        if op == "cv" and dt == "bf16" and not all(
-                torch.equal(a, b) for a, b in zip(got, call(kern, op, o))):
-            fail(f"{name}{shape}: two runs differ (y, ssum or ssq)")
+        if op in BIT_EQUAL and dt == "bf16" and not same(
+                got, call(kern, op, o)):
+            fail(f"{name}{shape}: two runs differ")
         ref = call(plain, op, o)
         m = math.prod(shape[:-2]) if op.startswith("cv") else shape[0]
         err = check(f"{name}{shape} {dt}", op, got, ref, dt, m)
@@ -1204,6 +1226,29 @@ def main():
         del o, got, ref
     print(f"kernel checks passed: {len(extra) + len(main_shapes)} cases, "
           f"max |kernel - plain| {dict(max_err)}", flush=True)
+
+    # a NaN in row 37 of x, through the prologue (relu): it must reach
+    # the outputs exactly where it reaches the plain version's
+    for op, shape in NAN_CASES:
+        name, kern, plain, _ = kernels[op]
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = "bf16" if dtype == torch.bfloat16 else "f32"
+            o = operands(op, shape, True, dtype)
+            o["x"].view(-1, o["x"].shape[-1])[37, 5] = float("nan")
+            got, ref = call(kern, op, o), call(plain, op, o)
+            torch.cuda.synchronize()
+            if isinstance(got, torch.Tensor):
+                got, ref = (got,), (ref,)
+            for g, r in zip(got, ref):
+                if not torch.isnan(r).any() or not torch.equal(
+                        torch.isnan(g), torch.isnan(r)):
+                    fail(f"{name}{shape} {dt}: NaN at "
+                         f"{int(torch.isnan(g).sum())} places, the plain "
+                         f"version at {int(torch.isnan(r).sum())}")
+            close(f"{name}{shape} {dt} NaN row", "finite part",
+                  got[0].nan_to_num(0.0), ref[0].nan_to_num(0.0), dt)
+            del o, got, ref
+    print(f"NaN checks passed: {2 * len(NAN_CASES)} cases", flush=True)
     flash_rows, flash_err = flash_phase(gen, timing=not args.quick)
     int8_rows = int8_phase(gen, timing=not args.quick)
     if args.quick:
@@ -1258,22 +1303,31 @@ def main():
               flush=True)
         del o
 
-    # kernel 4 at the batch-256 shapes of the train step: checked against
-    # its plain version, timed beside its library call
+    # kernels 1, 3 and 4 at the batch-256 shapes of the train step:
+    # bit-equal on a second run, checked against their plain versions,
+    # timed beside their library calls
+    mm256, cv256 = resnet50_calls(TRAIN_BATCH)
+    cases256 = [(op, (m, k, n), p, c) for (m, k, n, p), c in mm256.items()
+                for op in ("mm", "mm_wgrad")]
+    cases256 += [("cv", s_, True, c) for s_, c in cv256.items()]
     rows256 = []
-    for shape, count in resnet50_calls(TRAIN_BATCH)[1].items():
-        name, kern, plain, _ = kernels["cv"]
-        o = operands("cv", shape, True, torch.bfloat16)
-        check(f"{name}{shape} bf16", "cv", call(kern, "cv", o),
-              call(plain, "cv", o), "bf16", math.prod(shape[:-2]))
-        r = {"kernel": name, "shape": list(shape),
-             "calls_per_forward": count,
-             "ms": device_ms(lambda: call(kern, "cv", o)),
-             "library_ms": device_ms(lambda: library("cv", o))}
-        r["bytes_ms"], r["ops_ms"] = bound("cv", shape)
+    for op, shape, prologue, count in cases256:
+        name, kern, plain, _ = kernels[op]
+        o = operands(op, shape, prologue, torch.bfloat16)
+        m = math.prod(shape[:-2]) if op == "cv" else shape[0]
+        got = call(kern, op, o)
+        if not same(got, call(kern, op, o)):
+            fail(f"{name}{shape}: two runs differ")
+        check(f"{name}{shape} bf16", op, got, call(plain, op, o), "bf16", m)
+        del got
+        r = {"kernel": name, "op": op, "shape": list(shape),
+             "prologue": prologue, "calls_per_forward": count,
+             "ms": device_ms(lambda: call(kern, op, o)),
+             "library_ms": device_ms(lambda: library(op, o))}
+        r["bytes_ms"], r["ops_ms"] = bound(op, shape)
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
         rows256.append(r)
-        print(f"  {name} {tuple(shape)}: {r['ms']:.4f} ms (library "
+        print(f"  {name} {tuple(shape)} x{count}: {r['ms']:.4f} ms (library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, "
               f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)", flush=True)
         del o
@@ -1546,8 +1600,12 @@ def main():
         if t_us is None:
             t_us = getattr(evt, "cuda_time_total", 0)
         key = evt.key
-        if "conv3_wgmma" in key or "conv3_split_sum" in key:
+        if "conv3_wgmma" in key:
             grp = "kernel 4 (conv forward)"
+        elif "mm_wgmma" in key:
+            grp = "kernel 1 (matmul forward)"
+        elif "split_sum" in key:
+            grp = "split sums (kernels 1, 4)"
         elif "fused_gemm_bn_kernel" in key:
             grp = ("kernel 4 (conv forward)" if "true>" in key
                    else "kernel 1 (matmul forward)")
@@ -1611,7 +1669,7 @@ def main():
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
-         "conv3_batch256": rows256, "hgmma": hgmma,
+         "batch256": rows256, "hgmma": hgmma,
          "serve": {"requests": REQUESTS, "batches": batches,
                    "images_per_s": REQUESTS / wall, "p50_ms": p50,
                    "p99_ms": p99, "max_abs_err": serve_err,
@@ -1649,10 +1707,10 @@ def main():
             "shapes": f"one ResNet-50 {'backward' if 'grad' in op else 'forward'}"
                       f" at batch {BATCH}: {calls} calls, times summed",
         })
-        if op == "cv":  # the train step's batch as well
+        if op in ("mm", "mm_wgrad", "cv"):  # the train step's batch too
             line[-1]["batch_256"] = {key: sum(
-                r["calls_per_forward"] * r[key] for r in rows256)
-                for key in ("ms", "library_ms", "bound_ms")}
+                r["calls_per_forward"] * r[key] for r in rows256
+                if r["op"] == op) for key in ("ms", "library_ms", "bound_ms")}
     lm_row = flash_rows[0]  # the LM default, as MultiHeadAttention gives it
     line.append({
         "name": "flash_attention", "route": "cuda",

@@ -1,10 +1,16 @@
-"""Host-side plans of the two wgmma kernels, on the CPU.
+"""Host-side plans of the wgmma kernels, on the CPU.
 
 - ``_conv3_plan`` (kernel 4's tiling) at ResNet-50's four 3x3 shapes at
   batches 1, 32 and 256, plus ragged ones: its row and column tiles cover
   M and Co exactly once, its slices cut the reduction (9 taps x 64-channel
   chunks) into whole steps, in whole x windows of 3 taps, and at batch 32
   on 132 SMs it launches at least 132 blocks.
+- ``_matmul_plan`` (kernel 1) and ``_wgrad_plan`` (kernel 3) at the 16
+  (M, K, N) shapes of a ResNet-50 forward at batches 1, 32 and 256, plus
+  ragged ones: the tiles cover the output's rows and columns exactly
+  once, the slices cut the reduction (64 channels of K, or 64 rows of M)
+  into whole steps, none empty, and each plan is a function of its
+  arguments alone.
 - The flash kernel's plain version at the bf16 kernel's key block
   (``BLOCK_K``, 128; p rounds against the running max of its key block)
   against JAX's Pallas kernel in interpret mode at the same block, at
@@ -75,6 +81,88 @@ def test_conv3_plan_is_a_function_of_its_arguments():
     # fewer SMs need fewer slices to fill
     assert tfm._conv3_plan(32, 7, 7, 512, 512, 16).slices <= \
         tfm._conv3_plan(32, 7, 7, 512, 512, SMS).slices
+
+
+def _resnet50_calls(batch):
+    """The (M, K, N, prologue) of one fused ResNet-50 forward's matmuls."""
+    calls, n_in, res = set(), 64, 56
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** stage
+        for b in range(n_blocks):
+            ro = res // (2 if stage > 0 and b == 0 else 1)
+            calls.add((batch * res * res, n_in, planes, False))
+            calls.add((batch * ro * ro, planes, 4 * planes, True))
+            if ro != res or n_in != 4 * planes:
+                calls.add((batch * ro * ro, n_in, 4 * planes, False))
+            n_in, res = 4 * planes, ro
+    return calls
+
+
+def _resnet50_matmuls(batch):
+    """The distinct (M, K, N) among them (the plans ignore the prologue)."""
+    return sorted({c[:3] for c in _resnet50_calls(batch)})
+
+
+def _check_slices(plan, depth):
+    """``plan.slices`` whole runs of ``plan.per`` steps, none empty, over
+    the ``depth / 64`` steps of the reduction."""
+    assert plan.steps == -(-depth // 64)
+    assert plan.per > 0
+    assert (plan.slices - 1) * plan.per < plan.steps <= plan.slices * plan.per
+
+
+def _covers(size, tile):
+    tiles = -(-size // tile)
+    return (tiles - 1) * tile < size <= tiles * tile
+
+
+MATMUL_SHAPES = [s for b in (1, 32, 256) for s in _resnet50_matmuls(b)] + [
+    (147, 2048, 512), (300, 72, 136), (1, 8, 8), (4099, 256, 64)]
+
+
+def test_the_call_table_has_sixteen_shapes():
+    assert all(len(_resnet50_calls(b)) == 16 for b in (1, 32, 256))
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_matmul_plan_covers_and_slices(m, k, n):
+    for sms in (SMS, 16):
+        plan = tfm._matmul_plan(m, k, n, sms)
+        assert plan.bm == 128 and plan.bn in (64, 128)
+        assert _covers(m, plan.bm) and _covers(n, plan.bn)
+        _check_slices(plan, k)
+        # persistent blocks: one per SM, at most one per tile; without a
+        # split each keeps one column tile
+        cols = -(-n // plan.bn)
+        tiles = -(-m // plan.bm) * cols * plan.slices
+        assert 1 <= plan.blocks <= min(max(sms, cols), tiles)
+        if plan.slices == 1:
+            assert plan.blocks % cols == 0
+        assert plan == tfm._matmul_plan(m, k, n, sms)
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_wgrad_plan_covers_and_slices(m, k, n):
+    for sms in (SMS, 16):
+        plan = tfm._wgrad_plan(m, k, n, sms)
+        assert plan.bn == 128 and plan.bk in (64, 128, 256)
+        assert plan.bk == 64 or plan.bk // 2 < k  # no wider than K needs
+        assert _covers(n, plan.bn) and _covers(k, plan.bk)
+        _check_slices(plan, m)
+        assert plan == tfm._wgrad_plan(m, k, n, sms)
+
+
+def test_plans_split_only_where_the_tiles_leave_sms_idle():
+    # batch 256 fills the card with output tiles: no split in kernel 1
+    assert all(tfm._matmul_plan(*s, SMS).slices == 1
+               for s in _resnet50_matmuls(256))
+    # kernel 3's dW has few tiles: its M reduction is split to fill the
+    # card, into slices of at least 6 steps
+    for s in _resnet50_matmuls(32):
+        plan = tfm._wgrad_plan(*s, SMS)
+        tiles = -(-s[2] // plan.bn) * -(-s[1] // plan.bk)
+        assert plan.slices > 1 and plan.per >= 6
+        assert tiles * plan.slices <= 2 * SMS
 
 
 def _qkv(seed, b, h, t, s, d):
