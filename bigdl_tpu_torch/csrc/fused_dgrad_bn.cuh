@@ -1,8 +1,9 @@
 // Shared data-gradient GEMM of the fused matmul/conv + BatchNorm
-// kernels, used by fused_matmul_bn_dgrad.cu (1x1 conv as a matmul) and
+// kernels in f32 (evaluation), used by the f32 entry points of
+// fused_matmul_bn_dgrad.cu (1x1 conv as a matmul) and
 // fused_conv3x3_bn_dgrad.cu (3x3 stride-1 SAME conv as an implicit
-// GEMM).  It is the forward GEMM of fused_gemm_bn.cuh with its two ends
-// swapped:
+// GEMM); their bf16 paths are wgmma kernels of their own.  It is the
+// forward GEMM of fused_gemm_bn.cuh with its two ends swapped:
 //
 //   A-tile transform (was the BN prologue):
 //     ytot = dy + dssum + 2 * y * dssq   in f32 from the saved (rounded)

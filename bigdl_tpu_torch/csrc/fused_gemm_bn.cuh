@@ -1,9 +1,9 @@
 // Shared tiled GEMM with a BatchNorm prologue and a statistics epilogue:
 // the f32 paths of fused_matmul_bn.cu (1x1 conv as a matmul) and
-// fused_conv3x3_bn.cu (3x3 stride-1 SAME conv as an implicit GEMM),
-// whose bf16 paths are wgmma kernels, and, through fused_dgrad_bn.cuh,
-// both paths of the data-gradient kernels.  colsum_kernel and relu_nan
-// serve all of them.
+// fused_conv3x3_bn.cu (3x3 stride-1 SAME conv as an implicit GEMM) and,
+// through fused_dgrad_bn.cuh and fused_matmul_bn_wgrad.cu, of the
+// gradient kernels; every bf16 path is a wgmma kernel of its own.
+// colsum_kernel and relu_nan serve all of them.
 //
 //   u   = [relu](x * ps + pb)   in f32, rounded to the weight type
 //   acc = u @ W                 f32 accumulation
@@ -12,9 +12,9 @@
 //
 // Blocking: one block of 256 threads (8 warps, 4 x 2) owns a 128 x 64
 // output tile and walks K in steps of 32 through shared memory.  Each
-// warp owns a 32 x 32 sub-tile: 2 x 4 fragments of 16 x 8.  bf16 runs
-// on the tensor cores with mma.sync.m16n8k16 (f32 accumulation); f32
-// runs the same fragment layout with FMAs, so the epilogue is shared.
+// warp owns a 32 x 32 sub-tile: 2 x 4 fragments of 16 x 8 in
+// mma.sync's m16n8 accumulator layout, computed with FMAs (a TF32
+// product would change the numbers).
 //
 // A rows past M, K columns past K and W columns past N load as 0, never
 // as prologue(0): padded rows then add nothing to the statistics.
@@ -201,19 +201,6 @@ __device__ __forceinline__ void load_b_tile(T* Bs, const T* __restrict__ w,
   for (int j = 0; j < 8; ++j) Bs[(nv + j) * LDS + kr] = t[j];
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // acc[mi][ni][r]: fragment (mi, ni) of the warp's 32 x 32 sub-tile, in
 // the m16n8 accumulator layout: r = 0, 1 -> row g, cols 2t, 2t+1;
 // r = 2, 3 -> row g + 8 (g = lane / 4, t = lane % 4).
@@ -222,56 +209,33 @@ __device__ __forceinline__ void compute_tile(const T* As, const T* Bs,
                                              float (&acc)[2][4][4],
                                              int warp_m, int warp_n,
                                              int lane) {
+  static_assert(std::is_same<T, float>::value,
+                "only the f32 paths run these tiles; bf16 runs wgmma");
   const int g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const T* p = As + (warp_m * 32 + mi * 16 + g) * LDS + ks + t * 2;
-        a[mi][0] = ld32(p);
-        a[mi][1] = ld32(p + 8 * LDS);
-        a[mi][2] = ld32(p + 8);
-        a[mi][3] = ld32(p + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const T* p = Bs + (warp_n * 32 + ni * 8 + g) * LDS + ks + t * 2;
-        b[ni][0] = ld32(p);
-        b[ni][1] = ld32(p + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-  } else {
 #pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float a[2][2], b[4][2];
+  for (int k = 0; k < BK; ++k) {
+    float a[2][2], b[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = warp_m * 32 + mi * 16 + g;
-        a[mi][0] = As[r * LDS + k];
-        a[mi][1] = As[(r + 8) * LDS + k];
-      }
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = warp_m * 32 + mi * 16 + g;
+      a[mi][0] = As[r * LDS + k];
+      a[mi][1] = As[(r + 8) * LDS + k];
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = warp_n * 32 + ni * 8 + t * 2;
+      b[ni][0] = Bs[n * LDS + k];
+      b[ni][1] = Bs[(n + 1) * LDS + k];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
-        const int n = warp_n * 32 + ni * 8 + t * 2;
-        b[ni][0] = Bs[n * LDS + k];
-        b[ni][1] = Bs[(n + 1) * LDS + k];
+        acc[mi][ni][0] = fmaf(a[mi][0], b[ni][0], acc[mi][ni][0]);
+        acc[mi][ni][1] = fmaf(a[mi][0], b[ni][1], acc[mi][ni][1]);
+        acc[mi][ni][2] = fmaf(a[mi][1], b[ni][0], acc[mi][ni][2]);
+        acc[mi][ni][3] = fmaf(a[mi][1], b[ni][1], acc[mi][ni][3]);
       }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          acc[mi][ni][0] = fmaf(a[mi][0], b[ni][0], acc[mi][ni][0]);
-          acc[mi][ni][1] = fmaf(a[mi][0], b[ni][1], acc[mi][ni][1]);
-          acc[mi][ni][2] = fmaf(a[mi][1], b[ni][0], acc[mi][ni][2]);
-          acc[mi][ni][3] = fmaf(a[mi][1], b[ni][1], acc[mi][ni][3]);
-        }
-    }
   }
 }
 

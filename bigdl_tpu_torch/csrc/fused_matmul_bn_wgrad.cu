@@ -33,7 +33,8 @@
 // - two consumer warpgroups own 64 rows of dW^T each.  Per step a
 //   consumer reads its dy and y fragments with ldmatrix.trans (the
 //   (M, N) tiles give the A fragments of their transpose), forms ytot in
-//   f32 with its two rows' constants dssum/dssq, rounds to bf16 and
+//   f32 with its two rows' constants dssum/dssq (wgmma_bn.cuh ytot2, the
+//   rounding order kernels 2 and 5 share), rounds to bf16 and
 //   issues wgmma m64nBKk16 with A from registers and the x tile as the
 //   MN-major B operand (x is (M, K), K contiguous: nothing is
 //   transposed).  With a prologue the two warpgroups first rewrite the
@@ -236,19 +237,6 @@ struct Cfg {
   static constexpr int CONSUMER_REGS = 232;
 };
 
-// ytot of a bf16 pair (two rows of M, one column n of dy/y) in f32, in
-// the plain version's order (dy + dssum) + (2 y) * dssq, as a bf16 pair
-__device__ __forceinline__ uint32_t ytot2(uint32_t dy, uint32_t y,
-                                          float dss, float dsq) {
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dy));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
-  return hopper::pack_bf16(
-      __fadd_rn(__fadd_rn(a.x, dss), __fmul_rn(__fmul_rn(2.0f, b.x), dsq)),
-      __fadd_rn(__fadd_rn(a.y, dss), __fmul_rn(__fmul_rn(2.0f, b.y), dsq)));
-}
-
 // The prologue pass over one stage's (64, BK) x tile in place, by the
 // 256 consumer threads: thread `tid` owns the 8 channels of 16-byte
 // chunk column `lc` (whose constants it holds in s/b) in every
@@ -279,7 +267,9 @@ __device__ __forceinline__ void prologue_pass(unsigned char* tile, int tid,
 // Per-thread constants of the consumers.
 struct Consumer {
   int tid, wgi, m_rows, lrow, lchunk;
-  float dss_a, dsq_a, dss_b, dsq_b;  // ytot constants of the two rows
+  // ytot constants of the two rows, one per pair (a pair is two rows of
+  // M in one column n of dy/y)
+  float2 dss_a, dsq_a, dss_b, dsq_b;
   float2 pro_s[4], pro_b[4];         // prologue constants of the chunk
   bool prologue, relu;
 };
@@ -314,10 +304,10 @@ __device__ __forceinline__ void consume_step(float (&acc)[BK / 2],
     const uint32_t off = swz<128>(16 * ks + c.lrow, c.lchunk);
     ldmatrix_x4_trans(dyt + off, rd);
     ldmatrix_x4_trans(yt + off, ry);
-    a[ks][0] = ytot2(rd[0], ry[0], c.dss_a, c.dsq_a);
-    a[ks][1] = ytot2(rd[1], ry[1], c.dss_b, c.dsq_b);
-    a[ks][2] = ytot2(rd[2], ry[2], c.dss_a, c.dsq_a);
-    a[ks][3] = ytot2(rd[3], ry[3], c.dss_b, c.dsq_b);
+    a[ks][0] = wgbn::ytot2(rd[0], ry[0], c.dss_a, c.dsq_a);
+    a[ks][1] = wgbn::ytot2(rd[1], ry[1], c.dss_b, c.dsq_b);
+    a[ks][2] = wgbn::ytot2(rd[2], ry[2], c.dss_a, c.dsq_a);
+    a[ks][3] = wgbn::ytot2(rd[3], ry[3], c.dss_b, c.dsq_b);
   }
   if (j > 0) {
     wgmma_wait<0>();
@@ -395,10 +385,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int g = lane >> 2, t = lane & 3;
     // this thread's two rows of dW^T and their ytot constants (0 past N)
     const int na = n0 + 64 * wgi + 16 * warp + g, nb8 = na + 8;
-    c.dss_a = na < N ? dss[na] : 0.0f;
-    c.dsq_a = na < N ? dsq[na] : 0.0f;
-    c.dss_b = nb8 < N ? dss[nb8] : 0.0f;
-    c.dsq_b = nb8 < N ? dsq[nb8] : 0.0f;
+    const float sa = na < N ? dss[na] : 0.0f, qa = na < N ? dsq[na] : 0.0f;
+    const float sb = nb8 < N ? dss[nb8] : 0.0f;
+    const float qb = nb8 < N ? dsq[nb8] : 0.0f;
+    c.dss_a = make_float2(sa, sa);
+    c.dsq_a = make_float2(qa, qa);
+    c.dss_b = make_float2(sb, sb);
+    c.dsq_b = make_float2(qb, qb);
     // the prologue constants of this thread's chunk column (0 past K)
     const int kc = k0 + 8 * (c.tid % (BK / 8));
 #pragma unroll

@@ -57,11 +57,15 @@ ARGTYPES = {
     # x, w, ps, pb, y, ws, 4 column-sum buffers; B, H, W, C, Co,
     # prologue, relu, bn, per; stream
     "fused_conv3x3_bn": [_P] * 10 + [_I] * 9 + [_P],
-    "fused_matmul_bn_dgrad": [_P] * 13 + [_I] * 5 + [_P],
+    # dy, y, dssum, dssq, w, x, ps, pb, dx, ws, 4 column-sum buffers;
+    # M, K, N, prologue, relu, bn, per, blocks; stream
+    "fused_matmul_bn_dgrad": [_P] * 14 + [_I] * 8 + [_P],
     # x, ps, pb, dy, y, dssum, dssq, part, dw; M, K, N, bk, per,
     # prologue, relu; stream
     "fused_matmul_bn_wgrad": [_P] * 9 + [_I] * 7 + [_P],
-    "fused_conv3x3_bn_dgrad": [_P] * 13 + [_I] * 7 + [_P],
+    # dy, y, dssum, dssq, w, x, ps, pb, dx, ws, 4 column-sum buffers;
+    # B, H, W, Ci, Co, prologue, relu, bn, per; stream
+    "fused_conv3x3_bn_dgrad": [_P] * 14 + [_I] * 9 + [_P],
     # q, k, v, o, lse; B, H, T, S, D; the 12 strides (a host array);
     # sm_scale, causal, stream
     "flash_attention": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],

@@ -449,19 +449,67 @@ def _conv3x3_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
     return y, ssum, ssq
 
 
-def _dgrad_launch(name: str, dy, y, dssum, dssq, bmat, x, ps, pb, relu,
-                  m: int, n_out: int, dims) -> Dgrad:
+def _dgrad_launch(name: str, dy, y, dssum, dssq, w, x, ps, pb, relu,
+                  m: int, n_out: int, dims, tiling, slices: int,
+                  part_rows: int) -> Dgrad:
     """Shared launch of kernels 2 and 5: (m, n_out) dx and, with a
-    prologue, the two-pass column sums d_ps/d_pb over n_out channels."""
+    prologue, the two-pass column sums d_ps/d_pb over n_out channels from
+    ``part_rows`` partial rows.  ``w`` is the weight as the entry point
+    for x's type takes it, ``tiling`` the bf16 plan's launch arguments
+    and ``slices`` its reduction split (an f32 workspace when > 1)."""
     n_in = dy.shape[-1]
     dssum = _vector(name, dssum, n_in, x.device)
     dssq = _vector(name, dssq, n_in, x.device)
     psv, pbv = _prologue_vectors(name, x.device, n_out, ps, pb)
     dx = torch.empty_like(x)
-    ptrs, (dps, dpb) = _colsum_scratch(-(-m // _BM), n_out, x.device)
-    _call(name, x, dy, y, dssum, dssq, bmat, x, psv, pbv, dx, *ptrs, *dims,
-          int(ps is not None), int(relu))
+    ws = 0  # the split reduction's (slices, m, n_out) f32 partial tiles
+    if slices > 1:
+        ws = torch.empty((slices, m, n_out), device=x.device,
+                         dtype=torch.float32)
+    ptrs, (dps, dpb) = _colsum_scratch(part_rows, n_out, x.device)
+    _call(name, x, dy, y, dssum, dssq, w, x, psv, pbv, dx, ws, *ptrs, *dims,
+          int(ps is not None), int(relu), *tiling)
     return (dx, None, None) if ps is None else (dx, dps, dpb)
+
+
+class DgradPlan(NamedTuple):
+    """How kernel 2's bf16 path tiles one call: ``bm`` rows by ``bn``
+    columns of dx (over K) per tile, the reduction over N in ``steps`` of
+    64 channels cut into ``slices`` of ``per`` steps, ``blocks``
+    persistent blocks walking the tiles (without a split a multiple of
+    the column tiles, so that each block keeps one column tile) and the
+    ``part_rows`` rows of column partials it leaves: one per block, or
+    one per row tile after a split's sum."""
+    bm: int
+    bn: int
+    steps: int
+    per: int
+    slices: int
+    blocks: int
+    part_rows: int
+
+
+def _dgrad_plan(m: int, k: int, n: int, sms: int) -> DgradPlan:
+    """Kernel 2's tiling for dx (m, k) = ytot (m, n) @ W^T on ``sms``
+    SMs: kernel 1's rules (:func:`_matmul_plan`) with the output's
+    columns K and the reduction N: 128 columns per tile, or 64 where
+    ``k`` is 64 or 128-column tiles would leave half the SMs idle; the
+    reduction split only where the tiles leave three quarters of the SMs
+    idle (no ResNet-50 shape at batch 32 or 256)."""
+    rows = -(-m // _MM_BM)
+    bn = 64 if k <= 64 or 2 * rows * -(-k // 128) < sms else 128
+    steps = -(-n // _MM_BK)
+    cols = -(-k // bn)
+    slices = 1 if 4 * rows * cols >= sms else _slices(rows * cols, sms,
+                                                      steps)
+    per = -(-steps // slices)
+    slices = -(-steps // per)
+    if slices > 1:
+        blocks, part_rows = min(rows * cols * slices, sms), rows
+    else:
+        blocks = min(rows * cols, max(1, sms // cols) * cols)
+        part_rows = blocks // cols
+    return DgradPlan(_MM_BM, bn, steps, per, slices, blocks, part_rows)
 
 
 def fused_matmul_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
@@ -472,7 +520,9 @@ def fused_matmul_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
     """Kernel 2 (``_dgrad_kernel``): ``(dx, d_ps, d_pb)`` of
     :func:`fused_matmul_bn` from the cotangents ``dy`` (M, N) and
     ``dssum``/``dssq`` (N,), the saved ``y`` (M, N), ``w`` (K, N) and
-    ``x`` (M, K).  ``d_ps``/``d_pb`` are ``None`` without a prologue."""
+    ``x`` (M, K).  ``d_ps``/``d_pb`` are ``None`` without a prologue.
+    The bf16 kernel reads ``w`` as it lies; the f32 one takes a
+    contiguous copy of ``w.t()``."""
     m, k = x.shape
     n = w.shape[1]
     name = "fused_matmul_bn_dgrad"
@@ -488,10 +538,16 @@ def fused_matmul_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
     _check_cuda(name, x, (dy, y, w), (k, n))
     if m == 0:
         raise ValueError(f"{name}: x has no rows")
-    # B = W^T as a contiguous (N, K) matrix: a copy of K*N elements
+    if x.dtype == torch.bfloat16:
+        plan = _dgrad_plan(m, k, n, _sms(x.device))
+        return _dgrad_launch(name, dy, y, dssum, dssq, w, x, prologue_scale,
+                             prologue_bias, relu, m, k, (m, k, n),
+                             (plan.bn, plan.per, plan.blocks), plan.slices,
+                             plan.part_rows)
+    # f32: the FMA tiles take B = W^T as a contiguous (N, K) matrix
     return _dgrad_launch(name, dy, y, dssum, dssq, w.t().contiguous(), x,
                          prologue_scale, prologue_bias, relu, m, k,
-                         (m, k, n))
+                         (m, k, n), (0, 0, 0), 1, -(-m // _BM))
 
 
 class WgradPlan(NamedTuple):
@@ -553,6 +609,27 @@ def fused_matmul_bn_wgrad(x: Tensor, prologue_scale: Optional[Tensor],
     return dw
 
 
+def _conv3_dgrad_plan(b: int, h: int, w: int, ci: int, co: int,
+                      sms: int) -> Conv3Plan:
+    """Kernel 5's tiling for the dgrad of an (b, h, w, ci) -> co conv on
+    ``sms`` SMs, by kernel 2's rules (:func:`_dgrad_plan`): 128 input
+    channels per tile, or 64 where ``ci`` is 64 or 128-channel tiles
+    would leave half the SMs idle; the reduction (9 taps x 64-channel
+    chunks of ``co``, taps innermost) split as kernel 4's is
+    (:func:`_slices`, whole windows of 3 taps per slice) only where the
+    tiles leave three quarters of the SMs idle: on an H100 a split's f32
+    round trip cost more than the SMs it filled at every ResNet-50 shape
+    at batch 32 (``kernel_ab.py --sweep 32``)."""
+    m, bm = b * h * w, _CONV3_BM
+    rows = -(-m // bm)
+    steps = 9 * -(-co // _CONV3_BK)
+    bn = 64 if ci <= 64 or 2 * rows * -(-ci // 128) < sms else 128
+    tiles = rows * -(-ci // bn)
+    slices = 1 if 4 * tiles >= sms else _slices(tiles, sms, steps // 3)
+    per = 3 * -(-steps // (3 * slices))
+    return Conv3Plan(bm, bn, steps, per, -(-steps // per))
+
+
 def fused_conv3x3_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
                            dssq: Tensor, w: Tensor, x: Tensor,
                            prologue_scale: Optional[Tensor] = None,
@@ -561,7 +638,8 @@ def fused_conv3x3_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
     """Kernel 5 (``_conv3_dgrad_kernel``): ``(dx, d_ps, d_pb)`` of
     :func:`fused_conv3x3_bn` from ``dy``/``y`` (B, H, W, Co),
     ``dssum``/``dssq`` (Co,), ``w`` (3, 3, Ci, Co) and ``x``
-    (B, H, W, Ci)."""
+    (B, H, W, Ci).  The bf16 kernel reads ``w`` as it lies; the f32 one
+    takes a contiguous flipped, io-swapped copy."""
     b, h, wd, ci = x.shape
     co = w.shape[3]
     name = "fused_conv3x3_bn_dgrad"
@@ -578,10 +656,19 @@ def fused_conv3x3_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
     m = b * h * wd
     if m == 0:
         raise ValueError(f"{name}: x has no pixels")
-    # B = w[2-dh, 2-dw, ci, co] as a contiguous (9*Co, Ci) matrix
+    dims = (b, h, wd, ci, co)
+    if x.dtype == torch.bfloat16:
+        plan = _conv3_dgrad_plan(b, h, wd, ci, co, _sms(x.device))
+        return _dgrad_launch(name, dy, y, dssum, dssq, w, x, prologue_scale,
+                             prologue_bias, relu, m, ci, dims,
+                             (plan.bn, plan.per), plan.slices,
+                             -(-m // plan.bm))
+    # f32: the FMA tiles take B = w[2-dh, 2-dw, ci, co] as a contiguous
+    # (9*Co, Ci) matrix
     wf = w.flip(0, 1).transpose(2, 3).contiguous()
     return _dgrad_launch(name, dy, y, dssum, dssq, wf, x, prologue_scale,
-                         prologue_bias, relu, m, ci, (b, h, wd, ci, co))
+                         prologue_bias, relu, m, ci, dims, (0, 0), 1,
+                         -(-m // _BM))
 
 
 # --------------------------------------------------------------------------

@@ -10,9 +10,10 @@ Phases:
 1. device: require CUDA, print the card's name and power limit, build the
    port's CUDA kernels from bigdl_tpu_torch/csrc (nvcc, sm_90a, one
    process per source, in parallel) and print the build time; count the
-   wgmma instructions (HGMMA) in the SASS of the four wgmma kernels
-   (fused_matmul_bn, fused_matmul_bn_wgrad, fused_conv3x3_bn,
-   flash_attention) and fail if any has none;
+   wgmma instructions (HGMMA) in the SASS of the six wgmma kernels
+   (fused_matmul_bn, fused_matmul_bn_dgrad, fused_matmul_bn_wgrad,
+   fused_conv3x3_bn, fused_conv3x3_bn_dgrad, flash_attention) and fail
+   if any has none;
 2. kernels: at ResNet-50's batch-32 shapes in bf16, plus a ragged-M
    matmul, batch-1 convs and an f32 case of each, hold every kernel
    against its plain PyTorch version on the card: the forward kernels'
@@ -20,14 +21,14 @@ Phases:
    (dx, d_ps, d_pb) and dW; time the kernel, the plain version and one
    library call for the same function (CUDA-graph replay) and compute
    the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s); every bf16 case of the matmul, its
-   weight gradient and the 3x3 conv runs twice and must give bit-equal
-   results (split reductions are summed in a fixed order); a NaN in one
-   row of x must reach the matmul's, its weight gradient's and the 3x3
-   conv's outputs exactly where it reaches the plain versions' (bf16 and
-   f32; the prologue's ReLU keeps a NaN); the matmul, its weight
-   gradient and the 3x3 conv are also checked and timed beside their
-   library calls at the batch-256 shapes of the train step;
+   operations over 989 TFLOP/s); every bf16 case of kernels 1-5 runs
+   twice and must give bit-equal results (split reductions and column
+   sums are summed in a fixed order); a NaN in one row of x must reach
+   the outputs of kernels 1-5 exactly where it reaches the plain
+   versions' (bf16 and f32; the prologue's ReLU keeps a NaN, the
+   dgrads' mask zeroes g there, so only d_ps carries it); kernels 1-5
+   are also checked and timed beside their library calls at the
+   batch-256 shapes of the train step;
 3. serve: fused ResNet-50 (space-to-depth stem, 1000 classes) with
    random weights from --seed and randomised BatchNorm, carried in
    through load_jax_variables, served by ServingEngine in bf16 to 4
@@ -42,8 +43,9 @@ Phases:
    two fused blocks at ResNet-50 shapes against the plain path in f32
    (output, every gradient, running statistics), ten
    steps on one batch with a falling loss, images/s, ms per step and
-   peak memory at batch 256 with remat on and off (and where the step's
-   device time goes, from torch.profiler), and the user entry point
+   the host's time to enqueue a step and peak memory at batch 256 with
+   remat on and off (and where the step's device time goes, from
+   torch.profiler), and the user entry point
    Optimizer.apply(...).optimize() for 5 iterations on 160 images, which
    prints the reference log lines and must end with a finite loss;
 5. lm: the flash-attention kernel held against its plain version (O and
@@ -134,11 +136,12 @@ BLOCKS = ((256, 64, 1, 56), (256, 128, 2, 56))  # n_in, planes, stride, hw
 TRAIN_BATCH = 256  # bench.py's batch for the throughput steps
 # kernels whose bf16 results must be bit-equal from run to run (their
 # split reductions are summed in a fixed order)
-BIT_EQUAL = ("mm", "mm_wgrad", "cv")
+BIT_EQUAL = ("mm", "mm_dgrad", "mm_wgrad", "cv", "cv_dgrad")
 # a NaN in x (row 37, channel 5) with a relu prologue, bf16 and f32
 NAN_CASES = (("mm", (1000, 64, 256)), ("mm", (147, 2048, 512)),
+             ("mm_dgrad", (1000, 64, 256)), ("mm_dgrad", (147, 2048, 512)),
              ("mm_wgrad", (1000, 64, 256)), ("mm_wgrad", (147, 2048, 512)),
-             ("cv", (2, 14, 14, 64, 128)))
+             ("cv", (2, 14, 14, 64, 128)), ("cv_dgrad", (2, 14, 14, 64, 128)))
 # launches per train step (make_train_step, one batch): forward kernels
 # twice with remat (forward and recompute), each backward kernel once
 STEP_LAUNCHES = {
@@ -1034,8 +1037,9 @@ def main():
     print(f"kernels built in {build_s:.1f} s "
           f"({', '.join(_build.build_info['compiled'])})", flush=True)
     hgmma = {}
-    for name in ("fused_matmul_bn", "fused_matmul_bn_wgrad",
-                 "fused_conv3x3_bn", "flash_attention"):
+    for name in ("fused_matmul_bn", "fused_matmul_bn_dgrad",
+                 "fused_matmul_bn_wgrad", "fused_conv3x3_bn",
+                 "fused_conv3x3_bn_dgrad", "flash_attention"):
         sass = subprocess.run(
             [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
              str(libs[name])], capture_output=True, text=True)
@@ -1203,8 +1207,8 @@ def main():
                   (op, (3, 7, 7, 512, 512), False, "bf16"),
                   (op, (2, 14, 14, 64, 128), True, "f32")]
     def same(a, b):
-        if isinstance(a, torch.Tensor):
-            return torch.equal(a, b)
+        if a is None or isinstance(a, torch.Tensor):
+            return a is b if a is None else torch.equal(a, b)
         return all(same(u, v) for u, v in zip(a, b))
 
     max_err = Counter()
@@ -1228,7 +1232,9 @@ def main():
           f"max |kernel - plain| {dict(max_err)}", flush=True)
 
     # a NaN in row 37 of x, through the prologue (relu): it must reach
-    # the outputs exactly where it reaches the plain version's
+    # the outputs exactly where it reaches the plain version's.  The
+    # dgrads' mask zeroes g at the NaN (dx is 0 there, d_pb finite) and
+    # only d_ps carries it (0 * NaN)
     for op, shape in NAN_CASES:
         name, kern, plain, _ = kernels[op]
         for dtype in (torch.bfloat16, torch.float32):
@@ -1239,12 +1245,19 @@ def main():
             torch.cuda.synchronize()
             if isinstance(got, torch.Tensor):
                 got, ref = (got,), (ref,)
-            for g, r in zip(got, ref):
-                if not torch.isnan(r).any() or not torch.equal(
-                        torch.isnan(g), torch.isnan(r)):
-                    fail(f"{name}{shape} {dt}: NaN at "
+            if not any(torch.isnan(r).any() for r in ref):
+                fail(f"{name}{shape} {dt}: the NaN reached no output of "
+                     "the plain version")
+            for what, g, r in zip(("out", "d_ps", "d_pb"), got, ref):
+                if not torch.equal(torch.isnan(g), torch.isnan(r)):
+                    fail(f"{name}{shape} {dt} {what}: NaN at "
                          f"{int(torch.isnan(g).sum())} places, the plain "
                          f"version at {int(torch.isnan(r).sum())}")
+            if op.endswith("dgrad") and (
+                    got[0].view(-1, got[0].shape[-1])[37, 5] != 0
+                    or not torch.isnan(got[1][5])):
+                fail(f"{name}{shape} {dt}: dx at the NaN is not 0 or d_ps "
+                     "of its channel is not NaN")
             close(f"{name}{shape} {dt} NaN row", "finite part",
                   got[0].nan_to_num(0.0), ref[0].nan_to_num(0.0), dt)
             del o, got, ref
@@ -1255,17 +1268,21 @@ def main():
         print("quick: kernels build, launch and agree; stopping")
         return
 
-    def bound(op, shape):
+    def bound(op, shape, prologue):
         """(bytes ms, operations ms): each input read once, each output
-        written once, over the card's memory rate and bf16 peak."""
+        written once, over the card's memory rate and bf16 peak.  Without
+        a prologue a dgrad reads no x and a kernel no ps, pb (dx = g)."""
+        pro = int(prologue)
         if op.startswith("mm"):
             m, k, n = shape
             flops = 2 * m * k * n
-            elems, vec = {"mm": m * k + k * n + m * n,
-                          "mm_dgrad": 2 * m * n + k * n + 2 * m * k,
-                          "mm_wgrad": m * k + 2 * m * n}[op], 2 * k + 2 * n
-            if op == "mm_dgrad":
-                vec += 2 * k  # d_ps, d_pb
+            # x, w, y / dy, y, w, dx (+ x) / x, dy, y; ps, pb and the
+            # column vectors (ssum, ssq / dssum, dssq, d_ps, d_pb)
+            elems = {"mm": m * k + k * n + m * n,
+                     "mm_dgrad": 2 * m * n + k * n + m * k + pro * m * k,
+                     "mm_wgrad": m * k + 2 * m * n}[op]
+            vec = 2 * pro * k + 2 * n + (2 * pro * k if op == "mm_dgrad"
+                                         else 0)
             nbytes = 2 * elems + 4 * vec + (4 * k * n if op == "mm_wgrad"
                                             else 0)
         else:
@@ -1273,10 +1290,11 @@ def main():
             m = b * h * wd
             flops = 18 * m * c * co
             if op == "cv":  # x, w, y; ps, pb, ssum, ssq
-                elems, vec = m * c + 9 * c * co + m * co, 2 * c + 2 * co
-            else:  # dy, y, x, dx, w; ps, pb, d_ps, d_pb, dssum, dssq
-                elems = 2 * m * co + 2 * m * c + 9 * c * co
-                vec = 4 * c + 2 * co
+                elems = m * c + 9 * c * co + m * co
+                vec = 2 * pro * c + 2 * co
+            else:  # dy, y, dx, w (+ x); dssum, dssq (+ ps, pb, d_ps, d_pb)
+                elems = 2 * m * co + m * c + 9 * c * co + pro * m * c
+                vec = 4 * pro * c + 2 * co
             nbytes = 2 * elems + 4 * vec
         return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
@@ -1290,7 +1308,7 @@ def main():
              "plain_ms": device_ms(lambda: call(plain, op, o)),
              "library_ms": device_ms(lambda: library(op, o)),
              "call_ms": call_ms(lambda: call(kern, op, o))}
-        r["bytes_ms"], r["ops_ms"] = bound(op, shape)
+        r["bytes_ms"], r["ops_ms"] = bound(op, shape, prologue)
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
         rows.append(r)
         a = agg.setdefault(op, Counter())
@@ -1303,18 +1321,19 @@ def main():
               flush=True)
         del o
 
-    # kernels 1, 3 and 4 at the batch-256 shapes of the train step:
-    # bit-equal on a second run, checked against their plain versions,
-    # timed beside their library calls
+    # kernels 1-5 at the batch-256 shapes of the train step: bit-equal
+    # on a second run, checked against their plain versions, timed beside
+    # their library calls
     mm256, cv256 = resnet50_calls(TRAIN_BATCH)
     cases256 = [(op, (m, k, n), p, c) for (m, k, n, p), c in mm256.items()
-                for op in ("mm", "mm_wgrad")]
-    cases256 += [("cv", s_, True, c) for s_, c in cv256.items()]
+                for op in ("mm", "mm_dgrad", "mm_wgrad")]
+    cases256 += [(op, s_, True, c) for s_, c in cv256.items()
+                 for op in ("cv", "cv_dgrad")]
     rows256 = []
     for op, shape, prologue, count in cases256:
         name, kern, plain, _ = kernels[op]
         o = operands(op, shape, prologue, torch.bfloat16)
-        m = math.prod(shape[:-2]) if op == "cv" else shape[0]
+        m = math.prod(shape[:-2]) if op.startswith("cv") else shape[0]
         got = call(kern, op, o)
         if not same(got, call(kern, op, o)):
             fail(f"{name}{shape}: two runs differ")
@@ -1324,7 +1343,7 @@ def main():
              "prologue": prologue, "calls_per_forward": count,
              "ms": device_ms(lambda: call(kern, op, o)),
              "library_ms": device_ms(lambda: library(op, o))}
-        r["bytes_ms"], r["ops_ms"] = bound(op, shape)
+        r["bytes_ms"], r["ops_ms"] = bound(op, shape, prologue)
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
         rows256.append(r)
         print(f"  {name} {tuple(shape)} x{count}: {r['ms']:.4f} ms (library "
@@ -1567,12 +1586,16 @@ def main():
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        t_host = time.perf_counter()
         for i in range(10):
             *trees, loss = step(*trees, i + 4, None, x256, t256, [0.1])
+        # the host's time to enqueue a step: where it reaches the step
+        # time, the host and not the card sets the pace
+        host_ms = (time.perf_counter() - t_host) * 1e3 / 10
         b.record()
         b.synchronize()
         ms = a.elapsed_time(b) / 10
-        train[remat] = {"ms_per_step": ms,
+        train[remat] = {"ms_per_step": ms, "host_enqueue_ms": host_ms,
                         "images_per_s": TRAIN_BATCH / ms * 1e3,
                         "peak_bytes": torch.cuda.max_memory_allocated(),
                         "loss": loss.item()}
@@ -1580,7 +1603,8 @@ def main():
             fail(f"non-finite loss at batch {TRAIN_BATCH}, remat={remat}")
         print(f"train at batch {TRAIN_BATCH}, remat {'on' if remat else 'off'}"
               f": {train[remat]['images_per_s']:.1f} images/s, "
-              f"{ms:.2f} ms per step, peak memory "
+              f"{ms:.2f} ms per step (the host enqueues one in "
+              f"{host_ms:.2f} ms), peak memory "
               f"{train[remat]['peak_bytes'] / 2**30:.2f} GiB", flush=True)
         del trees
 
@@ -1600,12 +1624,16 @@ def main():
         if t_us is None:
             t_us = getattr(evt, "cuda_time_total", 0)
         key = evt.key
-        if "conv3_wgmma" in key:
+        if "conv3_dgrad_wgmma" in key:
+            grp = "kernel 5 (conv dgrad)"
+        elif "mm_dgrad_wgmma" in key:
+            grp = "kernel 2 (matmul dgrad)"
+        elif "conv3_wgmma" in key:
             grp = "kernel 4 (conv forward)"
         elif "mm_wgmma" in key:
             grp = "kernel 1 (matmul forward)"
         elif "split_sum" in key:
-            grp = "split sums (kernels 1, 4)"
+            grp = "split sums (kernels 1, 2, 4, 5)"
         elif "fused_gemm_bn_kernel" in key:
             grp = ("kernel 4 (conv forward)" if "true>" in key
                    else "kernel 1 (matmul forward)")
@@ -1706,11 +1734,10 @@ def main():
                 "optimize": opt_launches[name]},
             "shapes": f"one ResNet-50 {'backward' if 'grad' in op else 'forward'}"
                       f" at batch {BATCH}: {calls} calls, times summed",
-        })
-        if op in ("mm", "mm_wgrad", "cv"):  # the train step's batch too
-            line[-1]["batch_256"] = {key: sum(
+            "batch_256": {key: sum(
                 r["calls_per_forward"] * r[key] for r in rows256
-                if r["op"] == op) for key in ("ms", "library_ms", "bound_ms")}
+                if r["op"] == op) for key in ("ms", "library_ms", "bound_ms")},
+        })
     lm_row = flash_rows[0]  # the LM default, as MultiHeadAttention gives it
     line.append({
         "name": "flash_attention", "route": "cuda",

@@ -11,6 +11,15 @@
   once, the slices cut the reduction (64 channels of K, or 64 rows of M)
   into whole steps, none empty, and each plan is a function of its
   arguments alone.
+- ``_dgrad_plan`` (kernel 2) at the same matmul shapes and
+  ``_conv3_dgrad_plan`` (kernel 5) at the conv shapes: the kernel's walk
+  of its work items (written out here as the kernel does it) covers
+  every output tile of every slice exactly once, the persistent grid of
+  kernel 2 is a multiple of the column tiles without a split (each block
+  keeps one column tile, whose partial row it writes), the reduction is
+  split only where the tiles leave three quarters of the SMs idle (never
+  at ResNet-50's batch 32 and 256), and each plan is a function of its
+  arguments alone.
 - The flash kernel's plain version at the bf16 kernel's key block
   (``BLOCK_K``, 128; p rounds against the running max of its key block)
   against JAX's Pallas kernel in interpret mode at the same block, at
@@ -20,6 +29,8 @@
   (``dot_product_attention(use_flash=False)``) at ragged T and S in f32,
   1e-5 of max|O|.
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 
@@ -163,6 +174,102 @@ def test_plans_split_only_where_the_tiles_leave_sms_idle():
         tiles = -(-s[2] // plan.bn) * -(-s[1] // plan.bk)
         assert plan.slices > 1 and plan.per >= 6
         assert tiles * plan.slices <= 2 * SMS
+
+
+def _walk(blocks, rows, cols, slices):
+    """The (row tile, column tile, slice) items that each persistent
+    block of kernels 1 and 2 visits: items b, b + blocks, ... with the
+    column tile innermost, then the row tile, then the slice."""
+    return {b: [(item // cols % rows, item % cols, item // (cols * rows))
+                for item in range(b, rows * cols * slices, blocks)]
+            for b in range(blocks)}
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_dgrad_plan_covers_each_tile_once(m, k, n):
+    for sms in (SMS, 16):
+        plan = tfm._dgrad_plan(m, k, n, sms)
+        # dx (m, k): rows over m, columns over k; the reduction over n
+        assert plan.bm == 128 and plan.bn in (64, 128)
+        assert plan.bn == 64 or k > 64  # no wider than K needs
+        assert _covers(m, plan.bm) and _covers(k, plan.bn)
+        _check_slices(plan, n)
+        rows, cols = -(-m // plan.bm), -(-k // plan.bn)
+        walk = _walk(plan.blocks, rows, cols, plan.slices)
+        seen = Counter(i for items in walk.values() for i in items)
+        assert set(seen.values()) == {1}
+        assert len(seen) == rows * cols * plan.slices
+        assert 1 <= plan.blocks <= min(max(sms, cols),
+                                       rows * cols * plan.slices)
+        if plan.slices == 1:
+            # each block keeps one column tile and writes its row of
+            # partials: blocks / cols rows per column tile
+            assert plan.blocks % cols == 0
+            assert all(len({nt for _, nt, _ in items}) == 1
+                       for items in walk.values())
+            assert plan.part_rows == plan.blocks // cols
+        else:  # the split sum writes one row per row tile
+            assert plan.part_rows == rows
+        assert plan == tfm._dgrad_plan(m, k, n, sms)
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_dgrad_plan_splits_only_where_tiles_leave_sms_idle(m, k, n):
+    for sms in (SMS, 16):
+        plan = tfm._dgrad_plan(m, k, n, sms)
+        tiles = -(-m // plan.bm) * -(-k // plan.bn)
+        if plan.slices > 1:
+            assert 4 * tiles < sms
+            assert tiles * plan.slices <= 2 * sms
+
+
+def test_dgrad_plan_never_splits_resnet50_at_batch_32_and_256():
+    for b in (32, 256):
+        for m, k, n in _resnet50_matmuls(b):
+            assert tfm._dgrad_plan(m, k, n, SMS).slices == 1
+
+
+def _check_dgrad_conv_plan(b, h, w, ci, co, sms=SMS):
+    """Kernel 5's grid (row tiles, column tiles, slices) covers M and Ci
+    once per slice, and the slices cut the reduction over co into whole
+    windows of 3 taps."""
+    plan = tfm._conv3_dgrad_plan(b, h, w, ci, co, sms)
+    m = b * h * w
+    rows, cols = -(-m // plan.bm), -(-ci // plan.bn)
+    assert plan.bm == 128 and plan.bn in (64, 128)
+    assert plan.bn == 64 or ci > 64
+    assert _covers(m, plan.bm) and _covers(ci, plan.bn)
+    assert plan.steps == 9 * -(-co // 64)
+    assert plan.per % 3 == 0 and plan.per > 0
+    assert (plan.slices - 1) * plan.per < plan.steps <= plan.slices * plan.per
+    steps = Counter(s for z in range(plan.slices)
+                    for s in range(z * plan.per,
+                                   min(plan.steps, (z + 1) * plan.per)))
+    assert set(steps.values()) == {1} and len(steps) == plan.steps
+    if plan.slices > 1:  # split only where the tiles leave SMs idle
+        assert 4 * rows * cols < sms
+    assert plan == tfm._conv3_dgrad_plan(b, h, w, ci, co, sms)
+    return plan, rows * cols
+
+
+@pytest.mark.parametrize("batch", [1, 32, 256])
+@pytest.mark.parametrize("hw,c", RESNET50_CONV3)
+def test_conv3_dgrad_plan_covers_and_fills(batch, hw, c):
+    plan, tiles = _check_dgrad_conv_plan(batch, hw, hw, c, c)
+    if batch in (32, 256):  # no split: it cost more than it filled
+        assert plan.slices == 1, plan
+    if batch == 256:  # the grid fills the card twice over
+        assert tiles >= 2 * SMS, plan
+    if batch == 1:  # a few tiles: the split fills the card
+        assert tiles * plan.slices >= SMS // 2, plan
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 7, 512, 512), (2, 5, 5, 16, 24),
+                                   (1, 1, 1, 8, 8), (5, 9, 11, 72, 200),
+                                   (2, 14, 14, 64, 128)])
+def test_conv3_dgrad_plan_ragged_shapes(shape):
+    _check_dgrad_conv_plan(*shape)
+    _check_dgrad_conv_plan(*shape, sms=16)
 
 
 def _qkv(seed, b, h, t, s, d):
