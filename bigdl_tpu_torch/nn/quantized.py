@@ -81,9 +81,19 @@ def _frozen(t: Tensor) -> torch.nn.Parameter:
     return torch.nn.Parameter(t, requires_grad=False)
 
 
+def _k_major(k: int, n: int) -> Tensor:
+    """A zero int8 (k, n) tensor laid out as its transpose: the (k, n)
+    view of a contiguous (n, k) buffer, so that each output channel's k
+    weights are contiguous, the layout the int8 kernel's wgmma reads (it
+    takes s8 operands K-major only).  ``copy_`` (load_jax_variables),
+    ``Module.to`` and ``deepcopy`` keep the layout."""
+    return torch.zeros(n, k, dtype=torch.int8).t()
+
+
 class QuantizedLinear(Module):
     """int8 x int8 -> int32 matmul (bigdl_tpu/nn/quantized.py:55):
-    ``weight_q`` (in, out) int8, ``scale`` (1, out) f32, ``bias`` (out,)."""
+    ``weight_q`` (in, out) int8 with ``in`` contiguous (:func:`_k_major`),
+    ``scale`` (1, out) f32, ``bias`` (out,)."""
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True, weight_only: bool = False,
@@ -94,8 +104,7 @@ class QuantizedLinear(Module):
         self.with_bias = with_bias
         self.weight_only = weight_only
         self.plain = False
-        self.weight_q = _frozen(torch.zeros(input_size, output_size,
-                                            dtype=torch.int8))
+        self.weight_q = _frozen(_k_major(input_size, output_size))
         self.scale = _frozen(torch.ones(1, output_size))
         self.bias = _frozen(torch.zeros(output_size)) if with_bias else None
 
@@ -133,8 +142,9 @@ class QuantizedLinear(Module):
 
 class QuantizedSpatialConvolution(Module):
     """int8 convolution, NHWC / HWIO (bigdl_tpu/nn/quantized.py:102):
-    ``weight_q`` (kh, kw, in, out) int8, ``scale`` (1, 1, 1, out) f32,
-    ``bias`` (out,).  Keeps the float conv's geometry, not its weights."""
+    ``weight_q`` (kh, kw, in, out) int8 (a 1x1 one with ``in`` contiguous,
+    :func:`_k_major`), ``scale`` (1, 1, 1, out) f32, ``bias`` (out,).
+    Keeps the float conv's geometry, not its weights."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_size=(1, 1), stride=(1, 1), padding: PaddingT = 0,
@@ -150,8 +160,11 @@ class QuantizedSpatialConvolution(Module):
         self.weight_only = weight_only
         self.plain = False
         kh, kw = self.kernel_size
-        self.weight_q = _frozen(torch.zeros(kh, kw, n_input_plane,
-                                            n_output_plane, dtype=torch.int8))
+        self.weight_q = _frozen(
+            _k_major(n_input_plane, n_output_plane)[None, None]
+            if (kh, kw) == (1, 1) else
+            torch.zeros(kh, kw, n_input_plane, n_output_plane,
+                        dtype=torch.int8))
         self.scale = _frozen(torch.ones(1, 1, 1, n_output_plane))
         self.bias = (_frozen(torch.zeros(n_output_plane)) if with_bias
                      else None)

@@ -69,8 +69,10 @@ ARGTYPES = {
     # q, k, v, o, lse; B, H, T, S, D; the 12 strides (a host array);
     # sm_scale, causal, stream
     "flash_attention": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
-    # x, w, scale, y; M, K, N; x's row stride, w's two strides; stream
-    "int8_matmul": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_P],
+    # x, w, scale, y, split-K workspace and counters; M, K, N; the row
+    # strides of x, of w's (N, K) view and of y; swap, bm, bn, stages,
+    # per, blocks, resident; stream
+    "int8_matmul": [_P] * 6 + [_I] * 3 + [_L] * 3 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

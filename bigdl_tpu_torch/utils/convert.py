@@ -88,10 +88,12 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> dict:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    """A leaf as numpy: floating types as f32, integer types (the int8
-    ``weight_q`` of a quantized layer) as they are."""
+    """A leaf as a C-ordered numpy array, whatever the tensor's strides
+    (a quantized layer's ``weight_q`` is a transposed view): floating
+    types as f32, integer types (the int8 ``weight_q``) as they are."""
     t = t.detach()
-    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+    return np.ascontiguousarray(
+        (t.float() if t.is_floating_point() else t).cpu().numpy())
 
 
 def _nest(module: torch.nn.Module, kind: str) -> dict:

@@ -10,10 +10,10 @@ Phases:
 1. device: require CUDA, print the card's name and power limit, build the
    port's CUDA kernels from bigdl_tpu_torch/csrc (nvcc, sm_90a, one
    process per source, in parallel) and print the build time; count the
-   wgmma instructions (HGMMA) in the SASS of the six wgmma kernels
+   wgmma instructions (HGMMA) in the SASS of the six bf16 wgmma kernels
    (fused_matmul_bn, fused_matmul_bn_dgrad, fused_matmul_bn_wgrad,
-   fused_conv3x3_bn, fused_conv3x3_bn_dgrad, flash_attention) and fail
-   if any has none;
+   fused_conv3x3_bn, fused_conv3x3_bn_dgrad, flash_attention) and the
+   integer ones (IGMMA) in int8_matmul's, and fail if any has none;
 2. kernels: at ResNet-50's batch-32 shapes in bf16, plus a ragged-M
    matmul, batch-1 convs and an f32 case of each, hold every kernel
    against its plain PyTorch version on the card: the forward kernels'
@@ -63,14 +63,18 @@ Phases:
    entry point transformer_train.main([]), whose loss must fall and whose
    flash launches must be (iterations + validation batches) x 4;
 6. quant: the int8 kernel held bit for bit against its plain version
-   (bf16 and f32 output) at every shape of one quantized ResNet-50
-   forward at batch 32 and at tools/kernel_shapes.INT8's shapes (the
-   int8 KV score shape with w_q as a transposed view), the large-FC
-   MLP's and a ragged one, timed beside its plain version and
+   (bf16 and f32 output, each case twice, so a split-K workspace left
+   dirty would show) at every shape of one quantized ResNet-50 forward at
+   batch 32 (and at batches 1 and 8, the served ones), at
+   tools/kernel_shapes.INT8's shapes (the int8 KV score shape with w_q as
+   a transposed view), the large-FC MLP's and two ragged ones (a (K, N)
+   w_q copied K-major, x and y padded), with no operand copy where w_q
+   has the layers' K-major layout; timed beside its plain version and
    torch._int_mm (before --quick stops); then the unfused ResNet-50 (conv7
    stem, 1000 classes) with random weights from --seed carried in through
    load_jax_variables and quantized: exactly 34 int8 launches per dynamic
-   forward and none in weight_only mode, the kernel path against the
+   forward, none in weight_only mode and no operand copy (forward,
+   serving, the MLP), the kernel path against the
    plain path in bf16 and f32, the quantization error against the float
    model, save_quantized/load_quantized with every leaf held equal, 512
    requests from 4 threads through PredictionService plus a few through
@@ -587,16 +591,22 @@ QUANT_BATCH = 32         # the quantized ResNet-50 forward kernel 7 is timed at
 MLP = (8192, 8192, 1000)  # tools/quant_bench.py's large-FC MLP widths
 MLP_BATCH = 8
 # kernel 7 beyond one quantized ResNet-50 forward: (M, K, N), w_q's layout
-# ("kn": a contiguous (K, N) tensor; "nk": the transposed view of a
-# contiguous (N, K) tensor, as int8_scores will pass k_q.T), what it is
+# ("nk": the (K, N) view of a contiguous (N, K) tensor, as the quantized
+# layers hold their weights and int8_scores will pass k_q.T; "kn": a
+# contiguous (K, N) tensor, which the wrapper copies K-major), what it is
 INT8_EXTRA = (
-    ((4096, 768, 3072), "kn", "kernel_shapes.INT8, FFN in"),
-    ((4096, 3072, 768), "kn", "kernel_shapes.INT8, FFN out"),
+    ((4096, 768, 3072), "nk", "kernel_shapes.INT8, FFN in"),
+    ((4096, 3072, 768), "nk", "kernel_shapes.INT8, FFN out"),
     ((8, 128, 4096), "nk", "kernel_shapes.INT8, int8 KV scores (k_q.T view)"),
-    ((8, 8192, 8192), "kn", "large-FC MLP hidden layers"),
-    ((8, 8192, 1000), "kn", "large-FC MLP head"),
-    ((37, 200, 1000), "kn", "ragged M, K and N"),
+    ((8, 8192, 8192), "nk", "large-FC MLP hidden layers"),
+    ((8, 8192, 1000), "nk", "large-FC MLP head"),
+    ((37, 200, 1000), "kn", "ragged M, K and N; w_q copied K-major, x "
+     "padded"),
+    ((300, 100, 37), "kn", "ragged K and N; w_q copied, x and y padded"),
 )
+# the served batches of the quantized ResNet-50: their int8 shapes are
+# held against the plain version too (not timed)
+INT8_SERVED_BATCHES = (1, 8)
 # whole quantized ResNet-50, kernel path vs plain path on the same images:
 # the kernel is bit-equal to its plain version, so this is 0 unless cuDNN
 # picks another algorithm for a library conv; of the largest |logit|
@@ -639,10 +649,14 @@ def int8_bound(shape):
 
 def int8_phase(gen, timing: bool):
     """Hold kernel 7 against int8_matmul_dequant_plain at every shape of
-    one quantized ResNet-50 forward and at INT8_EXTRA, bf16 and f32 out,
-    requiring max |d| = 0; with ``timing``, time the kernel, the plain
-    version and torch._int_mm plus the same epilogue (the yardstick, never
-    on the port's path).  Returns the rows."""
+    one quantized ResNet-50 forward at batch 32 (and, untimed, at the
+    served batches 1 and 8) and at INT8_EXTRA, bf16 and f32 out, each
+    twice (the split-K workspace must come back clean), requiring max
+    |d| = 0 and, where w_q has the layers' K-major layout and the shape
+    is aligned, no operand copy; with ``timing``, time the kernel, the
+    plain version and torch._int_mm plus the same epilogue (the
+    yardstick, never on the port's path).  Returns the rows of the timed
+    cases."""
     import torch
 
     from bigdl_tpu_torch.ops import int8_matmul as im
@@ -653,24 +667,42 @@ def int8_phase(gen, timing: bool):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=torch.int32).to(torch.int8)
 
-    cases = [(shape, "kn", f"ResNet-50 forward, {c} call(s)", c)
+    cases = [(shape, "nk", f"ResNet-50 forward, {c} call(s)", c, True)
              for shape, c in sorted(int8_calls(QUANT_BATCH).items())]
-    cases += [(shape, layout, what, 0) for shape, layout, what in INT8_EXTRA]
-    rows = []
-    for (m, k, n), layout, what, count in cases:
+    cases += [(shape, layout, what, 0, True)
+              for shape, layout, what in INT8_EXTRA]
+    cases += [(shape, "nk", f"ResNet-50 forward at batch {b}", 0, False)
+              for b in INT8_SERVED_BATCHES
+              for shape in sorted(int8_calls(b))]
+    rows, checked = [], 0
+    for (m, k, n), layout, what, count, timed in cases:
         x = randint8(m, k)
         w = randint8(n, k).t() if layout == "nk" else randint8(k, n)
         s = (torch.rand(n, generator=gen, device=dev) + 0.05) * 1e-4
         for dtype in (torch.bfloat16, torch.float32):
-            y = im.int8_matmul_dequant(x, w, s, dtype)
-            torch.cuda.synchronize()
             ref = im.int8_matmul_dequant_plain(x, w, s, dtype)
-            err = (y.float() - ref.float()).abs().max().item()
-            if err != 0 or not torch.equal(y, ref):
-                fail(f"int8_matmul{(m, k, n)} {layout} {dtype}: kernel "
-                     f"differs from the plain version, max |d| {err:.4g}")
+            for run in range(2):
+                im.reset_launches()
+                y = im.int8_matmul_dequant(x, w, s, dtype)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                if err != 0 or not torch.equal(y, ref):
+                    fail(f"int8_matmul{(m, k, n)} {layout} {dtype} run "
+                         f"{run + 1}: kernel differs from the plain "
+                         f"version, max |d| {err:.4g}")
+                copies = (im.LAUNCHES["int8_matmul_w_relayout"],
+                          im.LAUNCHES["int8_matmul_pad"])
+                if layout == "nk" and k % 16 == 0 and n % 8 == 0 \
+                        and copies != (0, 0):
+                    fail(f"int8_matmul{(m, k, n)} {layout}: operand copies "
+                         f"(relayout, pad) {copies} for an aligned K-major "
+                         "weight")
+            checked += 1
+        if not timed:
+            continue
         r = {"shape": [m, k, n], "layout": layout, "what": what,
-             "calls_per_forward": count, "max_abs_err": 0.0}
+             "calls_per_forward": count, "max_abs_err": 0.0,
+             "plan": im._int8_plan(m, k, n, im._sms(dev))._asdict()}
         if timing:
             # _int_mm wants M > 16 and K, N multiples of 8; it is timed at
             # the shape padded up to one it takes
@@ -686,24 +718,30 @@ def int8_phase(gen, timing: bool):
                 acc = torch._int_mm(xp, wp)
                 return (acc[:m, :n].float() * s).to(torch.bfloat16)
 
+            try:  # cuBLASLt refuses some padded shapes ((304, 104, 40)
+                library()  # on an H100): then there is no library call
+                library_ms = device_ms(library)
+            except RuntimeError as e:
+                print(f"  _int_mm refused {(mp, kp, np_)}: {e}", flush=True)
+                library_ms = None
             r.update(
                 ms=device_ms(lambda: im.int8_matmul_dequant(x, w, s)),
                 plain_ms=device_ms(lambda: im.int8_matmul_dequant_plain(
                     x, w, s), reps=2),
-                library_ms=device_ms(library))
+                library_ms=library_ms)
             r["bytes_ms"], r["ops_ms"] = int8_bound((m, k, n))
             r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
             pad = "" if [mp, kp, np_] == [m, k, n] else \
                 f" (_int_mm at {(mp, kp, np_)})"
+            lib = "none" if library_ms is None else f"{library_ms:.4f}"
             print(f"  int8_matmul{(m, k, n)} {layout} [{what}]: "
                   f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, _int_mm "
-                  f"{r['library_ms']:.4f}{pad}, bound {r['bound_ms']:.4f})",
-                  flush=True)
+                  f"{lib}{pad}, bound {r['bound_ms']:.4f})", flush=True)
             del xp, wp
         rows.append(r)
         del x, w, s
-    print(f"int8 kernel checks passed: {len(rows)} shapes, bf16 and f32 "
-          "output, max |kernel - plain| 0", flush=True)
+    print(f"int8 kernel checks passed: {checked // 2} shapes, bf16 and "
+          "f32 output, each twice, max |kernel - plain| 0", flush=True)
     return rows
 
 
@@ -742,6 +780,15 @@ def quant_phase(args, out):
         return ((a.float() - b.float()).norm(dim=-1)
                 / b.float().norm(dim=-1).clamp_min(1e-30))
 
+    def no_copies(what):
+        """The layers' weights are K-major and the main path's shapes
+        aligned: kernel 7 must not copy an operand."""
+        copies = {key: im.LAUNCHES[key] for key in
+                  ("int8_matmul_w_relayout", "int8_matmul_pad")}
+        if any(copies.values()):
+            fail(f"{what}: kernel 7 copied operands {copies}")
+        res.setdefault("operand_copies", {})[what] = copies
+
     # launches per forward, and the shapes the wrapper was given
     with torch.inference_mode():
         im.reset_launches()
@@ -754,6 +801,7 @@ def quant_phase(args, out):
             fail(f"quantized ResNet-50 forward: {fwd_launches} int8 "
                  f"launches at shapes {dict(seen)}, expected 34 at "
                  f"{dict(int8_calls(QUANT_BATCH))}")
+        no_copies("quantized ResNet-50 forward")
         im.reset_launches()
         wmodel(xb.to(bf16))
         torch.cuda.synchronize()
@@ -847,6 +895,7 @@ def quant_phase(args, out):
         t.join()
     wall = time.perf_counter() - t0
     serve_launches = im.LAUNCHES["int8_matmul"]
+    no_copies("quantized serving")
     batches = svc.metrics.batches - batches0
     p50, p99 = svc.metrics.latency_ms(50), svc.metrics.latency_ms(99)
     log_line = svc.engine.log_line()
@@ -935,6 +984,7 @@ def quant_phase(args, out):
         ym = mq(xm)
         torch.cuda.synchronize()
     mlp_launches = im.LAUNCHES["int8_matmul"]
+    no_copies("quantized MLP forward")
     if mlp_launches != 3 or not torch.isfinite(ym.float()).all():
         fail(f"quantized MLP forward: {mlp_launches} int8 launches "
              "(expected 3) or non-finite output")
@@ -1047,7 +1097,16 @@ def main():
         if sass.returncode != 0 or hgmma[name] == 0:
             fail(f"{name}: no wgmma (HGMMA) in its SASS "
                  f"({sass.stderr.strip()[:200]})")
-    print(f"wgmma instructions (HGMMA) in the SASS: {hgmma}", flush=True)
+    # kernel 7's integer wgmma: cuobjdump spells it IGMMA
+    sass = subprocess.run(
+        [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+         str(libs["int8_matmul"])], capture_output=True, text=True)
+    hgmma["int8_matmul (IGMMA)"] = sass.stdout.count("IGMMA")
+    if sass.returncode != 0 or hgmma["int8_matmul (IGMMA)"] == 0:
+        fail(f"int8_matmul: no integer wgmma (IGMMA) in its SASS "
+             f"({sass.stderr.strip()[:200]})")
+    print(f"wgmma instructions (HGMMA; IGMMA for int8_matmul) in the SASS: "
+          f"{hgmma}", flush=True)
     dev = torch.device("cuda")
 
     # --------------------------------------------------------- 2. kernels

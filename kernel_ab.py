@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Time the fused data-gradient kernels of two checkouts on one card.
+"""Time the port's kernels of two checkouts on one card.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU, with a
 second checkout (for example the parent commit, unpacked by
 ``git archive``) at OTHER:
 
-    python3 kernel_ab.py OTHER [--out DIR]
-    python3 kernel_ab.py --sweep BATCH [--out DIR]
+    python3 kernel_ab.py OTHER [--kernels 2,5,7] [--out DIR]
+    python3 kernel_ab.py --sweep BATCH [--kernels 2,5,7] [--out DIR]
 
 Each checkout's ``bigdl_tpu_torch`` is imported in a process of its own,
-which builds that checkout's kernels and times ``fused_matmul_bn_dgrad``
-(kernel 2) and ``fused_conv3x3_bn_dgrad`` (kernel 5) in bf16 at every
-shape of one fused ResNet-50 backward at batch 32 and 256: device time
-per call, 10 calls captured in a CUDA graph and replayed 20 times
-between CUDA events, on the same seeded operands in both.  The
-checkouts run in turns, OTHER, this, this, OTHER, and each side's time
-is the mean of its two runs.  Prints the card's name and power limit, a
-line per shape and the sums per backward; writes the rows to
-DIR/kernel_ab.json (default build/kernel_ab).  ``--sweep BATCH`` instead
-times this checkout's two kernels at BATCH's shapes under every column
-tile (and, for kernel 5, reduction split) their plans can choose, marks
-the plan's choice, and writes DIR/sweep_BATCH.json.
+which builds that checkout's kernels and times, on the same seeded
+operands in both, ``fused_matmul_bn_dgrad`` (kernel 2) and
+``fused_conv3x3_bn_dgrad`` (kernel 5) in bf16 at every shape of one
+fused ResNet-50 backward at batch 32 and 256, and ``int8_matmul_dequant``
+(kernel 7, bf16 out) at every shape of one quantized ResNet-50 forward at
+batch 32 and at the FFN, int8 KV score and large-FC MLP shapes, with
+``w_q`` laid out as that checkout's quantized layers hold it (K-major
+where their ``weight_q`` has K stride 1, else a contiguous (K, N)):
+device time per call, 10 calls captured in a CUDA graph and replayed 20
+times between CUDA events.  The checkouts run in turns, OTHER, this,
+this, OTHER, and each side's time is the mean of its two runs.  Prints
+the card's name and power limit, a line per shape and the sums per pass;
+writes the rows to DIR/kernel_ab.json (default build/kernel_ab).
+``--sweep BATCH`` instead times this checkout's kernels at BATCH's shapes
+under every column tile (and, for kernel 5, reduction split) their plans
+can choose, and for kernel 7 under the column tiles, ring depths,
+resident panels and K splits ``_int8_plan`` can choose, marks the plan's
+choice, and writes DIR/sweep_BATCH.json.
 """
 from __future__ import annotations
 
@@ -33,6 +39,52 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BATCHES = (32, 256)
 ITERS, REPS = 20, 10
+KERNEL = {"mm_dgrad": 2, "cv_dgrad": 5}  # the port's kernel numbers
+# kernel 7 beyond a quantized ResNet-50 forward (chip_smoke.py INT8_EXTRA)
+INT8_EXTRA = ((4096, 768, 3072), (4096, 3072, 768), (8, 128, 4096),
+              (8, 8192, 8192), (8, 8192, 1000))
+
+
+def int8_calls(batch: int):
+    """(M, K, N) -> calls of the int8 products of one quantized ResNet-50
+    forward at ``batch``, as chip_smoke.py counts them."""
+    calls = {}
+    n_in, res = 64, 56
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** stage
+        for b in range(n_blocks):
+            s = 2 if stage > 0 and b == 0 else 1
+            ro = res // s
+            keys = [(batch * res * res, n_in, planes),
+                    (batch * ro * ro, planes, 4 * planes)]
+            if s == 1 and n_in != 4 * planes:
+                keys.append((batch * res * res, n_in, 4 * planes))
+            for key in keys:
+                calls[key] = calls.get(key, 0) + 1
+            n_in, res = 4 * planes, ro
+    calls[(batch, 2048, 1000)] = 1
+    return calls
+
+
+def int8_operands(shape, dev):
+    """Kernel 7's operands at ``shape``, seeded by it, with ``w_q`` laid
+    out as the imported tree's quantized layers hold their weights."""
+    import torch
+
+    from bigdl_tpu_torch.nn.quantized import QuantizedLinear
+
+    m, k, n = shape
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+
+    def randint8(*s):
+        return torch.randint(-127, 128, s, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    k_major = QuantizedLinear(4, 3).weight_q.stride(0) == 1
+    x = randint8(m, k)
+    w = randint8(n, k).t() if k_major else randint8(k, n)
+    s = (torch.rand(n, generator=gen, device=dev) + 0.05) * 1e-4
+    return x, w, s
 
 
 def resnet50_calls(batch: int):
@@ -127,26 +179,108 @@ def _import(tree: Path):
         raise SystemExit(f"imported {bigdl_tpu_torch.__file__}, not {tree}")
 
 
-def measure(tree: Path) -> list:
+def measure(tree: Path, kernels) -> list:
     """Times this process's tree's kernels; returns one row per shape."""
     import torch
 
     _import(tree)
     dev = torch.device("cuda")
     rows = []
-    for batch in BATCHES:
+    for batch in BATCHES if kernels & {2, 5} else ():
         for (op, shape, prologue), count in resnet50_calls(batch).items():
+            if KERNEL[op] not in kernels:
+                continue
             fn, args = operands(op, shape, prologue, dev)
             rows.append({"op": op, "batch": batch, "shape": list(shape),
                          "prologue": prologue, "calls": count,
                          "ms": device_ms(lambda: fn(*args, relu=True))})
             del fn, args
+    if 7 in kernels:
+        from bigdl_tpu_torch.ops import int8_matmul as im
+
+        shapes = list(int8_calls(32).items()) + [(s, 0) for s in INT8_EXTRA]
+        for shape, count in shapes:
+            x, w, s = int8_operands(shape, dev)
+            rows.append({"op": "int8", "batch": 32, "shape": list(shape),
+                         "prologue": False, "calls": count,
+                         "ms": device_ms(lambda: im.int8_matmul_dequant(
+                             x, w, s))})
+            del x, w, s
     return rows
 
 
-def sweep(batch: int) -> list:
+def int8_variants(m: int, k: int, n: int, sms: int, chosen) -> list:
+    """Every tiling of kernel 7 its plan can choose at (m, k, n): on the
+    large route each column tile with and without a resident panel at
+    the deepest ring that fits and at 2 and 4 stages; on the swap route
+    each K split of 1 to 16 slices at the deepest ring."""
+    from bigdl_tpu_torch.ops import int8_matmul as im
+
+    kc = chosen.kc
+    plans = []
+    if chosen.swap:
+        tiles = -(-n // chosen.bn)
+        for slices in (1, 2, 4, 8, 16):
+            if slices > 1 and tiles > sms:  # the workspace holds sms tiles
+                continue
+            per = -(-kc // min(slices, kc))
+            got = -(-kc // per)
+            stages = min(im._MAX_STAGES, per)
+            plans.append(chosen._replace(per=per, slices=got, stages=stages,
+                                         blocks=tiles * got))
+    else:
+        rows = -(-m // chosen.bm)
+        for bn in (64, 128, 256):
+            cols = -(-n // bn)
+            blocks = min(rows * cols, max(1, sms // cols) * cols)
+            for resident in (True, False):
+                if resident and kc > im._MAX_PANEL:
+                    continue
+                base = chosen._replace(bn=bn, resident=resident,
+                                       blocks=blocks, stages=1)
+                room = im._SMEM - im._int8_smem(base)
+                stage = 128 * 128 + (0 if resident else bn * 128)
+                deepest = min(im._MAX_STAGES, room // stage + 1)
+                for stages in sorted({2, 4, deepest}):
+                    if 2 <= stages <= deepest:
+                        plans.append(base._replace(stages=stages))
+    if chosen not in plans:
+        plans.append(chosen)
+    return list(dict.fromkeys(plans))
+
+
+def sweep_int8(dev) -> list:
+    """Kernel 7 under every variant :func:`int8_variants` gives, at the
+    batch-32 forward's shapes and the extras."""
+    import torch
+
+    from bigdl_tpu_torch.ops import int8_matmul as im
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    original = im._int8_plan
+    rows = []
+    shapes = list(int8_calls(32).items()) + [(s, 0) for s in INT8_EXTRA]
+    for shape, count in shapes:
+        x, w, s = int8_operands(shape, dev)
+        chosen = original(*shape, sms)
+        for plan in int8_variants(*shape, sms, chosen):
+            im._int8_plan = lambda *a, p=plan: p
+            rows.append({"op": "int8", "shape": list(shape), "calls": count,
+                         "plan": plan._asdict(), "chosen": plan == chosen,
+                         "ms": device_ms(lambda: im.int8_matmul_dequant(
+                             x, w, s))})
+            print(f"  int8 {tuple(shape)} {tuple(plan)}: "
+                  f"{rows[-1]['ms']:.4f} ms"
+                  f"{' (the plan)' if plan == chosen else ''}", flush=True)
+        im._int8_plan = original
+        del x, w, s
+    return rows
+
+
+def sweep(batch: int, kernels) -> list:
     """This tree's kernels 2 and 5 under every column tile and (kernel
-    5) reduction split their plans can choose, at ``batch``'s shapes."""
+    5) reduction split their plans can choose, at ``batch``'s shapes;
+    kernel 7 under :func:`sweep_int8`'s variants."""
     import torch
 
     _import(ROOT)
@@ -154,8 +288,10 @@ def sweep(batch: int) -> list:
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = []
+    rows = sweep_int8(dev) if 7 in kernels else []
     for (op, shape, prologue), count in resnet50_calls(batch).items():
+        if KERNEL[op] not in kernels:
+            continue
         fn, args = operands(op, shape, prologue, dev)
         plans = []
         if op == "mm_dgrad":
@@ -198,10 +334,16 @@ def main():
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "kernel_ab")
     ap.add_argument("--sweep", type=int, metavar="BATCH",
                     help="instead: time this tree's plan variants at BATCH")
+    ap.add_argument("--kernels", default="2,5,7",
+                    help="which kernels (of 2, 5 and 7), comma-separated")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kernels = {int(v) for v in args.kernels.split(",")}
+    if not kernels or not kernels <= {2, 5, 7}:
+        raise SystemExit(f"kernel_ab: --kernels takes 2, 5 and 7, got "
+                         f"{args.kernels}")
     if args.measure is not None:  # a child: time one tree, print JSON
-        print(json.dumps(measure(args.measure.resolve())))
+        print(json.dumps(measure(args.measure.resolve(), kernels)))
         return
     import torch
 
@@ -214,7 +356,8 @@ def main():
     args.out.mkdir(parents=True, exist_ok=True)
     if args.sweep:
         (args.out / f"sweep_{args.sweep}.json").write_text(json.dumps(
-            {"card": smi.stdout.strip(), "rows": sweep(args.sweep)},
+            {"card": smi.stdout.strip(),
+             "rows": sweep(args.sweep, kernels)},
             indent=1))
         return
     if args.other is None:
@@ -224,7 +367,8 @@ def main():
     for side in ("other", "this", "this", "other"):
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--measure",
-             str(trees[side])], capture_output=True, text=True)
+             str(trees[side]), "--kernels", args.kernels],
+            capture_output=True, text=True)
         if out.returncode != 0:
             raise SystemExit(f"kernel_ab: the {side} tree failed:\n"
                              f"{out.stderr[-4000:]}")
@@ -238,14 +382,16 @@ def main():
         row["ms"] = sum(row["ms_runs"]) / 2
         row["other_ms"] = sum(row["other_ms_runs"]) / 2
         rows.append(row)
-        s = sums.setdefault(f"{r['op']} batch {r['batch']}", [0.0, 0.0])
-        s[0] += r["calls"] * row["other_ms"]
-        s[1] += r["calls"] * row["ms"]
+        if r["calls"]:
+            s = sums.setdefault(f"{r['op']} batch {r['batch']}", [0.0, 0.0])
+            s[0] += r["calls"] * row["other_ms"]
+            s[1] += r["calls"] * row["ms"]
         print(f"  {r['op']} {tuple(r['shape'])} batch {r['batch']} "
               f"x{r['calls']}: other {row['other_ms']:.4f} ms, this "
               f"{row['ms']:.4f} ms", flush=True)
     for key, (o, t) in sums.items():
-        print(f"summed over a backward, {key}: other {o:.4f} ms, this "
+        what = "a forward" if key.startswith("int8") else "a backward"
+        print(f"summed over {what}, {key}: other {o:.4f} ms, this "
               f"{t:.4f} ms", flush=True)
     (args.out / "kernel_ab.json").write_text(json.dumps(
         {"card": smi.stdout.strip(), "rows": rows, "sums": sums}, indent=1))
