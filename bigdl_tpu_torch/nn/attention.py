@@ -8,12 +8,13 @@ The children and leaves keep the JAX names (``embed``/``pos``/``drop``/
 ``(N, T, D)``; weights are ``(in, out)`` and are cast to the activation's
 type where they are used.
 
-Random streams: ``forward(x, rng)`` takes an integer seed and hands child
-``i`` the seed ``split_rng(rng, i)``, as ``_child_apply`` hands it
-``fold_in(rng, i)``.  Dropout acts on the Transformer's input (``drop``),
-on the attention output after ``wo`` and on the FFN's hidden activation,
-never on the attention probabilities, so the flash kernel draws no random
-numbers.
+Random streams: ``forward(x, rng)`` takes a seed (an int, or a 0-dim
+int64 tensor, the form a captured train step replays with new values)
+and hands child ``i`` the seed ``split_rng(rng, i)``, as ``_child_apply``
+hands it ``fold_in(rng, i)``.  Dropout acts on the Transformer's input
+(``drop``), on the attention output after ``wo`` and on the FFN's hidden
+activation, never on the attention probabilities, so the flash kernel
+draws no random numbers.
 
 Cached decoding (``init_cache``, ``apply_cached``, ``prefill``,
 ``decode_step``, ``extend``, the paged variants and ``generate``),
@@ -30,7 +31,7 @@ import torch
 from bigdl_tpu_torch.nn.dropout import Dropout, dropout
 from bigdl_tpu_torch.nn.embedding import LookupTable
 from bigdl_tpu_torch.nn.init import RandomNormal, Xavier
-from bigdl_tpu_torch.nn.module import Container, Module, split_rng
+from bigdl_tpu_torch.nn.module import Container, Module, Seed, split_rng
 from bigdl_tpu_torch.nn.norm import LayerNormalization
 from bigdl_tpu_torch.ops.attention import dot_product_attention
 
@@ -84,7 +85,7 @@ class MultiHeadAttention(Module):
         y = x @ w.to(x.dtype)
         return y.reshape(n, t, self.num_heads, self.head_dim).transpose(1, 2)
 
-    def forward(self, inputs, rng: Optional[int] = None):
+    def forward(self, inputs, rng: Optional[Seed] = None):
         if isinstance(inputs, (tuple, list)):
             query, kv = inputs[0], inputs[1]
             mask = inputs[2] if len(inputs) > 2 else None
@@ -136,7 +137,7 @@ class FeedForwardNetwork(Module):
             self.b1.zero_()
             self.b2.zero_()
 
-    def forward(self, x, rng: Optional[int] = None):
+    def forward(self, x, rng: Optional[Seed] = None):
         y = self.activation(x @ self.w1.to(x.dtype) + self.b1.to(x.dtype))
         if self.training and self.relu_dropout > 0.0 and rng is not None:
             y = dropout(y, self.relu_dropout, rng)
@@ -165,7 +166,7 @@ class TransformerLayer(Container):
         self.add(FeedForwardNetwork(hidden_size, filter_size, ffn_dropout,
                                     name="ffn"))
 
-    def forward(self, x, rng: Optional[int] = None):
+    def forward(self, x, rng: Optional[Seed] = None):
         x = x + self.mha(self.ln1(x), rng=split_rng(rng, 1))
         return x + self.ffn(self.ln2(x), rng=split_rng(rng, 3))
 
@@ -228,7 +229,7 @@ class Transformer(Container):
                 seq_mesh=seq_mesh, name=f"layer{i}"))
         self.add(LayerNormalization(hidden_size, name="ln_f"))
 
-    def forward(self, x, rng: Optional[int] = None):
+    def forward(self, x, rng: Optional[Seed] = None):
         h = self.embed(x)
         h = h * torch.tensor(math.sqrt(self.hidden_size), dtype=h.dtype)
         h = self.drop(self.pos(h), rng=split_rng(rng, 2))

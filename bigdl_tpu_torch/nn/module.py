@@ -14,28 +14,59 @@ training forward, where the JAX package returns new state.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
 _MASK64 = (1 << 64) - 1
+_M1, _M2 = 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
+
+#: a random seed: a Python int, or a 0-dim int64 tensor holding its low
+#: 64 bits (the form a CUDA graph replays with new values)
+Seed = Union[int, torch.Tensor]
+
+
+def _signed(v: int) -> int:
+    """The int64 whose bits are ``v``'s low 64 bits."""
+    v &= _MASK64
+    return v - (1 << 64) if v >> 63 else v
 
 
 def _mix64(z: int) -> int:
     """splitmix64's finaliser: a bijection of 64-bit integers."""
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    z = ((z ^ (z >> 30)) * _M1) & _MASK64
+    z = ((z ^ (z >> 27)) * _M2) & _MASK64
     return z ^ (z >> 31)
 
 
-def split_rng(rng: Optional[int], i: int) -> Optional[int]:
+def _lsr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 ``z`` by ``s`` (torch's is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(z: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix64` on the bits of an int64 tensor, elementwise: the
+    products wrap modulo 2**64 as the unsigned ones do."""
+    z = (z ^ _lsr(z, 30)) * _signed(_M1)
+    z = (z ^ _lsr(z, 27)) * _signed(_M2)
+    return z ^ _lsr(z, 31)
+
+
+def split_rng(rng: Optional[Seed], i: int) -> Optional[Seed]:
     """The seed of stream ``i`` derived from the seed ``rng``, as
     ``jax.random.fold_in(rng, i)`` derives a key (bigdl_tpu/nn/module.py:
     37-40); ``None`` stays ``None``.  The port's random streams are
-    integer seeds, turned into a ``torch.Generator`` where numbers are
-    drawn; the result is a 63-bit seed ``manual_seed`` takes."""
+    seeds that dropout hashes into masks (:mod:`bigdl_tpu_torch.nn.dropout`);
+    the result is a 63-bit seed.
+
+    An int gives an int.  A 0-dim int64 tensor gives one on its device,
+    computed by tensor ops with the same bits: the JAX key is a traced
+    value, and this form is data to a CUDA graph, so a captured step
+    draws new streams from every seed it is replayed with."""
     if rng is None:
         return None
+    if torch.is_tensor(rng):
+        return _lsr(mix64(mix64(rng) + (i + 1)), 1)
     return _mix64((_mix64(rng & _MASK64) + i + 1) & _MASK64) >> 1
 
 

@@ -7,7 +7,8 @@ of its sources so an edited kernel is rebuilt and an unchanged one is
 reused.  The libraries go to ``build/kernels/`` at the checkout's root.
 All sources compile in parallel, one ``nvcc`` each, at first use; a
 failed build raises with the compiler's output.  Nothing is compiled
-when the package is imported.
+when the package is imported.  A first use inside a CUDA graph capture
+raises: build before capturing (``utils/graphs.py`` ``prepare``).
 """
 from __future__ import annotations
 
@@ -148,6 +149,13 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"kernel library {name!r} is first used inside a CUDA graph "
+            "capture, where nvcc and dlopen cannot run: build and load the "
+            "kernels before capturing (bigdl_tpu_torch.utils.graphs.prepare)")
     with _lock:
         if name not in _libs:
             paths = build()

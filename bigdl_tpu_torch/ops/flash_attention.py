@@ -54,7 +54,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
 
 Tensor = torch.Tensor
 
-#: kernel launches since the last :func:`reset_launches`
+#: kernel launches since the last :func:`reset_launches`, counted when
+#: the host enqueues them: a CUDA graph capture counts each launch once,
+#: and a replay of the graph adds nothing
 LAUNCHES = {"flash_attention": 0}
 _launch_lock = threading.Lock()
 

@@ -54,7 +54,9 @@ Tensor = torch.Tensor
 Stats = Tuple[Tensor, Tensor, Tensor]
 Dgrad = Tuple[Tensor, Optional[Tensor], Optional[Tensor]]
 
-#: kernel launches per wrapper since the last :func:`reset_launches`
+#: kernel launches per wrapper since the last :func:`reset_launches`,
+#: counted when the host enqueues them: a CUDA graph capture counts each
+#: launch once, and a replay of the graph adds nothing
 LAUNCHES = {"fused_matmul_bn": 0, "fused_conv3x3_bn": 0,
             "fused_matmul_bn_dgrad": 0, "fused_matmul_bn_wgrad": 0,
             "fused_conv3x3_bn_dgrad": 0}

@@ -53,7 +53,9 @@ Tensor = torch.Tensor
 
 #: kernel launches, and the operand copies made for the kernel (a
 #: K-major copy of w_q; a zero-padded copy of an operand or of y that
-#: TMA cannot describe), since the last :func:`reset_launches`
+#: TMA cannot describe), since the last :func:`reset_launches`.  They
+#: count what the host enqueues: a CUDA graph capture counts each launch
+#: once, and a replay of the graph adds nothing.
 LAUNCHES = {"int8_matmul": 0, "int8_matmul_w_relayout": 0,
             "int8_matmul_pad": 0}
 _lock = threading.Lock()
@@ -211,12 +213,20 @@ def _workspace(device) -> Tuple[Tensor, Tensor]:
     ``sms`` tiles of 64 x 64 (a split call has fewer than sms / 2 tiles)
     and one arrival counter per tile, all 0 between calls (the last slice
     of a tile puts them back).  Calls on one device share it, so they
-    must be ordered, as calls on one stream are."""
+    must be ordered, as calls on one stream are.  It is allocated outside
+    any CUDA graph capture (``utils/graphs.py`` ``prepare`` does it before
+    capturing): memory allocated during a capture belongs to the graph's
+    pool, so a first call inside one raises rather than cache it."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     with _lock:
         ws = _workspaces.get(index)
         if ws is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "int8_matmul: the split-K workspace is first needed "
+                    "inside a CUDA graph capture; allocate it before "
+                    "capturing (bigdl_tpu_torch.utils.graphs.prepare)")
             sms = _sms(device)
             ws = (torch.zeros(sms * _BW * _MX[-1], dtype=torch.int32,
                               device=device),

@@ -4,22 +4,26 @@
 Every method is a pair ``init_state(params)`` /
 ``update(grads, state, params, lr, step)`` over flat dicts of tensors
 keyed by parameter name (``named_parameters`` names, which are the JAX
-tree's paths joined by ``.``), returning new dicts.  The updates are
+tree's paths joined by ``.``), returning new dicts.  ``lr`` and the
+1-based ``step`` are Python numbers or 0-dim tensors on the parameters'
+device, as the JAX update takes traced values: whatever depends on them
+is computed on that device, so one captured train step serves every
+iteration with new values in its scalar tensors.  The updates are
 plain tensor arithmetic under ``torch.no_grad()`` in f32, the JAX
 package's update rules written out: not ``torch.optim``, whose SGD seeds
 its momentum buffer differently.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, Any]
+Scalar = Union[float, torch.Tensor]
 
 
 class OptimMethod:
@@ -38,7 +42,7 @@ class OptimMethod:
         return {}
 
     def update(self, grads: Params, opt_state: State, params: Params,
-               lr: float, step: Optional[int] = None
+               lr: Scalar, step: Optional[Scalar] = None
                ) -> Tuple[Params, State]:
         raise NotImplementedError
 
@@ -52,7 +56,9 @@ class SGD(OptimMethod):
     """SGD with momentum / nesterov / dampening / weight decay (reference
     optim/SGD.scala).  ``dampening`` defaults to ``momentum`` and the
     velocity starts at 0, so the first step's velocity is
-    ``(1 - dampening) * g``."""
+    ``(1 - dampening) * g``.  Momentum, dampening and weight decay are
+    constants of the method; the step does not enter the update, and
+    ``lr`` multiplies it as a number or a device tensor alike."""
 
     def __init__(self, learning_rate: float = 1e-3, momentum: float = 0.0,
                  dampening: Optional[float] = None, nesterov: bool = False,
@@ -95,9 +101,10 @@ class SGD(OptimMethod):
 
 class Adam(OptimMethod):
     """Adam (reference optim/Adam.scala; bigdl_tpu/optim/optim_method.py:
-    154-197).  ``m`` and ``v`` are f32; the bias correction uses the
-    step argument (1-based; 1 when ``None``), computed in f32 as the JAX
-    update computes it."""
+    154-197).  ``m`` and ``v`` are f32; the bias corrections ``1 - b**t``
+    use the step argument (1-based; 1 when ``None``) in f32 on the
+    parameters' device, as the JAX update's ``jnp.power(b1, t)`` on its
+    traced ``t``."""
 
     def __init__(self, learning_rate: float = 1e-3, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
@@ -116,10 +123,12 @@ class Adam(OptimMethod):
 
     @torch.no_grad()
     def update(self, grads, opt_state, params, lr, step=None):
-        t = np.float32(1.0 if step is None else step)
+        device = next(iter(grads.values())).device
+        t = torch.as_tensor(1 if step is None else step, device=device
+                            ).to(torch.float32)
         b1, b2 = self.beta1, self.beta2
-        c1 = float(np.float32(1.0) - np.float32(b1) ** t)
-        c2 = float(np.float32(1.0) - np.float32(b2) ** t)
+        c1 = 1.0 - torch.pow(b1, t)
+        c2 = 1.0 - torch.pow(b2, t)
         new_p, new_m, new_v = {}, {}, {}
         for k, g in grads.items():
             p = params[k]

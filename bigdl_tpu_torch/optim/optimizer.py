@@ -13,23 +13,35 @@ the embedding, LayerNorm's weights and the biases included, is cast to it
 before the model sees it, and the gradient of that cast brings each
 gradient back to f32.  The features are never cast.  The loss is the
 criterion's, in the output's type, then f32.  ``rng`` is the step's
-random seed (an int, or ``None``); a model whose ``forward`` takes
-``rng`` gets it, and its dropout layers draw from streams split off it.
-The gradients are clipped (a constant range, then the global f32 L2
-norm) before the update.
+random seed (an int, a 0-dim int64 tensor, or ``None``); a model whose
+``forward`` takes ``rng`` gets it, and its dropout layers draw from
+streams split off it.  ``step`` and each of ``lrs`` are Python numbers or
+0-dim tensors.  The gradients are clipped (a constant range, then the
+global f32 L2 norm) before the update.
+
+:class:`CompiledTrainStep` is that step as the JAX optimizer runs it,
+``jax.jit(make_train_step(...), donate_argnums=(0, 1, 2))``
+(bigdl_tpu/optim/optimizer.py:706-715): one CUDA graph per batch shape
+(``utils/graphs.py``), with ``step``, the learning rates and ``rng`` in
+device scalars filled before each replay and the three trees donated:
+they are the graph's static inputs, and the captured step writes the new
+trees into them at its end.  On the CPU the same donated step runs
+eagerly.
 
 :class:`Optimizer` is the fluent configuration and :class:`LocalOptimizer` the
 synchronous loop of the JAX package (its ``BIGDL_TPU_SYNC_LOOP=1``
 path): each iteration places a batch on the device (``data``), runs the
-step with the seed ``split_rng(7, neval)`` (as ``fold_in(PRNGKey(7),
-neval)``) and reads the loss back (``compute``), moves the
-epoch/iteration bookkeeping, logs the reference line ``[Epoch e
+compiled step with the seed ``split_rng(7, neval)`` (as
+``fold_in(PRNGKey(7), neval)``) and reads the loss back (``compute``),
+moves the epoch/iteration bookkeeping, logs the reference line ``[Epoch e
 n/N][Iteration i][Wall Clock t] Throughput is X records/second. Loss is
 Y`` every 10 iterations and at each epoch's end, and validates when the
 validation trigger fires (``Loss is Loss(v, n records)``).
-:func:`evaluate` runs validation methods over one pass of a dataset.  The
-async engine, checkpoints and retry, accumulation, numerics and
-telemetry are not ported yet.
+:func:`evaluate` runs validation methods over one pass of a dataset,
+through one compiled forward per model and input shape (JAX's
+``_jit_forward``, optimizer.py:1098-1107).  The async engine,
+checkpoints and retry, accumulation, numerics and telemetry are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -46,17 +58,19 @@ from torch.func import functional_call
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.nn.criterion import Criterion
-from bigdl_tpu_torch.nn.module import split_rng
+from bigdl_tpu_torch.nn.module import _signed, split_rng
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
+from bigdl_tpu_torch.utils import graphs
 from bigdl_tpu_torch.utils.convert import load_jax_variables
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
-__all__ = ["Optimizer", "LocalOptimizer", "evaluate", "make_train_step"]
+__all__ = ["CompiledTrainStep", "Optimizer", "LocalOptimizer", "evaluate",
+           "make_train_step"]
 
 Tensors = Dict[str, torch.Tensor]
 _LOOP_SEED = 7  # the loop's root seed, as PRNGKey(7) in the JAX loop
@@ -94,7 +108,7 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
     takes the gradients of the f32 loss with respect to ``params``, clips
     them (``grad_clip_const`` then ``grad_clip_norm``), and applies each
     method's update with its learning rate from ``lrs`` and the 1-based
-    ``step``.  ``rng`` (an int seed or ``None``) goes to the model's
+    ``step``.  ``rng`` (a seed or ``None``) goes to the model's
     ``forward`` when it takes one, so dropout draws from it.  It returns
     new dicts and the detached f32 loss; the inputs are not changed.
     """
@@ -129,11 +143,96 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
     return train_step
 
 
+class CompiledTrainStep:
+    """``step_fn`` (a :func:`make_train_step` step) compiled per batch
+    shape with its trees donated; called as the step is, it returns the
+    trees it was given, updated in place, and the loss (valid until the
+    next call).  ``step``, ``rng`` and ``lrs`` may be Python numbers:
+    they are written into device scalars that the graphs read.
+    ``graphs`` maps each batch's signature to its compiled call;
+    ``captures`` and ``replays`` add them up.  The graphs share one
+    memory pool: the first batch, the largest, is captured first."""
+
+    def __init__(self, step_fn: Callable):
+        self.step_fn = step_fn
+        self.graphs: Dict[Any, Callable] = {}
+        self._pool = None
+        self._scalars: Optional[tuple] = None
+
+    def _donated(self, params, model_state, opt_states, step, rng, features,
+                 targets, lrs):
+        out = self.step_fn(params, model_state, opt_states, step, rng,
+                           features, targets, lrs)
+        with torch.no_grad():
+            for new, old in zip(graphs.leaves(out[:3]), graphs.leaves(
+                    (params, model_state, opt_states))):
+                old.copy_(new)
+        return out[3]
+
+    def __call__(self, params, model_state, opt_states, step, rng, features,
+                 targets, lrs):
+        device = next(iter(params.values())).device
+        if self._scalars is None:  # (step, rng, [lr, ...]), made once
+            def zero(dtype):
+                return torch.zeros((), dtype=dtype, device=device)
+            self._scalars = (zero(torch.int64), zero(torch.int64),
+                             [zero(torch.float32) for _ in lrs])
+        step_t, rng_t, lrs_t = self._scalars
+        with torch.no_grad():  # fills: no host-device copy, no wait
+            step_t.fill_(step)
+            for t, lr in zip(lrs_t, lrs):
+                t.fill_(lr)
+            if rng is None:
+                rng_t = None
+            else:
+                rng_t.fill_(rng if torch.is_tensor(rng) else _signed(rng))
+        args = (params, model_state, opt_states, step_t, rng_t, features,
+                targets, lrs_t)
+        key = graphs.signature((features, targets, rng is None))
+        fn = self.graphs.get(key)
+        if fn is None:
+            if device.type == "cuda" and self._pool is None:
+                self._pool = graphs.new_pool()
+            fn = self.graphs[key] = graphs.compile(
+                self._donated, args[:5] + graphs.clone((features, targets))
+                + (lrs_t,), self._pool)
+        loss = fn(*args)
+        return params, model_state, opt_states, loss
+
+    @property
+    def captures(self) -> int:
+        return sum(getattr(g, "captures", 0) for g in self.graphs.values())
+
+    @property
+    def replays(self) -> int:
+        return sum(getattr(g, "replays", 0) for g in self.graphs.values())
+
+
 def _place(a, device):
     """A batch's numpy array (or list of them) as tensors on ``device``."""
     if isinstance(a, (list, tuple)):
         return [_place(v, device) for v in a]
     return torch.as_tensor(np.asarray(a)).to(device)
+
+
+def _eval_forward(model: torch.nn.Module, params: Tensors,
+                  model_state: Tensors, x):
+    """``model``'s forward with ``params`` and ``model_state`` swapped in,
+    compiled once per signature of the arguments and cached on the model
+    (JAX's ``_jit_forward``).  On the card each graph has static inputs
+    of its own, into which a call copies the arguments; its output is
+    valid until the next call."""
+    cache = model.__dict__.get("_compiled_eval")
+    if cache is None:
+        cache = model._compiled_eval = graphs.Cache()
+    args = (params, model_state, x)
+    key = graphs.signature(args)
+    fwd = cache.get(key)
+    if fwd is None:
+        def forward(p, s, xx):
+            return functional_call(model, {**p, **s}, (xx,))
+        fwd = cache[key] = graphs.compile(forward, graphs.clone(args))
+    return fwd(*args)
 
 
 @torch.no_grad()
@@ -142,15 +241,16 @@ def evaluate(model: torch.nn.Module, params: Tensors, model_state: Tensors,
              ) -> List[Tuple[ValidationMethod, Optional[ValidationResult]]]:
     """Run ``methods`` over one pass of ``dataset`` with ``params`` and
     ``model_state`` swapped into ``model`` in evaluation mode (reference
-    Evaluator.scala:40-100; optimizer.py:1110-1137).  The parameters are
-    used as given (the loop's f32 masters).  Returns ``[(method, folded
-    result)]``; a result is ``None`` when the dataset had no batch."""
+    Evaluator.scala:40-100; optimizer.py:1110-1137), one compiled forward
+    per input shape.  The parameters are used as given (the loop's f32
+    masters).  Returns ``[(method, folded result)]``; a result is
+    ``None`` when the dataset had no batch."""
     device = next(iter(params.values())).device
     model.eval()
     totals: List[Optional[ValidationResult]] = [None] * len(methods)
     for batch in dataset.data(train=False):
-        out = functional_call(model, {**params, **model_state},
-                              (_place(batch.get_input(), device),))
+        out = _eval_forward(model, params, model_state,
+                            _place(batch.get_input(), device))
         for i, m in enumerate(methods):
             r = m(out, batch.get_target())
             totals[i] = r if totals[i] is None else totals[i] + r
@@ -231,6 +331,12 @@ class Optimizer:
     def optimize(self) -> torch.nn.Module:
         raise NotImplementedError
 
+    def _build_step_fn(self, model: torch.nn.Module) -> CompiledTrainStep:
+        """The compiled, donated train step (optimizer.py:706-715)."""
+        return CompiledTrainStep(make_train_step(
+            model, self.criterion, self.optim_methods, self.grad_clip_const,
+            self.grad_clip_norm, self.compute_dtype))
+
     @staticmethod
     def apply(model, dataset, criterion, end_trigger=None, batch_size=None,
               device: DeviceLike = None) -> "LocalOptimizer":
@@ -245,7 +351,9 @@ class Optimizer:
 class LocalOptimizer(Optimizer):
     """Single-device synchronous training loop (reference
     LocalOptimizer.scala; bigdl_tpu/optim/optimizer.py:381-527 with
-    ``BIGDL_TPU_SYNC_LOOP=1``)."""
+    ``BIGDL_TPU_SYNC_LOOP=1``).  After ``optimize()``, ``train_step`` is
+    the :class:`CompiledTrainStep` it ran: on the card its ``captures``
+    count the batch shapes and its ``replays`` the iterations."""
 
     def optimize(self) -> torch.nn.Module:
         model = self.model.to(self.device)
@@ -256,9 +364,7 @@ class LocalOptimizer(Optimizer):
                        for k, b in model.named_buffers()}
         opt_states = {name: m.init_state(params)
                       for name, m in self.optim_methods.items()}
-        step_fn = make_train_step(model, self.criterion, self.optim_methods,
-                                  self.grad_clip_const, self.grad_clip_norm,
-                                  self.compute_dtype)
+        step_fn = self.train_step = self._build_step_fn(model)
         loop_state: Dict[str, Any] = {
             "epoch": 0, "neval": 0, "loss": float("nan"),
             "score": float("-inf"), "records_processed": 0,

@@ -33,6 +33,7 @@ import torch
 
 from bigdl_tpu_torch.serving.engine import ServingEngine
 from bigdl_tpu_torch.serving.warmup import build_forward
+from bigdl_tpu_torch.utils import graphs
 from bigdl_tpu_torch.utils.serialization import dumps_pytree, loads_pytree
 
 __all__ = ["PredictionService"]
@@ -76,6 +77,13 @@ class PredictionService:
             **engine_kwargs)
         self.model = self.engine.model
         self._forward = build_forward(self.model)
+        # one compiled forward per input structure and shapes (the JAX
+        # service's jitted _pytree_fwd), in a pool of their own, replayed
+        # and read back one call at a time
+        self._pytree_fwd: dict = {}
+        self._pytree_pool = (graphs.new_pool()
+                             if self.engine.device.type == "cuda" else None)
+        self._pytree_lock = threading.Lock()
 
     @property
     def metrics(self):
@@ -120,16 +128,22 @@ class PredictionService:
 
     def _predict_pytree(self, x):
         """General-activity path: a multi-input model (tables, tuples)
-        runs one forward over the whole tree, unbucketed."""
+        runs one compiled forward over the whole tree, unbucketed, one
+        per signature of the tree."""
         eng = self.engine
 
         def to_device(a):
             t = torch.from_numpy(np.ascontiguousarray(a)).to(eng.device)
             return t.to(eng.input_dtype) if t.is_floating_point() else t
 
-        with self._sem:
-            y = self._forward(_tree_map(to_device, x))
-        return _tree_map(lambda t: t.float().cpu().numpy(), y)
+        xt = _tree_map(to_device, x)
+        key = graphs.signature(xt)
+        with self._sem, self._pytree_lock:
+            fwd = self._pytree_fwd.get(key)
+            if fwd is None:
+                fwd = self._pytree_fwd[key] = graphs.compile(
+                    self._forward, (graphs.clone(xt),), self._pytree_pool)
+            return _tree_map(lambda t: t.float().cpu().numpy(), fwd(xt))
 
     @staticmethod
     def encode_request(x) -> bytes:

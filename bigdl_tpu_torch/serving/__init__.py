@@ -5,9 +5,9 @@ from bigdl_tpu_torch.serving.engine import (DeadlineExceededError,
                                             QueueFullError, ServingEngine,
                                             ServingError, ServingFuture)
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
-from bigdl_tpu_torch.serving.warmup import build_forward
+from bigdl_tpu_torch.serving.warmup import build_forward, compile_bucket
 
 __all__ = ["Bucket", "BucketGrid", "DeadlineExceededError",
            "EngineClosedError", "QueueFullError", "ServingEngine",
            "ServingError", "ServingFuture", "ServingMetrics",
-           "build_forward"]
+           "build_forward", "compile_bucket"]

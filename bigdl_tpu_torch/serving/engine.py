@@ -2,14 +2,20 @@
 (counterpart of bigdl_tpu/serving/engine.py:142-528).
 
 * Requests (float32 numpy samples, no batch dim) are padded onto a
-  :class:`~bigdl_tpu_torch.serving.bucketing.BucketGrid`; ``warmup()``
-  runs one zero batch per declared bucket, which builds the kernels and
-  warms cuDNN, so steady-state traffic never waits on a first sight.
+  :class:`~bigdl_tpu_torch.serving.bucketing.BucketGrid`.  Each bucket's
+  forward is compiled once (``serving/warmup.py`` ``compile_bucket``):
+  on the card a CUDA graph, all of them in one memory pool, so a batch
+  is one replay; on the CPU the eager call.  ``warmup()`` compiles every
+  declared bucket, the largest first, so steady-state traffic never
+  waits on a compile; ``metrics.recompiles`` counts the compiles (the
+  declared buckets after warmup; growth is a bucket the grid missed,
+  compiled on the request path).
 * A dispatcher thread groups queued requests by bucket, pads them,
   copies the batch to the device, casts it to ``input_dtype`` there and
-  enqueues the forward without waiting; a drain thread copies results
-  to the host, crops them and resolves the futures.  At most
-  ``pipeline_depth`` batches are in flight.
+  enqueues the forward and a copy of its output without waiting (the
+  next replay overwrites the graph's output buffer); a drain thread
+  copies results to the host, crops them and resolves the futures.  At
+  most ``pipeline_depth`` batches are in flight.
 * Admission control: a bounded queue with fast :class:`QueueFullError`,
   per-request deadlines checked before dispatch
   (:class:`DeadlineExceededError`), per-request exception delivery, and a
@@ -32,7 +38,8 @@ import torch
 from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.serving.bucketing import Bucket, BucketGrid
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
-from bigdl_tpu_torch.serving.warmup import build_forward
+from bigdl_tpu_torch.serving.warmup import build_forward, compile_bucket
+from bigdl_tpu_torch.utils import graphs
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
 
@@ -157,8 +164,12 @@ class ServingEngine:
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.input_dtype = input_dtype
         self._forward = build_forward(self.model)
-        self._seen_buckets: set = set()
-        self._first_sight_lock = threading.Lock()
+        self._compiled: dict = {}  # (batch, dims) -> compiled forward
+        self._pool = (graphs.new_pool() if self.device.type == "cuda"
+                      else None)
+        # compiles, replays and the copies of their outputs: one thread
+        # at a time, since the graphs share their memory pool
+        self._run_lock = threading.Lock()
 
         self._rq: "queue.Queue" = queue.Queue(maxsize=max(1, max_queue))
         self._fly: "queue.Queue" = queue.Queue(maxsize=max(1, pipeline_depth))
@@ -186,35 +197,48 @@ class ServingEngine:
     def declared_buckets(self) -> Tuple[Bucket, ...]:
         return tuple(self.grid.declared_buckets())
 
-    def warmup(self) -> int:
-        """Run one zero batch per declared bucket; returns how many
-        buckets were seen for the first time (0 on a re-warm)."""
-        before = self.metrics.first_sights
-        for bucket in self.grid.declared_buckets():
-            self._ensure_bucket(bucket.batch, bucket.dims)
-        return self.metrics.first_sights - before
+    @property
+    def recompiles(self) -> int:
+        return self.metrics.recompiles
 
-    def _ensure_bucket(self, batch: int, dims: Tuple[int, ...]):
+    def warmup(self) -> int:
+        """Compile every declared bucket, the largest first (its graph
+        sets the shared pool's size); returns how many compiles ran (0
+        on a re-warm)."""
+        before = self.metrics.recompiles
+        for bucket in sorted(self.grid.declared_buckets(), reverse=True,
+                             key=lambda b: b.batch * int(np.prod(b.dims))):
+            with self._run_lock:
+                self._ensure_bucket(bucket.batch, bucket.dims)
+        return self.metrics.recompiles - before
+
+    def _ensure_bucket(self, batch: int, dims: Tuple[int, ...]) -> Callable:
+        """The bucket's compiled forward, compiled and counted at its
+        first sight.  Called with ``_run_lock`` held."""
         key = (batch, tuple(dims))
-        if key in self._seen_buckets:
-            return
-        with self._first_sight_lock:
-            if key in self._seen_buckets:
-                return
-            self._forward(self._to_device(
-                np.zeros((batch,) + tuple(dims), np.float32))).cpu()
-            self.metrics.record_first_sight()
-            self._seen_buckets.add(key)
+        fwd = self._compiled.get(key)
+        if fwd is None:
+            t0 = time.perf_counter()
+            fwd = compile_bucket(self._forward, Bucket(*key),
+                                 self.input_dtype, self.device, self._pool)
+            self.metrics.record_recompile(time.perf_counter() - t0)
+            self._compiled[key] = fwd
+        return fwd
 
     def _to_device(self, xp: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(xp, dtype=np.float32))
         return x.to(self.device).to(self.input_dtype)
 
     def _run(self, xp: np.ndarray) -> torch.Tensor:
-        """Enqueue the forward of a padded bucket batch; returns the
-        float32 output on the device (not yet waited for)."""
-        self._ensure_bucket(xp.shape[0], tuple(xp.shape[1:]))
-        return self._forward(self._to_device(xp)).float()
+        """Enqueue the forward of a padded bucket batch; returns its
+        float32 output on the device (not yet waited for) in a tensor of
+        its own: the compiled forward's output buffer belongs to the
+        graph, and the next replay writes it while the drain thread may
+        not have read this batch yet."""
+        x = self._to_device(xp)
+        with self._run_lock:
+            y = self._ensure_bucket(xp.shape[0], tuple(xp.shape[1:]))(x)
+            return y.to(torch.float32, copy=True)
 
     # ------------------------------------------------------------------
     # client API

@@ -1,7 +1,8 @@
 """Serving metrics (the subset of bigdl_tpu/serving/metrics.py that the
 engine records): request latency percentiles, throughput, batch
-occupancy, queue depth, rejected and expired requests, the bucket
-first-sight counter, and the canonical ``log_line()``.
+occupancy, queue depth, rejected and expired requests, the compile
+counter ``recompiles`` (bigdl_tpu/serving/metrics.py:27) with its
+seconds, and the canonical ``log_line()``.
 
 The JAX engine's cost/MFU columns read XLA's ``cost_analysis`` and have
 no counterpart here yet.
@@ -27,7 +28,8 @@ class ServingMetrics:
         self._latency = deque(maxlen=window)
         self._occupancy = deque(maxlen=window)
         self._counts = {"completed": 0, "rejected": 0, "expired": 0,
-                        "batches": 0, "first_sights": 0}
+                        "batches": 0, "recompiles": 0}
+        self._recompile_s = 0.0
         self._queue_depth = 0
 
     # -- recording (engine-internal) -----------------------------------
@@ -44,9 +46,12 @@ class ServingMetrics:
             self._occupancy.append(n_real / max(1, bucket_batch))
             self._counts["batches"] += 1
 
-    def record_first_sight(self):
-        """A bucket's first forward (kernel builds, cuDNN warm-up)."""
-        self._inc("first_sights")
+    def record_recompile(self, seconds: float):
+        """A bucket's forward compiled: on the card a CUDA graph captured
+        (its warm-up included), on the CPU the bucket's first sight."""
+        with self._lock:
+            self._counts["recompiles"] += 1
+            self._recompile_s += seconds
 
     def inc_completed(self, n: int = 1):
         self._inc("completed", n)
@@ -80,10 +85,21 @@ class ServingMetrics:
         return self._counts["batches"]
 
     @property
+    def recompiles(self) -> int:
+        """Compiled forwards so far: the declared buckets right after
+        warmup; any growth is a bucket the grid missed, compiled on the
+        request path."""
+        return self._counts["recompiles"]
+
+    @property
+    def recompile_seconds(self) -> float:
+        return self._recompile_s
+
+    @property
     def first_sights(self) -> int:
-        """Buckets seen for the first time (== declared buckets right
-        after warmup; growth is a learned bucket)."""
-        return self._counts["first_sights"]
+        """Buckets seen for the first time: each is compiled once, so
+        this is :attr:`recompiles`."""
+        return self.recompiles
 
     @property
     def queue_depth(self) -> int:
@@ -120,7 +136,8 @@ class ServingMetrics:
             "p99_ms": self.latency_ms(99),
             "occupancy": self.occupancy(),
             "queue_depth": self.queue_depth,
-            "first_sights": self.first_sights,
+            "recompiles": self.recompiles,
+            "recompile_seconds": self.recompile_seconds,
             "req_per_sec": self.throughput(),
         }
 
@@ -131,5 +148,5 @@ class ServingMetrics:
                 f"p95={s['p95_ms']:.2f}ms p99={s['p99_ms']:.2f}ms | "
                 f"occ={100 * s['occupancy']:.0f}% | "
                 f"qdepth={s['queue_depth']} | "
-                f"first_sights={s['first_sights']} | "
+                f"recompiles={s['recompiles']} | "
                 f"{s['req_per_sec']:.1f} req/s")

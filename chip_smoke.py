@@ -33,8 +33,12 @@ Phases:
    random weights from --seed and randomised BatchNorm, carried in
    through load_jax_variables, served by ServingEngine in bf16 to 4
    client threads; every answer is held against a plain-path forward of
-   the same model on the card, and the launch counters must rise by 36
-   (fused_matmul_bn) and 13 (fused_conv3x3_bn) per forward batch;
+   the same model on the card.  The engine's warmup captures one CUDA
+   graph per declared bucket (batch 1, 8 and 32): each capture must
+   launch 36 fused_matmul_bn and 13 fused_conv3x3_bn, the launch
+   counters must rise by exactly that for each capture and its warm-up
+   calls and by nothing while serving, and every batch must be one
+   replay with no compile after warmup;
 4. train: the same model trained with make_train_step (SGD 0.1, momentum
    0.9, bf16 compute and features, as bench.py's step): exact launch
    counts per step with remat on and off, one step at batch 32 held
@@ -47,7 +51,9 @@ Phases:
    remat on and off (and where the step's device time goes, from
    torch.profiler), and the user entry point
    Optimizer.apply(...).optimize() for 5 iterations on 160 images, which
-   prints the reference log lines and must end with a finite loss;
+   prints the reference log lines and must end with a finite loss, in
+   one captured step (one capture, five replays, the step's launches
+   once per capture and warm-up call);
 5. lm: the flash-attention kernel held against its plain version (O and
    lse) at the LM's (8, 8, 512, 32) and (8, 8, 4096, 32) causal shapes
    as MultiHeadAttention gives them, the FLASH shape, a ragged T, KV
@@ -60,8 +66,10 @@ Phases:
    held against the plain attention path (use_flash=False), exactly 4
    flash launches per forward, ms per step, tokens/s and peak memory at
    batch 8 and T 512 and 4096 with a profiler breakdown, and the user
-   entry point transformer_train.main([]), whose loss must fall and whose
-   flash launches must be (iterations + validation batches) x 4;
+   entry point transformer_train.main([]), whose loss must fall, in two
+   compiled calls (the train step and the evaluation forward): 4 flash
+   launches per capture and warm-up call, and a replay per iteration and
+   validation batch;
 6. quant: the int8 kernel held bit for bit against its plain version
    (bf16 and f32 output, each case twice, so a split-K workspace left
    dirty would show) at every shape of one quantized ResNet-50 forward at
@@ -77,11 +85,27 @@ Phases:
    serving, the MLP), the kernel path against the
    plain path in bf16 and f32, the quantization error against the float
    model, save_quantized/load_quantized with every leaf held equal, 512
-   requests from 4 threads through PredictionService plus a few through
-   predict_serialized, each answer held against the same image alone on
-   the plain path, the three forwards of tools/quant_bench.py (ResNet-50 at
-   batch 32 and the large-FC MLP at batch 8, which must launch the kernel
-   3 times) and a profiler breakdown of the dynamic-int8 forward.
+   requests from 4 threads through PredictionService (34 int8 launches
+   per bucket capture and warm-up call, none while serving, a replay per
+   batch) plus a few through predict_serialized, each answer held
+   against the same image alone on the plain path, the three forwards
+   of tools/quant_bench.py (ResNet-50 at batch 32 and the large-FC MLP
+   at batch 8, which must launch the kernel 3 times) and a profiler
+   breakdown of the dynamic-int8 forward;
+7. graphs: every main path compiled (utils/graphs.py: CUDA graphs)
+   against eager, with cuDNN held to deterministic algorithms: the
+   fused and the dynamic-int8 ResNet-50 forwards bit-equal at every
+   declared bucket, each capture's launches and, by torch.profiler, the
+   kernels one replay runs exactly 36 + 13 and 34; 512 requests served
+   eagerly and compiled (images/s, p50, p99), the batch-32 forwards'
+   wall time eager and compiled beside their device time; three
+   ResNet-50 train steps at batch 32 (remat on and off) and three LM
+   steps (dropout 0.1, the loop's seeds) compiled bit-equal to eager in
+   losses, parameters, running statistics and optimizer state, with the
+   kernels of a capture and of a replay exact (the train step's launch
+   counts; 4 flash); dropout masks replayed with two seeds differ and
+   equal the eager masks; ms per step eager and compiled at batch 256
+   (remat on and off) and for the LM at T 512 and 4096.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -156,6 +180,10 @@ STEP_LAUNCHES = {
             "fused_matmul_bn_dgrad": 36, "fused_matmul_bn_wgrad": 36,
             "fused_conv3x3_bn_dgrad": 13}}
 OPT_ITERS = 5      # Optimizer.optimize() iterations at batch 32
+SERVE_BATCHES = (1, 8, 32)  # the engines' declared batch sizes at 224x224
+# launches per forward of the fused and the dynamic-int8 ResNet-50
+FUSED_FWD = {"fused_matmul_bn": 36, "fused_conv3x3_bn": 13}
+INT8_FWD = {"int8_matmul": 34}
 
 
 def fail(msg: str):
@@ -206,6 +234,83 @@ def device_ms(fn, reps=10):
     b.synchronize()
     del graph
     return a.elapsed_time(b) / (ITERS * reps)
+
+
+# the hand-written kernels by the symbol of the one kernel each launch
+# runs (the column-sum, split-sum and reduce passes beside some are not
+# counted); the f32 paths' templates tell the conv from the matmul
+KERNEL_SYMBOLS = (("conv3_dgrad_wgmma", "fused_conv3x3_bn_dgrad"),
+                  ("mm_dgrad_wgmma", "fused_matmul_bn_dgrad"),
+                  ("conv3_wgmma", "fused_conv3x3_bn"),
+                  ("wgrad_wgmma", "fused_matmul_bn_wgrad"),
+                  ("wgrad_kernel<", "fused_matmul_bn_wgrad"),
+                  ("mm_wgmma", "fused_matmul_bn"),
+                  ("flash_fwd_", "flash_attention"),
+                  ("int8_mm_kernel", "int8_matmul"))
+
+
+def kernel_of(name: str):
+    """The wrapper whose launch ran the device kernel ``name``, or None."""
+    name = name.replace("(anonymous namespace)", "").split("(")[0]
+    for sym, wrapper in KERNEL_SYMBOLS:
+        if sym in name:
+            return wrapper
+    conv = "true>" in name
+    if "fused_gemm_bn_kernel" in name:
+        return "fused_conv3x3_bn" if conv else "fused_matmul_bn"
+    if "fused_dgrad_kernel" in name:
+        return "fused_conv3x3_bn_dgrad" if conv else "fused_matmul_bn_dgrad"
+    return None
+
+
+def replay_kernels(fn):
+    """The hand-written kernels one call of ``fn`` (a graph replay) runs
+    on the card, counted by their symbols in a torch.profiler trace, and
+    the device ms of all its kernels and copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    got, device_us = Counter(), 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += evt.device_time_total
+            wrapper = kernel_of(evt.name)
+            if wrapper is not None:
+                got[wrapper] += 1
+    return dict(got), device_us / 1e3
+
+
+def check_graph(what: str, compiled, want: dict, replay) -> dict:
+    """The kernels of one compiled call, exactly: the launches its capture
+    counted on the host and the kernels one replay runs on the card (by
+    profiler) must both be ``want``."""
+    ran, device = replay_kernels(replay)
+    if compiled.launches != want or ran != want:
+        fail(f"{what}: the capture launched {compiled.launches} and a replay "
+             f"ran {ran}; expected {want}")
+    return {"kernels": ran, "replay_device_ms": device}
+
+
+def host_launches(per_capture: dict, captures: int) -> dict:
+    """The launches the host counts for ``captures`` compiles of a call
+    launching ``per_capture``: the warm-up calls and the capture."""
+    from bigdl_tpu_torch.utils import graphs
+
+    return {k: (graphs.WARMUP + 1) * captures * v
+            for k, v in per_capture.items()}
+
+
+def check_steady(what: str, engine, batches: int, replays: int):
+    """After warmup a serving engine compiles nothing more, and serves
+    every batch by one graph replay."""
+    declared = len(engine.declared_buckets)
+    if batches == 0 or engine.recompiles != declared or replays != batches:
+        fail(f"{what}: {engine.recompiles} compiles for {declared} declared "
+             f"buckets, {replays} replays for {batches} batches")
 
 
 def resnet50_calls(batch: int):
@@ -380,7 +485,7 @@ def lm_phase(args):
     from bigdl_tpu_torch.models import transformer_train
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.optim import Adam, make_train_step
-    from bigdl_tpu_torch.utils import load_jax_variables
+    from bigdl_tpu_torch.utils import graphs, load_jax_variables
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -543,7 +648,12 @@ def lm_phase(args):
     n_val = transformer_train._window_dataset(
         valid_ids, LM_BATCH, LM_SEQ).batches_per_epoch()
     epochs = 5  # the driver's --maxEpoch default
-    want = (epochs * n_train + epochs * n_val + n_val) * LM["num_layers"]
+    # two compiled calls (the train step and the evaluation forward, one
+    # batch shape each): each capture launches the kernel once per layer,
+    # and every iteration and validation batch is a replay
+    replays = epochs * n_train + epochs * n_val + n_val
+    want = host_launches({"flash_attention": LM["num_layers"]}, 2)[
+        "flash_attention"]
     losses = []
 
     class Losses(logging.Handler):
@@ -555,20 +665,26 @@ def lm_phase(args):
     grab = Losses()
     logging.getLogger("bigdl_tpu_torch.optim").addHandler(grab)
     fa.reset_launches()
+    graphs.reset_counts()
     t0 = time.perf_counter()
     res = transformer_train.main([])
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = fa.LAUNCHES["flash_attention"]
+    counts = dict(graphs.COUNTS)
     logging.getLogger("bigdl_tpu_torch.optim").removeHandler(grab)
     # "... Loss is 9.2103. compute: ..." (optimizer.py's log line)
     train_losses = [float(m.split("Loss is ")[1].split(". ")[0])
                     for m in losses if m.startswith("[Epoch")]
     val_lines = [m for m in losses if m.startswith("Loss is Loss(")]
-    if launches != want:
+    if launches != want or counts["captures"] != 2 or \
+            counts["replays"] != replays:
         fail(f"transformer_train.main([]) launched the flash kernel "
-             f"{launches} times, expected {want} ((5 x {n_train} "
-             f"iterations + 6 x {n_val} validation batches) x 4)")
+             f"{launches} times in {counts['captures']} captures and "
+             f"{counts['replays']} replays, expected {want} in 2 captures "
+             f"(the train step and the evaluation forward; "
+             f"{graphs.WARMUP + 1} calls each) and {replays} replays (5 x "
+             f"{n_train} iterations + 6 x {n_val} validation batches)")
     if not (math.isfinite(res["val_loss"]) and train_losses
             and res["val_loss"] < train_losses[0]
             and len(val_lines) == epochs):
@@ -578,10 +694,13 @@ def lm_phase(args):
     print(f"transformer_train.main([]): {epochs} epochs of {n_train} "
           f"iterations in {main_s:.1f} s, first loss {train_losses[0]}, "
           f"validation {val_lines[0]} -> {val_lines[-1]}, final "
-          f"{res}; flash launches {launches}", flush=True)
+          f"{res}; flash launches {launches} in {counts['captures']} "
+          f"captures ({counts['capture_seconds']:.2f} s), "
+          f"{counts['replays']} replays", flush=True)
     return {"parity": parity, "speed": speed, "breakdown": breakdown,
             "step_top_kernels": top, "main": {
                 "seconds": main_s, "result": res, "launches": launches,
+                "graphs": counts,
                 "train_losses": train_losses, "validation": val_lines}}
 
 
@@ -759,7 +878,7 @@ def quant_phase(args, out):
     from bigdl_tpu_torch.models import ResNet50
     from bigdl_tpu_torch.ops import int8_matmul as im
     from bigdl_tpu_torch.optim import PredictionService
-    from bigdl_tpu_torch.utils import (export_variables, flatten,
+    from bigdl_tpu_torch.utils import (export_variables, flatten, graphs,
                                        load_jax_variables, random_variables)
 
     dev = torch.device("cuda")
@@ -866,8 +985,10 @@ def quant_phase(args, out):
     if nbytes["int8_params"] >= 0.3 * nbytes["f32_params"]:
         fail(f"quantized parameters {nbytes}: not < 0.3 x the f32 bytes")
     res["bytes"] = nbytes
+    im.reset_launches()
+    graphs.reset_counts()
     svc = PredictionService(qmodel2, qvars2, buckets=[(224, 224, 3)],
-                            batch_sizes=(1, 8, 32), input_dtype=bf16)
+                            batch_sizes=SERVE_BATCHES, input_dtype=bf16)
     answers = [None] * REQUESTS
     errors = []
     n_clients = 4
@@ -884,8 +1005,6 @@ def quant_phase(args, out):
         except Exception as e:  # reported below, fails the run
             errors.append(repr(e))
 
-    im.reset_launches()
-    batches0 = svc.metrics.batches
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(n_clients)]
@@ -896,7 +1015,10 @@ def quant_phase(args, out):
     wall = time.perf_counter() - t0
     serve_launches = im.LAUNCHES["int8_matmul"]
     no_copies("quantized serving")
-    batches = svc.metrics.batches - batches0
+    batches = svc.metrics.batches
+    check_steady("quantized serve", svc.engine, batches,
+                 graphs.COUNTS["replays"])
+    captures = svc.engine.recompiles
     p50, p99 = svc.metrics.latency_ms(50), svc.metrics.latency_ms(99)
     log_line = svc.engine.log_line()
     ser = svc.decode_response(svc.predict_serialized(
@@ -904,9 +1026,12 @@ def quant_phase(args, out):
     svc.close()
     if errors:
         fail(f"PredictionService client errors: {errors[:3]}")
-    if batches == 0 or serve_launches != 34 * batches:
-        fail(f"served {batches} batches with {serve_launches} int8 launches,"
-             " expected 34 per batch")
+    if serve_launches != host_launches(INT8_FWD, captures)["int8_matmul"] \
+            or any(g.launches != INT8_FWD
+                   for g in svc.engine._compiled.values()):
+        fail(f"served {batches} batches with {serve_launches} int8 launches "
+             f"over {captures} captures, expected {INT8_FWD} per capture "
+             "and none per replay")
     got = np.stack(answers)
     if got.shape != (REQUESTS, 1000) or not np.isfinite(got).all() or \
             ser.shape != (4, 1000) or not np.isfinite(ser).all():
@@ -934,7 +1059,8 @@ def quant_phase(args, out):
           f"{batches} batches through PredictionService after "
           f"save_quantized/load_quantized, {REQUESTS / wall:.1f} images/s, "
           f"p50 {p50:.2f} ms, p99 {p99:.2f} ms; int8 launches "
-          f"{serve_launches}; vs each image alone on the plain path: "
+          f"{serve_launches} over {captures} captures; vs each image alone "
+          f"on the plain path: "
           f"relative L2 median {spread.median().item():.4g}, max "
           f"{spread.max().item():.4g}, top-1 agreement {top1:.3f}; "
           f"predict_serialized max {ser_spread.max().item():.4g}; parameters "
@@ -1035,6 +1161,352 @@ def quant_phase(args, out):
     print(f"dynamic-int8 ResNet-50 forward at batch {QUANT_BATCH}, device ms "
           f"by part (torch.profiler, {parts['total']:.3f} ms in all): "
           f"{res['breakdown']}", flush=True)
+    return res
+
+
+# ----------------------------------------------------------- graphs phase
+GRAPH_STEPS = 3   # compiled train steps held bit-equal to eager ones
+TIMED_STEPS = 10  # steps timed per mode at the throughput shapes
+
+
+def host_ms(fn, reps=20):
+    """Wall ms per call of ``fn`` on the host, each call waited for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def serve_images(engine, images, n_clients=4):
+    """``images`` submitted to ``engine`` by ``n_clients`` threads;
+    returns the answers and the seconds it took."""
+    import numpy as np
+
+    answers = [None] * len(images)
+    errors = []
+
+    def client(idx):
+        try:
+            futs = [(i, engine.submit(images[i]))
+                    for i in range(idx, len(images), n_clients)]
+            for i, f in futs:
+                answers[i] = f.result(300)
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"client errors: {errors[:3]}")
+    return np.stack(answers), wall
+
+
+def step_ms(step, trees, first, rng, x, y, lrs):
+    """ms per step over TIMED_STEPS steps between CUDA events (after
+    three untimed ones), the host's time to enqueue one, peak memory and
+    the device time of one more step; ``rng(i)`` is step i's seed."""
+    import torch
+
+    for i in range(3):
+        *trees, loss = step(*trees, first + i, rng(i), x, y, lrs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t_host = time.perf_counter()
+    for i in range(3, 3 + TIMED_STEPS):
+        *trees, loss = step(*trees, first + i, rng(i), x, y, lrs)
+    host_ms = (time.perf_counter() - t_host) * 1e3 / TIMED_STEPS
+    b.record()
+    b.synchronize()
+    if not math.isfinite(loss.item()):
+        fail("non-finite loss in a timed train step")
+    # a graph's memory is reserved for it at capture, not allocated per
+    # replay: the reserved peak compares the two modes
+    r = {"ms_per_step": a.elapsed_time(b) / TIMED_STEPS,
+         "host_enqueue_ms": host_ms,
+         "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    # the device's share: one more step under the profiler
+    _, r["device_ms"] = replay_kernels(
+        lambda: step(*trees, first + 13, rng(13), x, y, lrs))
+    return r
+
+
+def same_steps(what, step, compiled, fresh, seeds, x, y, lrs):
+    """GRAPH_STEPS steps of ``compiled`` against as many eager ones from
+    the same trees: losses, parameters, running statistics and optimizer
+    state bit for bit.  Returns the compiled trees."""
+    import torch
+
+    from bigdl_tpu_torch.utils import graphs
+
+    eager, comp = fresh(), fresh()
+    le, lc = [], []
+    for i in range(GRAPH_STEPS):
+        *eager, loss = step(*eager, i + 1, seeds(i), x, y, lrs)
+        le.append(loss.item())
+        *comp, loss = compiled(*comp, i + 1, seeds(i), x, y, lrs)
+        lc.append(loss.item())
+    pairs = list(zip(graphs.leaves(eager), graphs.leaves(comp)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    worst = max(((a.float() - b.float()).abs().max().item()
+                 for a, b in pairs if a.numel()), default=0.0)
+    print(f"graphs: {what}, {GRAPH_STEPS} compiled steps vs eager: losses "
+          f"{lc} vs {le}; {differ} of {len(pairs)} tree leaves differ "
+          f"(max |d| {worst:.3g})", flush=True)
+    if le != lc or differ:
+        fail(f"{what}: compiled steps are not bit-equal to eager ones")
+    return comp
+
+
+def graphs_phase(args):
+    """Phase 7: every main path compiled (CUDA graphs) against eager on
+    the card: answers and steps bit for bit, dropout masks that follow
+    the seed, the kernels of each capture and replay, no compile in
+    steady state, and wall times eager and compiled.  Returns the
+    results."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn.dropout import keep_mask
+    from bigdl_tpu_torch.optim import (SGD, Adam, CompiledTrainStep,
+                                       make_train_step)
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.utils import (export_variables, graphs,
+                                       load_jax_variables, random_variables)
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    # eager and replayed calls must run the same library algorithms
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    rs = np.random.RandomState(args.seed + 8)
+    images = rs.randn(REQUESTS, 224, 224, 3).astype(np.float32)
+
+    # 7.1 the fused and the dynamic-int8 ResNet-50 forwards, served
+    # eagerly and compiled, one graph per declared bucket
+    fused = ResNet50(1000, stem="space_to_depth", fused=True)
+    load_jax_variables(fused, random_variables(export_variables(fused),
+                                               args.seed))
+    unfused = ResNet50(1000)
+    uv = random_variables(export_variables(unfused), args.seed)
+    load_jax_variables(unfused, uv)
+    quantized, _ = nn.quantize(unfused, uv)
+    del unfused
+    for name, model, per_capture in (("fused", fused, FUSED_FWD),
+                                     ("dynamic int8", quantized, INT8_FWD)):
+        kw = dict(buckets=[(224, 224, 3)], batch_sizes=SERVE_BATCHES,
+                  input_dtype=bf16)
+        eager = ServingEngine(model, warmup=False, **kw)
+        for b in eager.declared_buckets:  # each bucket's forward eager
+            eager._compiled[(b.batch, b.dims)] = eager._forward
+        _, e_wall = serve_images(eager, images)
+        eager.close()
+        graphs.reset_counts()
+        engine = ServingEngine(model, **kw)
+        _, c_wall = serve_images(engine, images)
+        check_steady(f"graphs, {name} serve", engine, engine.metrics.batches,
+                     graphs.COUNTS["replays"])
+        r = {"served_images_per_s": {"eager": REQUESTS / e_wall,
+                                     "compiled": REQUESTS / c_wall},
+             "p50_ms": {"eager": eager.metrics.latency_ms(50),
+                        "compiled": engine.metrics.latency_ms(50)},
+             "p99_ms": {"eager": eager.metrics.latency_ms(99),
+                        "compiled": engine.metrics.latency_ms(99)},
+             "captures": engine.recompiles,
+             "capture_seconds": engine.metrics.recompile_seconds,
+             "replays": graphs.COUNTS["replays"], "buckets": {}}
+        for (batch, dims), g in sorted(engine._compiled.items()):
+            xb = torch.randn((batch,) + dims, generator=gen,
+                             device=dev).to(bf16)
+            yg = g(xb).clone()
+            if not torch.equal(yg, engine._forward(xb)):
+                fail(f"{name} forward at batch {batch}: the replay is not "
+                     "bit-equal to the eager forward")
+            r["buckets"][batch] = check_graph(
+                f"{name} forward at batch {batch}", g, per_capture,
+                lambda: g(xb))
+        g32 = engine._compiled[(32, (224, 224, 3))]
+        x32 = torch.randn((32, 224, 224, 3), generator=gen,
+                          device=dev).to(bf16)
+        r["forward_32"] = {
+            "eager_ms": call_ms(lambda: engine._forward(x32)),
+            "compiled_ms": call_ms(lambda: g32(x32)),
+            "device_ms": device_ms(lambda: engine._forward(x32), reps=1)}
+        # what the dispatcher does per batch of 32 besides the replay:
+        # pad the requests into one array, copy it to the card
+        chunk, dims = list(images[:32]), (224, 224, 3)
+        xp = engine.grid.pad_batch(chunk, dims, 32, np.float32)
+        r["dispatch_32"] = {
+            "pad_ms": host_ms(lambda: engine.grid.pad_batch(
+                chunk, dims, 32, np.float32)),
+            "h2d_ms": host_ms(lambda: engine._to_device(xp))}
+        engine.close()
+        res[name] = r
+        f, sv = r["forward_32"], r["served_images_per_s"]
+        print(f"graphs: {name} ResNet-50, every bucket's replay bit-equal to "
+              f"the eager forward, kernels per capture and per replay "
+              f"{per_capture}; forward at batch 32 eager {f['eager_ms']:.3f}"
+              f" ms, compiled {f['compiled_ms']:.3f} ms, device "
+              f"{f['device_ms']:.3f} ms (the dispatcher pads a batch of 32 "
+              f"in {r['dispatch_32']['pad_ms']:.3f} ms and copies it to the "
+              f"card in {r['dispatch_32']['h2d_ms']:.3f} ms); served "
+              f"{REQUESTS} requests eager "
+              f"{sv['eager']:.1f} images/s (p50 {r['p50_ms']['eager']:.2f}, "
+              f"p99 {r['p99_ms']['eager']:.2f} ms), compiled "
+              f"{sv['compiled']:.1f} images/s (p50 "
+              f"{r['p50_ms']['compiled']:.2f}, p99 "
+              f"{r['p99_ms']['compiled']:.2f} ms); {r['captures']} captures "
+              f"in {r['capture_seconds']:.2f} s, {r['replays']} replays",
+              flush=True)
+    del fused, quantized, eager, engine, g, g32
+    torch.cuda.empty_cache()
+
+    # 7.2 the ResNet-50 train step (bench.py's: SGD 0.1, momentum 0.9,
+    # bf16): compiled against eager at batch 32, its kernels, then ms per
+    # step at batch 256
+    model = ResNet50(1000, stem="space_to_depth", fused=True).to(dev)
+    load_jax_variables(model, random_variables(export_variables(model),
+                                               args.seed))
+    crit = nn.ClassNLLCriterion(logits=True)
+    step = make_train_step(model, crit, {"__all__": SGD(0.1, momentum=0.9)},
+                           compute_dtype=bf16)
+
+    def fresh():
+        params = {k: p.detach().clone() for k, p in model.named_parameters()}
+        state = {k: b.detach().clone() for k, b in model.named_buffers()}
+        return params, state, {"__all__": SGD(0.1, momentum=0.9)
+                               .init_state(params)}
+
+    def set_remat(on):
+        for blk in model.modules():
+            if isinstance(blk, nn.FusedBottleneck):
+                blk.remat = on
+
+    def no_seed(i):
+        return None
+
+    res["resnet50_step"] = {}
+    for batch in (BATCH, TRAIN_BATCH):
+        x = torch.rand((batch, 224, 224, 3), generator=gen,
+                       device=dev).to(bf16)
+        t = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
+        for remat in (True, False):
+            set_remat(remat)
+            what = f"ResNet-50 step at batch {batch}, remat " + \
+                ("on" if remat else "off")
+            if batch == BATCH:
+                compiled = CompiledTrainStep(step)
+                trees = same_steps(what, step, compiled, fresh, no_seed, x,
+                                   t, [0.1])
+                check_graph(what, next(iter(compiled.graphs.values())),
+                            STEP_LAUNCHES[remat],
+                            lambda: compiled(*trees, 4, None, x, t, [0.1]))
+                del trees, compiled
+                continue
+            r = {}
+            for mode in ("eager", "compiled"):
+                fn = step if mode == "eager" else CompiledTrainStep(step)
+                r[mode] = step_ms(fn, fresh(), 1, no_seed, x, t, [0.1])
+                del fn
+                torch.cuda.empty_cache()
+            r["images_per_s"] = {m: batch / r[m]["ms_per_step"] * 1e3
+                                 for m in ("eager", "compiled")}
+            res["resnet50_step"]["remat_on" if remat else "remat_off"] = r
+            print(f"graphs: {what}: eager {r['eager']['ms_per_step']:.2f} ms "
+                  f"(the host enqueues one in "
+                  f"{r['eager']['host_enqueue_ms']:.2f} ms, device "
+                  f"{r['eager']['device_ms']:.2f} ms), compiled "
+                  f"{r['compiled']['ms_per_step']:.2f} ms (host "
+                  f"{r['compiled']['host_enqueue_ms']:.2f} ms, device "
+                  f"{r['compiled']['device_ms']:.2f} ms); "
+                  f"{r['images_per_s']['eager']:.1f} -> "
+                  f"{r['images_per_s']['compiled']:.1f} images/s; peak "
+                  f"reserved memory "
+                  f"{r['eager']['peak_reserved_bytes'] / 2**30:.2f} / "
+                  f"{r['compiled']['peak_reserved_bytes'] / 2**30:.2f} GiB",
+                  flush=True)
+        del x, t
+    del model, step
+    torch.cuda.empty_cache()
+
+    # 7.3 the LM step (the trainer's: Adam, clipping, bf16, dropout 0.1,
+    # the loop's seeds): compiled against eager, its kernels, dropout
+    # masks from seed tensors, then ms per step at T 512 and 4096
+    lm = nn.Transformer(**LM, dropout=0.1).to(dev)
+    load_jax_variables(lm, lm_variables(lm, args.seed))
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(logits=True))
+    step = make_train_step(lm, crit, {"__all__": Adam(1e-3)},
+                           grad_clip_norm=1.0, compute_dtype=bf16)
+
+    def lm_fresh():
+        params = {k: p.detach().clone() for k, p in lm.named_parameters()}
+        return params, {}, {"__all__": Adam(1e-3).init_state(params)}
+
+    def loop_seed(i):
+        return nn.split_rng(7, i)  # the training loop's seeds
+
+    res["lm_step"] = {}
+    for seq in (LM_SEQ, LM_LONG_SEQ):
+        x, y = (torch.randint(0, LM["vocab_size"], (LM_BATCH, seq),
+                              generator=gen, device=dev) for _ in range(2))
+        if seq == LM_SEQ:
+            what = f"LM step at batch {LM_BATCH}, T {seq}, dropout 0.1"
+            compiled = CompiledTrainStep(step)
+            trees = same_steps(what, step, compiled, lm_fresh, loop_seed, x,
+                               y, [1e-3])
+            check_graph(what, next(iter(compiled.graphs.values())),
+                        {"flash_attention": LM["num_layers"]},
+                        lambda: compiled(*trees, 4, loop_seed(3), x, y,
+                                         [1e-3]))
+            del trees, compiled
+        r = {mode: step_ms(step if mode == "eager" else CompiledTrainStep(
+            step), lm_fresh(), 1, loop_seed, x, y, [1e-3])
+             for mode in ("eager", "compiled")}
+        r["tokens_per_s"] = {m: LM_BATCH * seq / r[m]["ms_per_step"] * 1e3
+                             for m in ("eager", "compiled")}
+        res["lm_step"][seq] = r
+        print(f"graphs: LM step at batch {LM_BATCH}, T {seq}: eager "
+              f"{r['eager']['ms_per_step']:.3f} ms (host "
+              f"{r['eager']['host_enqueue_ms']:.3f} ms, device "
+              f"{r['eager']['device_ms']:.3f} ms), compiled "
+              f"{r['compiled']['ms_per_step']:.3f} ms (host "
+              f"{r['compiled']['host_enqueue_ms']:.3f} ms, device "
+              f"{r['compiled']['device_ms']:.3f} ms); "
+              f"{r['tokens_per_s']['eager']:.0f} -> "
+              f"{r['tokens_per_s']['compiled']:.0f} tokens/s", flush=True)
+        torch.cuda.empty_cache()
+
+    shape = (LM_BATCH, LM_SEQ, LM["hidden_size"])
+    seed = torch.zeros((), dtype=torch.int64, device=dev)
+    masks = graphs.compile(lambda s: keep_mask(shape, 0.1, s, dev), (seed,))
+    seeds = [loop_seed(0), loop_seed(1)]
+    got = [masks(torch.tensor(s, device=dev)).clone() for s in seeds]
+    if torch.equal(got[0], got[1]) or not all(
+            torch.equal(m, keep_mask(shape, 0.1, s, dev))
+            for m, s in zip(got, seeds)):
+        fail("dropout: the replayed masks of two seeds are equal, or differ "
+             "from the eager masks of the same seeds")
+    keep = [m.float().mean().item() for m in got]
+    res["dropout"] = {"keep_rates": keep, "replays": masks.replays}
+    print(f"graphs: dropout masks replayed with two seeds differ and equal "
+          f"the eager masks of those seeds; keep rates {keep}", flush=True)
     return res
 
 
@@ -1414,8 +1886,8 @@ def main():
     from bigdl_tpu_torch.models import ResNet50
     from bigdl_tpu_torch.nn import use_plain_ops
     from bigdl_tpu_torch.serving import ServingEngine
-    from bigdl_tpu_torch.utils import (export_variables, load_jax_variables,
-                                       random_variables)
+    from bigdl_tpu_torch.utils import (export_variables, graphs,
+                                       load_jax_variables, random_variables)
 
     model = ResNet50(1000, stem="space_to_depth", fused=True)
     variables = random_variables(export_variables(model), args.seed)
@@ -1424,8 +1896,12 @@ def main():
                                        fused=True))
     load_jax_variables(reference, variables)
 
+    # the counts run from before the engine's warmup, which compiles
+    # every declared bucket: a capture counts its launches, a replay none
+    fm.reset_launches()
+    graphs.reset_counts()
     engine = ServingEngine(model, buckets=[(224, 224, 3)],
-                           batch_sizes=(1, 8, 32),
+                           batch_sizes=SERVE_BATCHES,
                            input_dtype=torch.bfloat16)
     rs = np.random.RandomState(args.seed + 1)
     images = rs.randn(REQUESTS, 224, 224, 3).astype(np.float32)
@@ -1442,8 +1918,6 @@ def main():
         except Exception as e:  # reported below, fails the run
             errors.append(repr(e))
 
-    fm.reset_launches()
-    batches0 = engine.metrics.batches
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(n_clients)]
@@ -1453,16 +1927,19 @@ def main():
         t.join()
     wall = time.perf_counter() - t0
     serve_launches = dict(fm.LAUNCHES)
-    batches = engine.metrics.batches - batches0
+    batches = engine.metrics.batches
+    check_steady("serve", engine, batches, graphs.COUNTS["replays"])
     log_line = engine.log_line()
     p50, p99 = engine.metrics.latency_ms(50), engine.metrics.latency_ms(99)
     engine.close()
     if errors:
         fail(f"client errors: {errors[:3]}")
-    if serve_launches["fused_matmul_bn"] != 36 * batches or \
-            serve_launches["fused_conv3x3_bn"] != 13 * batches or batches == 0:
-        fail(f"launches {serve_launches} over {batches} forward batches; "
-             "expected 36 and 13 per batch")
+    if {k: v for k, v in serve_launches.items() if v} != host_launches(
+            FUSED_FWD, engine.recompiles) or any(
+            g.launches != FUSED_FWD for g in engine._compiled.values()):
+        fail(f"launches {serve_launches} over {engine.recompiles} captures "
+             f"and {batches} batches; expected {FUSED_FWD} per capture "
+             "and none per replay")
 
     # one batch-32 forward: eager (host included) against the device
     # alone (CUDA graph replay), and the plain path's device time
@@ -1492,8 +1969,9 @@ def main():
         fail(f"served logits differ from the plain path: max |d| "
              f"{serve_err:.4g} > {SERVE_TOL} x {serve_scale:.4g}")
     print(f"serve: {REQUESTS} requests from {n_clients} threads in "
-          f"{batches} batches, {REQUESTS / wall:.1f} images/s, "
-          f"p50 {p50:.2f} ms, p99 {p99:.2f} ms; launches {serve_launches}; "
+          f"{batches} batches (graph replays), {REQUESTS / wall:.1f} "
+          f"images/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms; launches "
+          f"{serve_launches} over {engine.recompiles} captures; "
           f"max |logit - plain| {serve_err:.4g} (max |logit| "
           f"{serve_scale:.4g})", flush=True)
     print(log_line, flush=True)
@@ -1723,6 +2201,7 @@ def main():
     umodel = ResNet50(1000, stem="space_to_depth", fused=True)
     load_jax_variables(umodel, variables)
     fm.reset_launches()
+    graphs.reset_counts()
     t0 = time.perf_counter()
     opt = (Optimizer.apply(umodel, DataSet.from_arrays(feats, labels,
                                                        batch_size=32),
@@ -1737,13 +2216,23 @@ def main():
     print(opt.train_log_line(), flush=True)
     if not math.isfinite(final_loss):
         fail(f"Optimizer.optimize() ended with loss {final_loss}")
-    want = {k: OPT_ITERS * v for k, v in STEP_LAUNCHES[True].items()}
-    if opt_launches != want:
-        fail(f"Optimizer.optimize() launches {opt_launches}, expected "
-             f"{want}")
+    # one compiled step: one capture, then a replay per iteration
+    compiled = opt.train_step
+    if (compiled.captures, compiled.replays) != (1, OPT_ITERS) or \
+            graphs.COUNTS["replays"] != OPT_ITERS:
+        fail(f"Optimizer.optimize(): {compiled.captures} captures and "
+             f"{compiled.replays} replays over {OPT_ITERS} iterations")
+    want = host_launches(STEP_LAUNCHES[True], 1)
+    step_graph = next(iter(compiled.graphs.values()))
+    if opt_launches != want or step_graph.launches != STEP_LAUNCHES[True]:
+        fail(f"Optimizer.optimize() launches {opt_launches} (the capture "
+             f"{step_graph.launches}), expected {want} "
+             f"({STEP_LAUNCHES[True]} per capture, none per replay)")
     print(f"optimize: {OPT_ITERS} iterations at batch 32 (f32 features, "
           f"bf16 parameters: the f32 kernels) in {opt_s:.1f} s, final loss "
-          f"{final_loss:.4f}; launches {opt_launches}", flush=True)
+          f"{final_loss:.4f}; one capture ({step_graph.capture_seconds:.2f}"
+          f" s with its warm-up), {compiled.replays} "
+          f"replays; launches {opt_launches}", flush=True)
     del tmodel, umodel, opt, feats, xt
     torch.cuda.empty_cache()
 
@@ -1753,6 +2242,10 @@ def main():
 
     # ----------------------------------------------------------- 6. quant
     quant = quant_phase(args, out)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 7. graphs
+    graph_res = graphs_phase(args)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -1767,7 +2260,8 @@ def main():
                    "parity": parity,
                    "losses_one_batch": losses,
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
-         "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant},
+         "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
+         "graphs": graph_res},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
