@@ -1,6 +1,7 @@
 """Layers of the port (counterpart of bigdl_tpu.nn): NHWC activations,
 HWIO conv weights, ``(in, out)`` Linear weights, JAX child keys."""
 from bigdl_tpu_torch.nn.activation import ReLU
+from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch
 from bigdl_tpu_torch.nn.attention import (FeedForwardNetwork,
                                           MultiHeadAttention, PositionEncode,
                                           Transformer, TransformerLayer)
@@ -33,8 +34,8 @@ __all__ = [
     "LayerNormalization", "Linear", "LookupTable", "Module", "MsraFiller",
     "MultiHeadAttention", "Node", "PositionEncode", "QuantizedLinear",
     "QuantizedSpatialConvolution", "RandomNormal", "RandomUniform", "ReLU",
-    "Sequential", "SpaceToDepth", "SpatialBatchNormalization",
-    "SpatialConvolution", "SpatialMaxPooling", "TimeDistributedCriterion",
+    "SequenceBeamSearch", "Sequential", "SpaceToDepth",
+    "SpatialBatchNormalization", "SpatialConvolution", "SpatialMaxPooling", "TimeDistributedCriterion",
     "Transformer", "TransformerLayer", "Xavier", "Zeros", "load_quantized",
     "quantize", "quantize_weight", "save_quantized", "split_rng",
     "use_plain_ops",

@@ -16,10 +16,20 @@ hands it ``fold_in(rng, i)``.  Dropout acts on the Transformer's input
 activation, never on the attention probabilities, so the flash kernel
 draws no random numbers.
 
-Cached decoding (``init_cache``, ``apply_cached``, ``prefill``,
-``decode_step``, ``extend``, the paged variants and ``generate``),
-sequence parallelism (``seq_mesh``) and MoE FFNs (``moe_experts``) are not
-ported yet: they raise ``NotImplementedError``.
+Cached decoding (bigdl_tpu/nn/attention.py:134-257, 362-384, 482-672):
+``init_cache``/``apply_cached`` keep a dense per-row KV cache, written
+at each row's ``length`` and read under a causal-by-length mask;
+``init_paged_cache``/``apply_paged`` keep it in pages of a pool through
+a block table (:mod:`bigdl_tpu_torch.ops.paged_kv`), int8 pools taking
+kernel 7 for QK^T where the shapes and the device allow.  The
+Transformer's ``prefill``, ``decode_step``, ``extend``, their paged
+twins and ``generate`` (beam search, cached or re-forward) are
+inference: they and the layers' cached forwards run under
+``torch.no_grad()``, return new caches (a dict per layer, as the JAX
+trees) and leave the ones given unchanged.
+
+Sequence parallelism (``seq_mesh``) and MoE FFNs (``moe_experts``) are
+not ported yet: they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,15 +38,15 @@ from typing import Callable, Optional
 
 import torch
 
+from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch
 from bigdl_tpu_torch.nn.dropout import Dropout, dropout
 from bigdl_tpu_torch.nn.embedding import LookupTable
 from bigdl_tpu_torch.nn.init import RandomNormal, Xavier
 from bigdl_tpu_torch.nn.module import Container, Module, Seed, split_rng
 from bigdl_tpu_torch.nn.norm import LayerNormalization
+from bigdl_tpu_torch.ops import paged_kv
 from bigdl_tpu_torch.ops.attention import dot_product_attention
-
-_DECODE = ("cached decoding comes with the port's decode slice (the LM "
-           "server); this slice trains the LM")
+from bigdl_tpu_torch.utils import graphs
 
 
 def _later(what: str, slice_: str):
@@ -61,6 +71,7 @@ class MultiHeadAttention(Module):
         if seq_mesh is not None:
             _later("sequence-parallel attention (seq_mesh)",
                    "parallelism slice")
+        self.seq_mesh = seq_mesh
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
@@ -95,19 +106,127 @@ class MultiHeadAttention(Module):
         q = self._heads(query, self.wq)
         k = self._heads(kv, self.wk)
         v = self._heads(kv, self.wv)
-        out = dot_product_attention(q, k, v, mask=mask, causal=self.causal,
-                                    use_flash=self.use_flash)
-        n, h, t, d = out.shape
-        out = out.transpose(1, 2).reshape(n, t, h * d)
-        out = out @ self.wo.to(out.dtype)
+        out = self._out(dot_product_attention(
+            q, k, v, mask=mask, causal=self.causal, use_flash=self.use_flash))
         if self.training and self.attn_dropout > 0.0 and rng is not None:
             out = dropout(out, self.attn_dropout, rng)
         return out
 
-    def init_cache(self, *args, **kwargs):
-        raise NotImplementedError(_DECODE)
+    # ------------------------------------------------------------------
+    # cached incremental decoding
+    # ------------------------------------------------------------------
+    def _no_seq_mesh(self):
+        if self.seq_mesh is not None:
+            raise ValueError(
+                "cached decode does not compose with seq_mesh ring "
+                "attention (single-token queries have no ring "
+                "decomposition)")
 
-    apply_cached = init_paged_cache = apply_paged = init_cache
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32):
+        """Dense KV cache ``{"k", "v": (batch, H, max_len, hd), "length":
+        (batch,) int32}``, zeros, on the weights' device.  Every leaf
+        leads with the batch dim (beams tile it, slots pack it); lengths
+        are per row, so rows at different depths share one program."""
+        self._no_seq_mesh()
+        shape = (batch, self.num_heads, max_len, self.head_dim)
+        dev = self.wq.device
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "length": torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev)}
+
+    def _qkv(self, x):
+        return (self._heads(x, self.wq), self._heads(x, self.wk),
+                self._heads(x, self.wv))
+
+    def _out(self, out):
+        n, _, t, _ = out.shape
+        out = out.transpose(1, 2).reshape(n, t, self.hidden_size)
+        return out @ self.wo.to(out.dtype)
+
+    @staticmethod
+    def _causal_by_length(pos, extent: int):
+        """Query at absolute position p sees cache positions 0..p:
+        ``(N, 1, Tq, extent)`` from ``pos`` (N, Tq)."""
+        keys = torch.arange(extent, device=pos.device)
+        return keys[None, None, None, :] <= pos[:, None, :, None]
+
+    @torch.no_grad()
+    def apply_cached(self, x, cache):
+        """Self-attention of ``x`` (N, Tq, D) over the dense cache: its K/V
+        written at each row's ``length``, the query attending under the
+        causal-by-length mask (plain attention, ``use_flash=False``).
+        Returns ``(out, new cache)`` with ``length + Tq``; positions at or
+        past the cache's end drop their write (the caller retires a row
+        before then)."""
+        tq = x.shape[1]
+        q, k, v = self._qkv(x)
+        length = cache["length"]
+        t_max = cache["k"].shape[2]
+        pos = length[:, None] + torch.arange(tq, dtype=length.dtype,
+                                             device=x.device)[None]
+        # cache slot m of row n takes appended position m - length[n],
+        # where that lies in [0, Tq): the JAX one-hot contraction's
+        # result, exactly, as a gather and a select
+        src = (torch.arange(t_max, device=x.device)[None]
+               - length[:, None].to(torch.int64))           # (N, Tmax)
+        hit = ((src >= 0) & (src < tq))[:, None, :, None]
+        src = src.clamp(0, tq - 1)[:, None, :, None]
+
+        def write(old, new):
+            new = new.to(old.dtype)
+            taken = torch.gather(new, 2, src.expand(
+                new.shape[0], new.shape[1], t_max, new.shape[3]))
+            return torch.where(hit, taken, old)
+
+        new_k, new_v = write(cache["k"], k), write(cache["v"], v)
+        out = dot_product_attention(
+            q, new_k.to(q.dtype), new_v.to(q.dtype),
+            mask=self._causal_by_length(pos, t_max), use_flash=False)
+        return self._out(out), {"k": new_k, "v": new_v,
+                                "length": length + tq}
+
+    def init_paged_cache(self, num_pages: int, page_size: int, batch: int,
+                         dtype=torch.float32, quantized: bool = False):
+        """This layer's paged pool (:func:`paged_kv.init_pool`; page 0 is
+        the trash page) on the weights' device."""
+        self._no_seq_mesh()
+        return paged_kv.init_pool(num_pages, page_size, self.num_heads,
+                                  self.head_dim, batch, dtype,
+                                  quantized=quantized, device=self.wq.device)
+
+    @torch.no_grad()
+    def apply_paged(self, x, cache, table, active):
+        """``apply_cached`` over the paged pool: ``x``'s K/V scattered
+        through the block ``table`` (N, M) at each row's ``length``
+        (inactive rows, ``active`` (N,) False, write to the trash page),
+        the whole logical extent gathered back and attended under the
+        same mask.  An int8 pool takes kernel 7 for QK^T where
+        :func:`paged_kv._int8_eligible` says so (then the f32 softmax and
+        PV run plain); otherwise the gather dequantizes and the plain
+        attention runs."""
+        tq = x.shape[1]
+        q, k, v = self._qkv(x)
+        page = cache["k"].shape[1]
+        l_max = table.shape[1] * page
+        length = cache["length"]
+        cache = paged_kv.paged_append(cache, table, active, k, v, page,
+                                      l_max)
+        pos = length[:, None] + torch.arange(tq, dtype=length.dtype,
+                                             device=x.device)[None]
+        mask = self._causal_by_length(pos, l_max)
+        if paged_kv.is_quantized(cache) and paged_kv._int8_eligible(
+                tq, l_max, self.head_dim, x.device):
+            k_q, k_s, v_all = paged_kv.paged_gather_q(cache, table, page)
+            scores = paged_kv.int8_scores(q, k_q, k_s, torch.float32)
+            scores = scores / math.sqrt(self.head_dim)
+            probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+            out = torch.matmul(probs, v_all).to(q.dtype)
+        else:
+            k_all, v_all = paged_kv.paged_gather(cache, table, page, q.dtype)
+            out = dot_product_attention(q, k_all, v_all, mask=mask,
+                                        use_flash=False)
+        return self._out(out), dict(cache, length=length + tq)
 
 
 class FeedForwardNetwork(Module):
@@ -170,10 +289,21 @@ class TransformerLayer(Container):
         x = x + self.mha(self.ln1(x), rng=split_rng(rng, 1))
         return x + self.ffn(self.ln2(x), rng=split_rng(rng, 3))
 
-    def apply_cached(self, *args, **kwargs):
-        raise NotImplementedError(_DECODE)
+    @torch.no_grad()
+    def apply_cached(self, x, cache):
+        """The block in evaluation mode with the attention core on the
+        dense KV cache: ``(out, new cache)``.  LayerNorm and the FFN act
+        per position, so prefill chunks and single tokens share it."""
+        a, cache = self.mha.apply_cached(self.ln1(x), cache)
+        x = x + a
+        return x + self.ffn(self.ln2(x)), cache
 
-    apply_paged = apply_cached
+    @torch.no_grad()
+    def apply_paged(self, x, cache, table, active):
+        """``apply_cached`` with the attention core on the paged pool."""
+        a, cache = self.mha.apply_paged(self.ln1(x), cache, table, active)
+        x = x + a
+        return x + self.ffn(self.ln2(x)), cache
 
 
 class PositionEncode(Module):
@@ -229,17 +359,192 @@ class Transformer(Container):
                 seq_mesh=seq_mesh, name=f"layer{i}"))
         self.add(LayerNormalization(hidden_size, name="ln_f"))
 
-    def forward(self, x, rng: Optional[Seed] = None):
-        h = self.embed(x)
-        h = h * torch.tensor(math.sqrt(self.hidden_size), dtype=h.dtype)
-        h = self.drop(self.pos(h), rng=split_rng(rng, 2))
-        for i, key in enumerate(self._keys[3:-1], start=3):
-            h = self._modules[key](h, rng=split_rng(rng, i))
+    def _scaled(self, h):
+        """Embeddings times ``sqrt(hidden)``, the factor rounded to h's
+        type first (the weak-typed JAX product)."""
+        return h * torch.tensor(math.sqrt(self.hidden_size), dtype=h.dtype)
+
+    def _head(self, h):
+        """Final LayerNorm and the weight-tied LM head."""
         h = self.ln_f(h)
         return h @ self.embed.weight.to(h.dtype).t()
 
-    def init_cache(self, *args, **kwargs):
-        raise NotImplementedError(_DECODE)
+    def forward(self, x, rng: Optional[Seed] = None):
+        h = self._scaled(self.embed(x))
+        h = self.drop(self.pos(h), rng=split_rng(rng, 2))
+        for i, key in enumerate(self._keys[3:-1], start=3):
+            h = self._modules[key](h, rng=split_rng(rng, i))
+        return self._head(h)
 
-    prefill = decode_step = extend = init_paged_cache = extend_paged = \
-        decode_step_paged = generate = init_cache
+    # ------------------------------------------------------------------
+    # cached incremental decoding: prefill once over the prompt, then
+    # O(cache) work per generated token instead of a re-forward
+    # ------------------------------------------------------------------
+    def _layer_keys(self):
+        return [k for k in self._keys if k.startswith("layer")]
+
+    def _layers(self):
+        return [(k, self._modules[k]) for k in self._layer_keys()]
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32):
+        """Per-layer dense ``{k, v, length}`` caches, keyed as the layers."""
+        return {k: layer.mha.init_cache(batch, max_len, dtype)
+                for k, layer in self._layers()}
+
+    def _embed_positions(self, ids, positions):
+        """Embedding, ``sqrt(hidden)`` scaling and the position encoding
+        at absolute ``positions`` (any shape broadcasting with ids)."""
+        emb = self._scaled(self.embed.weight[ids.to(torch.int64)])
+        return emb + PositionEncode.encode_at(positions, self.hidden_size,
+                                              emb.dtype)
+
+    def _run_cached(self, cache, ids, advance=None, paged=None):
+        """Append ``ids`` (N, T) at each row's length through every layer
+        (dense, or paged with ``paged = (table, active)``): the logits
+        (N, T, V) and the new caches, lengths moved by ``advance`` (N,)
+        where given, else by T."""
+        pos0 = cache[self._layer_keys()[0]]["length"]
+        t = ids.shape[1]
+        h = self._embed_positions(ids, pos0[:, None] + torch.arange(
+            t, dtype=pos0.dtype, device=ids.device)[None])
+        new = {}
+        for key, layer in self._layers():
+            if paged is None:
+                h, c = layer.apply_cached(h, cache[key])
+            else:
+                h, c = layer.apply_paged(h, cache[key], *paged)
+            if advance is not None:
+                c = dict(c, length=pos0 + advance.to(torch.int32))
+            new[key] = c
+        return self._head(h), new
+
+    @torch.no_grad()
+    def prefill(self, ids, cache, lengths=None):
+        """The causal forward over padded prompts ``ids`` (N, T) into fresh
+        cache rows (lengths 0).  ``lengths`` (N,): each row's true prompt
+        length (default T); the cache slots past it are stale, and later
+        steps overwrite them before the length mask shows them.  Returns
+        ``(next-token logits (N, V), cache)``, each row's length set to
+        its true length."""
+        n, t = ids.shape
+        if lengths is None:
+            lengths = torch.full((n,), t, dtype=torch.int32,
+                                 device=ids.device)
+        lengths = lengths.to(torch.int32)
+        h = self._embed_positions(ids, torch.arange(t, device=ids.device
+                                                    )[None])
+        new = {}
+        for key, layer in self._layers():
+            h, c = layer.apply_cached(h, cache[key])
+            new[key] = dict(c, length=lengths)
+        logits = self._head(h)
+        last = torch.gather(logits, 1, (lengths.to(torch.int64) - 1)[
+            :, None, None].expand(n, 1, logits.shape[2]))[:, 0]
+        return last, new
+
+    @torch.no_grad()
+    def decode_step(self, cache, ids_t):
+        """One cached step: ``ids_t`` (N,) is the token at each row's
+        length.  Returns ``(logits (N, V), cache)``; every shape is
+        static, so one compiled program serves every position."""
+        logits, cache = self._run_cached(cache, ids_t[:, None])
+        return logits[:, 0], cache
+
+    @torch.no_grad()
+    def extend(self, cache, ids, advance=None):
+        """Append ``ids`` (N, T) at each row's current length and return
+        the logits of every appended position (N, T, V) and the cache:
+        chunked prefill and the speculative verify pass.  On a fresh
+        cache this is ``prefill``.  ``advance`` (N,): how far each row's
+        length moves (default T), so a padded last chunk leaves its
+        padding stale past the length."""
+        return self._run_cached(cache, ids, advance)
+
+    # ------------------------------------------------------------------
+    # paged decode
+    # ------------------------------------------------------------------
+    def init_paged_cache(self, num_pages: int, page_size: int, batch: int,
+                         dtype=torch.float32, kv_dtype=None):
+        """Per-layer paged pools of one block-table geometry;
+        ``kv_dtype="int8"`` (or ``torch.int8``) stores K/V quantized with
+        per-(token, head) f32 scales."""
+        quantized = kv_dtype in ("int8", torch.int8)
+        return {k: layer.mha.init_paged_cache(num_pages, page_size, batch,
+                                              dtype, quantized=quantized)
+                for k, layer in self._layers()}
+
+    @torch.no_grad()
+    def extend_paged(self, cache, table, ids, active, advance=None):
+        """``extend`` over the paged pools: the block ``table`` (N, M)
+        goes to every layer's scatter and gather, ``active`` (N,) gates
+        the writes."""
+        return self._run_cached(cache, ids, advance, paged=(table, active))
+
+    @torch.no_grad()
+    def decode_step_paged(self, cache, table, ids_t, active):
+        """``decode_step`` through the block table."""
+        logits, cache = self.extend_paged(cache, table, ids_t[:, None],
+                                          active)
+        return logits[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # beam search
+    # ------------------------------------------------------------------
+    def _cached_logits(self, ids, i, cache):
+        """The search's step on the cache: the token at step ``i``."""
+        tok = ids.index_select(1, i.to(torch.int64).reshape(1))[:, 0]
+        return self.decode_step(cache, tok)
+
+    def _forward_logits(self, ids, i, cache):
+        """The search's step by re-forward: the causal forward over the
+        whole decoded buffer (later positions cannot reach position
+        ``i``), read at ``i``."""
+        logits = self(ids)
+        return logits.index_select(1, i.to(torch.int64).reshape(1))[:, 0], \
+            cache
+
+    @torch.no_grad()
+    def generate(self, initial_ids, max_decode_length: int,
+                 beam_size: int = 4, alpha: float = 0.6,
+                 eos_id: Optional[int] = None, use_cache: bool = True):
+        """Beam search from one start token per row (reference wires
+        nn/SequenceBeamSearch.scala into its Transformer the same way).
+
+        ``initial_ids`` (B,) int; returns ``(sequences (B, beam, T+1),
+        scores (B, beam))`` best-first.  ``use_cache=True`` threads the
+        per-layer KV caches (in the embedding's type) through the search;
+        ``use_cache=False`` re-runs the causal forward over the decoded
+        prefix each step (the flash kernel on the card), the numerics
+        oracle.  With tensors on the card the search step is one CUDA
+        graph per (batch, beam, length, type, use_cache), captured at the
+        first call and replayed once per step (the JAX search's one
+        ``lax.scan`` program); on the CPU it runs eagerly.  Runs in
+        evaluation mode whatever the module's mode."""
+        if not self.causal:
+            raise ValueError(
+                "generate() needs a causal Transformer: with "
+                "causal=False every step would attend to the padding "
+                "beyond the current position")
+        if use_cache:
+            cache = self.init_cache(initial_ids.shape[0], max_decode_length,
+                                    self.embed.weight.dtype)
+            fn = self._cached_logits
+        else:
+            cache, fn = {}, self._forward_logits
+        search = SequenceBeamSearch(
+            self.vocab_size, beam_size, alpha, max_decode_length,
+            eos_id=self.vocab_size - 1 if eos_id is None else eos_id,
+            symbols_to_logits_fn=fn)
+        # the graphs read the weights where they lie: new weight tensors
+        # (.to(), .half()) need new captures
+        weights = tuple(p.data_ptr() for p in self.parameters())
+        graphs_cache = self.__dict__.get("_generate_graphs")
+        if getattr(graphs_cache, "weights", None) != weights:
+            graphs_cache = self.__dict__["_generate_graphs"] = graphs.Cache()
+            graphs_cache.weights = weights
+        was_training = self.training
+        self.eval()
+        try:
+            return search.search(initial_ids, cache, compiled=graphs_cache)
+        finally:
+            self.train(was_training)

@@ -5,7 +5,8 @@ The flash-attention kernel's functions live in
 the function of that name would hide the module); the int8 kernel's
 ``LAUNCHES`` and ``reset_launches`` in
 :mod:`bigdl_tpu_torch.ops.int8_matmul` for the same reason (the names
-here are the fused kernels')."""
+here are the fused kernels').  The paged KV-cache ops are the module
+:mod:`bigdl_tpu_torch.ops.paged_kv`."""
 from bigdl_tpu_torch.ops.attention import dot_product_attention
 from bigdl_tpu_torch.ops.fused_matmul import (
     LAUNCHES, bn_constants, conv3x3_wgrad, fused_conv3x3_bn,
@@ -15,6 +16,7 @@ from bigdl_tpu_torch.ops.fused_matmul import (
     fused_matmul_bn_wgrad, fused_matmul_bn_wgrad_plain, reset_launches)
 from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_dequant,
                                              int8_matmul_dequant_plain)
+from bigdl_tpu_torch.ops import paged_kv
 
 __all__ = ["LAUNCHES", "bn_constants", "conv3x3_wgrad",
            "dot_product_attention", "fused_conv3x3_bn",
@@ -23,4 +25,4 @@ __all__ = ["LAUNCHES", "bn_constants", "conv3x3_wgrad",
            "fused_matmul_bn_dgrad", "fused_matmul_bn_dgrad_plain",
            "fused_matmul_bn_plain", "fused_matmul_bn_wgrad",
            "fused_matmul_bn_wgrad_plain", "int8_matmul_dequant",
-           "int8_matmul_dequant_plain", "reset_launches"]
+           "int8_matmul_dequant_plain", "paged_kv", "reset_launches"]

@@ -159,16 +159,6 @@ class CompiledTrainStep:
         self._pool = None
         self._scalars: Optional[tuple] = None
 
-    def _donated(self, params, model_state, opt_states, step, rng, features,
-                 targets, lrs):
-        out = self.step_fn(params, model_state, opt_states, step, rng,
-                           features, targets, lrs)
-        with torch.no_grad():
-            for new, old in zip(graphs.leaves(out[:3]), graphs.leaves(
-                    (params, model_state, opt_states))):
-                old.copy_(new)
-        return out[3]
-
     def __call__(self, params, model_state, opt_states, step, rng, features,
                  targets, lrs):
         device = next(iter(params.values())).device
@@ -194,9 +184,9 @@ class CompiledTrainStep:
             if device.type == "cuda" and self._pool is None:
                 self._pool = graphs.new_pool()
             fn = self.graphs[key] = graphs.compile(
-                self._donated, args[:5] + graphs.clone((features, targets))
+                graphs.donate(self.step_fn, (0, 1, 2)), args[:5] + graphs.clone((features, targets))
                 + (lrs_t,), self._pool)
-        loss = fn(*args)
+        loss = fn(*args)[3]
         return params, model_state, opt_states, loss
 
     @property

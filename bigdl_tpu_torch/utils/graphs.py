@@ -37,12 +37,13 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 __all__ = ["COUNTS", "Cache", "Compiled", "WARMUP", "clone", "compile",
-           "leaves", "new_pool", "prepare", "reset_counts", "signature"]
+           "donate", "leaves", "new_pool", "prepare", "reset_counts",
+           "signature"]
 
 #: warm-up calls before a capture (lazy initialisation: cuBLAS handles
 #: and workspaces, cuDNN plans, the kernels' shared-memory attributes,
@@ -94,6 +95,45 @@ def signature(tree: Any):
     if torch.is_tensor(tree):
         return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
     return ("const", tree)
+
+
+def _copy_tree(dst: Any, src: Any):
+    """Copy tree ``src`` into the tensors of tree ``dst`` (dicts by key,
+    lists and tuples by position); other leaves of ``dst`` stay."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_tree(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy_tree(d, s)
+    elif torch.is_tensor(dst):
+        dst.copy_(src)
+
+
+def donate(fn: Callable, out_at: Union[None, int, Tuple[int, ...]] = None
+           ) -> Callable:
+    """``fn`` with its leading arguments donated, the counterpart of
+    ``donate_argnums``: the new value of argument ``a`` is the output at
+    ``out_at[a]`` (an int: of argument 0; ``None``: ``fn``'s whole output
+    is argument 0's).  It is copied into the argument's tensors, and the
+    argument is returned in its place.  Compiled, a call so updates the
+    graph's static inputs, and a caller that passes them back copies
+    nothing."""
+    at = (out_at,) if isinstance(out_at, int) else out_at
+
+    def donated(*args):
+        out = fn(*args)
+        with torch.no_grad():
+            if at is None:
+                _copy_tree(args[0], out)
+                return args[0]
+            out = list(out)
+            for a, j in enumerate(at):
+                _copy_tree(args[a], out[j])
+                out[j] = args[a]
+        return tuple(out)
+
+    return donated
 
 
 class Cache(dict):

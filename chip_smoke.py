@@ -105,7 +105,27 @@ Phases:
    kernels of a capture and of a replay exact (the train step's launch
    counts; 4 flash); dropout masks replayed with two seeds differ and
    equal the eager masks; ms per step eager and compiled at batch 256
-   (remat on and off) and for the LM at T 512 and 4096.
+   (remat on and off) and for the LM at T 512 and 4096;
+8. decode: the same LM (random weights from --seed, dropout 0) in f32
+   and bf16: a prompt batch of 2 x 48 prefilled, then 64 decode_steps,
+   held at every position against the uncached forward (kernel 6, 4
+   launches), and extend in chunks of 16 against it and prefill;
+   generate (batch 2, beam 4, 128 steps) compiled in one capture and 128
+   replays, bit-equal to its eager run; greedy generate cached against
+   use_cache=False (kernel 6 in every step, 4 per replay) up to the
+   first near-tie, and ms per generated token of both at T 128; the
+   server's programs (8 slots of 512, prompts of 5 to 200 in buckets of
+   64 and 256, 64 tokens each): compiled prefill, write_slot and greedy
+   ticks bit-equal to the same programs eager, no capture while serving,
+   ms per tick and tokens/s, the paged tick (f32 pool, PageAllocator)
+   giving the dense grid's tokens, the sampling tick repeating under the
+   same keys with its greedy rows equal to the greedy tick's; the LM
+   with 2 heads of 128 over an int8 paged pool: extend_paged chunks of
+   16 each launching kernel 7 32 times (4 layers x 4 slots x 2 heads,
+   no operand copy), logits bit-equal to the plain route, none in a
+   decode step, kernel 7's device ms per chunk (profiler sum over its
+   launches) and kernel 7 alone timed at (16, 128, 512) beside its
+   bound and _int_mm.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -117,6 +137,7 @@ import argparse
 import json
 import logging
 import math
+import statistics
 import subprocess
 import sys
 import threading
@@ -263,10 +284,11 @@ def kernel_of(name: str):
     return None
 
 
-def replay_kernels(fn):
+def replay_kernels(fn, by_kernel=False):
     """The hand-written kernels one call of ``fn`` (a graph replay) runs
     on the card, counted by their symbols in a torch.profiler trace, and
-    the device ms of all its kernels and copies."""
+    the device ms of all its kernels and copies; with ``by_kernel``
+    also the device ms of each hand-written kernel's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -274,14 +296,54 @@ def replay_kernels(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    got, device_us = Counter(), 0.0
+    got, device_us, kernel_us = Counter(), 0.0, Counter()
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             device_us += evt.device_time_total
             wrapper = kernel_of(evt.name)
             if wrapper is not None:
                 got[wrapper] += 1
+                kernel_us[wrapper] += evt.device_time_total
+    if by_kernel:
+        return dict(got), device_us / 1e3, {
+            k: v / 1e3 for k, v in kernel_us.items()}
     return dict(got), device_us / 1e3
+
+
+def kernel_ms(fn, top=6):
+    """Device ms of one call of ``fn`` by torch.profiler: the total and
+    the ``top`` kernels (names cut at 70 characters) by their ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    got = Counter()
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            got[evt.key.replace("(anonymous namespace)::", "")[:70]] += \
+                getattr(evt, "device_time_total",
+                        getattr(evt, "cuda_time_total", 0)) / 1e3
+    return sum(got.values()), {k: round(v, 4) for k, v in
+                               got.most_common(top)}
+
+
+def replay_ms(graph, n=50) -> float:
+    """Wall ms per replay of a CUDA graph over ``n`` back-to-back
+    replays, between CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def check_graph(what: str, compiled, want: dict, replay) -> dict:
@@ -1510,6 +1572,535 @@ def graphs_phase(args):
     return res
 
 
+# ----------------------------------------------------------- decode slice
+DECODE_PROMPT, DECODE_STEPS, DECODE_CHUNK = 48, 64, 16
+# cached logits vs the uncached forward over the same prefix, of the
+# forward's largest |logit|: f32 differs by sum order only (the masked
+# plain attention over the cache against kernel 6's online softmax);
+# bf16 rounds the cache, kernel 6's p and the activations
+DECODE_TOL = {"f32": 1e-4, "bf16": 3e-2}
+GEN_BATCH, GEN_BEAM, GEN_LEN = 2, 4, 128
+NEAR_TIE = 1e-4       # a re-forward top-2 gap below this x max |logit|
+REFORWARD_GATE = 3.0  # bench.py decode_ab leg 1's gate, reported only
+TICK_SLOTS, TICK_LEN, TICK_PAGE, TICK_NEW = 8, 512, 16, 64
+TICK_BUCKETS, TICK_BATCH = (64, 256), 4  # prompt buckets, prefill rows
+TICK_PROMPT = (5, 200)  # the shortest and the longest prompt
+TICK_LATE = 8         # ticks before the long prompts are admitted
+SAMPLE_TICKS = 16
+INT8_HEADS, INT8_SLOTS, INT8_EXTENT, INT8_CHUNKS = 2, 4, 512, 4
+
+
+def decode_phase(args, card):
+    """Phase 8, the decode slice on the LM at full width: cached decode
+    against the uncached forward (kernel 6), extend against prefill,
+    generate compiled against eager and cached against re-forward, the
+    server's tick programs (:func:`tick_checks`) and an int8 paged pool
+    on kernel 7 (:func:`int8_kv_checks`).  Returns the results."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.utils import graphs, load_jax_variables
+
+    print(f"decode phase on {card}", flush=True)
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(args.seed + 10)
+    res = {}
+
+    def lm(heads):
+        m = nn.Transformer(**dict(LM, num_heads=heads), dropout=0.0).to(dev)
+        load_jax_variables(m, lm_variables(m, args.seed))
+        return m.eval()
+
+    def ints(*shape):
+        return torch.from_numpy(rs.randint(0, LM["vocab_size"], shape)).to(
+            dev)
+
+    m32 = lm(LM["num_heads"])
+    models = {"f32": m32, "bf16": copy.deepcopy(m32).to(torch.bfloat16)}
+
+    # cached decode against the uncached forward; extend against prefill
+    ids = ints(2, DECODE_PROMPT)
+    total = DECODE_PROMPT + DECODE_STEPS
+    res["cached"] = {}
+    for dt, m in models.items():
+        dtype = m.embed.weight.dtype
+        last, cache = m.prefill(ids, m.init_cache(2, total, dtype))
+        got, seq = [last], ids
+        for _ in range(DECODE_STEPS):
+            tok = got[-1].argmax(-1).to(torch.int32)
+            seq = torch.cat([seq, tok[:, None].to(seq.dtype)], 1)
+            logits, cache = m.decode_step(cache, tok)
+            got.append(logits)
+        fa.reset_launches()
+        with torch.no_grad():
+            full = m(seq).float()
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        scale = full.abs().max().item()
+        err = (torch.stack(got, 1).float()
+               - full[:, DECODE_PROMPT - 1:]).abs().max().item() / scale
+        ext, chunks = m.init_cache(2, total, dtype), []
+        for lo in range(0, DECODE_PROMPT, DECODE_CHUNK):
+            lg, ext = m.extend(ext, ids[:, lo:lo + DECODE_CHUNK])
+            chunks.append(lg)
+        ext_err = (torch.cat(chunks, 1).float() - full[:, :DECODE_PROMPT]
+                   ).abs().max().item() / scale
+        pre_err = (chunks[-1][:, -1].float() - last.float()).abs().max(
+        ).item() / scale
+        res["cached"][dt] = {"rel_err": err, "extend_rel_err": ext_err,
+                             "extend_vs_prefill_rel_err": pre_err,
+                             "uncached_flash_launches": launches}
+        print(f"decode {dt}: prefill of {DECODE_PROMPT} + {DECODE_STEPS} "
+              f"decode_steps against the uncached forward: max |d| "
+              f"{err:.3g} of the largest |logit| (limit {DECODE_TOL[dt]}); "
+              f"extend in chunks of {DECODE_CHUNK}: {ext_err:.3g}, its last "
+              f"logits against prefill's {pre_err:.3g}; the forward "
+              f"launched kernel 6 {launches} times", flush=True)
+        if launches != LM["num_layers"]:
+            fail(f"decode {dt}: the uncached forward launched kernel 6 "
+                 f"{launches} times, expected {LM['num_layers']}")
+        if not max(err, ext_err, pre_err) <= DECODE_TOL[dt]:
+            fail(f"decode {dt}: cached logits disagree with the uncached "
+                 f"forward: {err:.4g}, {ext_err:.4g}, {pre_err:.4g} (limit "
+                 f"{DECODE_TOL[dt]})")
+        del full, cache, ext
+
+    # generate: compiled against eager, one capture per search
+    start = ints(GEN_BATCH).to(torch.int32)
+    res["generate"] = {}
+    for dt, m in models.items():
+        graphs.reset_counts()
+        seqs, scores = m.generate(start, GEN_LEN, beam_size=GEN_BEAM)
+        counts = dict(graphs.COUNTS)
+        # the same search eagerly: generate's body without the graph
+        eseqs, escores = nn.SequenceBeamSearch(
+            LM["vocab_size"], GEN_BEAM, 0.6, GEN_LEN, LM["vocab_size"] - 1
+        ).search(start, m.init_cache(GEN_BATCH, GEN_LEN, m.embed.weight
+                                     .dtype), fn=m._cached_logits)
+        same = torch.equal(seqs, eseqs) and torch.equal(scores, escores)
+        res["generate"][dt] = {"graphs": counts, "bit_equal": same,
+                               "best_scores": scores[:, 0].tolist()}
+        print(f"generate {dt} (batch {GEN_BATCH}, beam {GEN_BEAM}, "
+              f"{GEN_LEN} steps): {counts['captures']} capture "
+              f"({counts['capture_seconds']:.2f} s), {counts['replays']} "
+              f"replays; compiled bit-equal to eager: {same}; best scores "
+              f"{res['generate'][dt]['best_scores']}", flush=True)
+        if counts["captures"] != 1 or counts["replays"] != GEN_LEN:
+            fail(f"generate {dt}: {counts['captures']} captures and "
+                 f"{counts['replays']} replays, expected 1 and {GEN_LEN}")
+        if not same or tuple(seqs.shape) != (GEN_BATCH, GEN_BEAM,
+                                             GEN_LEN + 1):
+            fail(f"generate {dt}: the compiled search differs from the "
+                 "eager one")
+
+    # greedy: cached against re-forward (kernel 6 on every step)
+    m = m32
+    fa.reset_launches()
+    useq, _ = m.generate(start, GEN_LEN, beam_size=1, use_cache=False)
+    torch.cuda.synchronize()
+    host = fa.LAUNCHES["flash_attention"]
+    reforward = [g for key, g in m.__dict__["_generate_graphs"].items()
+                 if key[-1] == m._forward_logits]
+    per_step = getattr(reforward[0], "launches", {}).get("flash_attention",
+                                                         0)
+    cseq, _ = m.generate(start, GEN_LEN, beam_size=1)
+    with torch.no_grad():
+        full = m(useq[:, 0].to(torch.int64)).float()
+    top2 = full[:, :GEN_LEN].topk(2, -1).values
+    gap = ((top2[..., 0] - top2[..., 1]) / full.abs().max()).cpu()
+    rows = []
+    for row in range(GEN_BATCH):
+        near = [i for i in range(GEN_LEN) if gap[row, i] < NEAR_TIE]
+        first = near[0] if near else GEN_LEN
+        same = torch.equal(useq[row, 0, 1:first + 1],
+                           cseq[row, 0, 1:first + 1])
+        rows.append({"first_near_tie_step": near[0] if near else None,
+                     "equal_before_it": same,
+                     "all_equal": torch.equal(useq[row], cseq[row])})
+        if not same:
+            fail(f"greedy generate row {row}: cached and re-forward tokens "
+                 f"differ before step {first}")
+    want = (graphs.WARMUP + 1) * LM["num_layers"]
+    res["greedy"] = {"rows": rows, "flash_per_step": per_step,
+                     "flash_host_launches": host}
+    res["launches_6"] = host
+    print(f"greedy generate, cached against re-forward over {GEN_LEN} "
+          f"steps: {rows}; the re-forward step runs kernel 6 {per_step} "
+          f"times per replay ({host} host launches in its one capture)",
+          flush=True)
+    if len(reforward) != 1 or per_step != LM["num_layers"] or host != want:
+        fail(f"generate(use_cache=False): kernel 6 {per_step} times per "
+             f"step, {host} in all; expected {LM['num_layers']} and {want}")
+
+    # cached against re-forward: ms per generated token, compiled
+    timing = {}
+    for use_cache in (True, False):
+        m.generate(start, GEN_LEN, beam_size=GEN_BEAM, use_cache=use_cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m.generate(start, GEN_LEN, beam_size=GEN_BEAM,
+                       use_cache=use_cache)
+        torch.cuda.synchronize()
+        timing["cached" if use_cache else "reforward"] = \
+            (time.perf_counter() - t0) * 1e3 / (3 * GEN_LEN)
+    ratio = timing["reforward"] / timing["cached"]
+    res["generate_ms_per_token"] = dict(timing, ratio=ratio)
+    print(f"generate at T {GEN_LEN} (batch {GEN_BATCH}, beam {GEN_BEAM}, "
+          f"compiled), ms per generated token: cached "
+          f"{timing['cached']:.4f}, re-forward {timing['reforward']:.4f}, "
+          f"ratio {ratio:.2f} (bench.py's gate, {REFORWARD_GATE}x, "
+          f"{'met' if ratio >= REFORWARD_GATE else 'not met'}; reported, "
+          "not enforced)", flush=True)
+    if ratio <= 1.0:
+        fail(f"cached generate ({timing['cached']:.4f} ms per token) is "
+             f"not faster than re-forward ({timing['reforward']:.4f})")
+    # where one search step's device time goes (a replay of each graph)
+    for name, fn in (("cached", m._cached_logits),
+                     ("reforward", m._forward_logits)):
+        g = next(g for key, g in m.__dict__["_generate_graphs"].items()
+                 if key[-1] == fn and g._static[0].shape[1] == GEN_BEAM)
+        total, top = kernel_ms(g.graph.replay)
+        step = {"replay_ms": replay_ms(g.graph), "device_ms": total,
+                "top_kernels": top}
+        res["generate_ms_per_token"][name + "_step"] = step
+        print(f"generate step ({name}), one replay: {step}", flush=True)
+    del models, full
+
+    res["ticks"] = tick_checks(m32, rs)
+    res["int8"] = int8_kv_checks(lm(INT8_HEADS), rs)
+    return res
+
+
+def tick_checks(model, rs):
+    """The server's programs as a server uses them: TICK_SLOTS slots of
+    TICK_LEN, prompts of 5 to 200 tokens prefilled in buckets and written
+    into slots, greedy ticks until every row has TICK_NEW tokens (the
+    long prompts admitted after TICK_LATE ticks); compiled against the
+    same programs eager, dense against paged, then the sampling tick."""
+    import torch
+
+    from bigdl_tpu_torch.serving import decode as sd
+    from bigdl_tpu_torch.serving.paging import (PageAllocator,
+                                                default_num_pages)
+    from bigdl_tpu_torch.utils import graphs
+
+    dev = torch.device("cuda")
+    s_, vocab = TICK_SLOTS, LM["vocab_size"]
+    lengths = rs.randint(TICK_PROMPT[0], TICK_PROMPT[1] + 1, s_)
+    lengths[:2] = TICK_PROMPT
+    prompts = [rs.randint(0, vocab, n) for n in lengths]
+    # admission waves: (bucket, [(row of the batch, slot)], tick)
+    waves = []
+    for wave, bucket in enumerate(TICK_BUCKETS):
+        slots = [s for s in range(s_) if (lengths[s] > TICK_BUCKETS[0])
+                 == (bucket != TICK_BUCKETS[0])]
+        for lo in range(0, len(slots), TICK_BATCH):
+            waves.append((bucket, slots[lo:lo + TICK_BATCH],
+                          0 if wave == 0 else TICK_LATE))
+
+    def batch(bucket, slots):
+        ids = torch.zeros((TICK_BATCH, bucket), dtype=torch.int64)
+        lens = torch.ones(TICK_BATCH, dtype=torch.int32)
+        for r, s in enumerate(slots):
+            ids[r, :lengths[s]] = torch.from_numpy(prompts[s])
+            lens[r] = int(lengths[s])
+        return ids.to(dev), lens.to(dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    def serve(prefill, write, tick, grid):
+        """Run the waves; ``tick(grid, tokens, active)`` returns the next
+        tokens.  Returns each slot's TICK_NEW tokens (host, once)."""
+        tokens = torch.zeros(s_, dtype=torch.int32, device=dev)
+        active = torch.zeros(s_, dtype=torch.bool, device=dev)
+        made, hist, n_ticks = [0] * s_, [], 0
+        first = {}
+        pending = list(waves)
+        while pending or any(0 < n < TICK_NEW for n in made):
+            for w in [w for w in pending if w[2] <= n_ticks]:
+                pending.remove(w)
+                bucket, slots, _ = w
+                last, bc = prefill[bucket](*batch(bucket, slots))
+                nxt = last.argmax(-1).to(torch.int32)
+                for r, s in enumerate(slots):
+                    grid = write[bucket](grid, bc, scalar(r), scalar(s))
+                    tokens[s] = nxt[r]
+                    active[s] = True
+                    made[s] = 1
+                    first[s] = nxt[r].clone()
+            grid, nxt = tick(grid, tokens, active)
+            n_ticks += 1
+            hist.append((nxt.clone(), [s for s in range(s_)
+                                       if 0 < made[s] < TICK_NEW]))
+            tokens = nxt
+            for s in range(s_):
+                if 0 < made[s] < TICK_NEW:
+                    made[s] += 1
+                    if made[s] == TICK_NEW:
+                        active[s] = False
+        out = {s: [first[s]] for s in range(s_)}
+        for nxt, live in hist:
+            for s in live:
+                out[s].append(nxt[s])
+        return ({s: torch.stack(v).tolist() for s, v in out.items()},
+                n_ticks, grid)
+
+    res = {"prompt_lengths": lengths.tolist()}
+    # eager: the raw programs
+    eager_prefill = sd.prefill_fn(model, TICK_LEN)
+    eager_write, eager_tick = sd.write_slot_fn(), sd.decode_tick_fn(model)
+    want, n_ticks, _ = serve({b: eager_prefill for b in TICK_BUCKETS},
+                             {b: eager_write for b in TICK_BUCKETS},
+                             eager_tick, model.init_cache(s_, TICK_LEN))
+    # compiled: two prefill buckets, a write per bucket (reading its
+    # prefill's outputs in place), one tick
+    graphs.reset_counts()
+    grid = model.init_cache(s_, TICK_LEN)
+    prefill, write = {}, {}
+    for b in TICK_BUCKETS:
+        prefill[b] = sd.build_prefill(model, TICK_LEN, *batch(b, []))
+        _, bc = prefill[b](*batch(b, []))
+        write[b] = sd.build_write_slot(grid, bc, scalar(0), scalar(0))
+    zeros = torch.zeros(s_, dtype=torch.int32, device=dev)
+    tick = sd.build_decode_tick(model, grid, zeros, zeros.bool())
+    warm = dict(graphs.COUNTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, ticks, _ = serve(prefill, write, tick, grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = dict(graphs.COUNTS)
+    calls = len(waves) + s_ + ticks
+    if got != want or ticks != n_ticks:
+        bad = [s for s in range(s_) if got[s] != want[s]]
+        fail(f"ticks: compiled tokens differ from the eager rollout in "
+             f"slots {bad}")
+    if after["captures"] != warm["captures"] or \
+            after["replays"] - warm["replays"] != calls:
+        fail(f"ticks: {after['captures'] - warm['captures']} captures and "
+             f"{after['replays'] - warm['replays']} replays while serving, "
+             f"expected 0 and {calls} ({len(waves)} prefills, {s_} writes, "
+             f"{ticks} ticks)")
+    res.update(captures=warm["captures"], ticks=ticks,
+               ms_per_tick=wall * 1e3 / ticks,
+               tokens_per_s=s_ * TICK_NEW / wall, wall_s=wall,
+               steady_tick_ms=replay_ms(tick.graph))
+    res["tick_device_ms"], res["tick_top_kernels"] = kernel_ms(
+        tick.graph.replay)
+    print(f"ticks: {s_} slots of {TICK_LEN}, prompts {lengths.tolist()}, "
+          f"{TICK_NEW} tokens each: compiled bit-equal to the eager "
+          f"programs in every slot; {warm['captures']} captures before "
+          f"serving, none while serving, {calls} replays ({ticks} ticks); "
+          f"{res['ms_per_tick']:.4f} ms per tick, "
+          f"{res['tokens_per_s']:.1f} tokens/s (admission included); in "
+          f"steady state {res['steady_tick_ms']:.4f} ms per tick "
+          f"({s_ * 1e3 / res['steady_tick_ms']:.1f} tokens/s at full "
+          f"occupancy), device {res['tick_device_ms']:.4f} ms, top "
+          f"kernels {res['tick_top_kernels']}", flush=True)
+
+    # paged: pages from a PageAllocator, the paged write and tick
+    pages = default_num_pages(s_, TICK_LEN, TICK_PAGE)
+    alloc = PageAllocator(pages, TICK_PAGE, s_, TICK_LEN)
+    pool = model.init_paged_cache(pages, TICK_PAGE, s_)
+    samp = (torch.zeros(s_, dtype=torch.int64, device=dev),
+            torch.zeros(s_, device=dev),
+            torch.zeros(s_, dtype=torch.int32, device=dev),
+            torch.ones(s_, device=dev))
+    table = torch.from_numpy(alloc.table).to(dev)
+    pwrite = {}
+    for b in TICK_BUCKETS:
+        _, bc = prefill[b](*batch(b, []))
+        pwrite[b] = sd.build_paged_write_slot(pool, table[0], bc,
+                                              scalar(0), scalar(0))
+    ptick = sd.build_paged_tick(model, pool, table, zeros, zeros.bool(),
+                                *samp)
+
+    def paged_write(b):
+        def w(p, bc, row, slot):
+            s = int(slot)
+            alloc.ensure(s, int(lengths[s]) + TICK_NEW)
+            table.copy_(torch.from_numpy(alloc.table))
+            return pwrite[b](p, table[s], bc, row, slot)
+        return w
+
+    pgot, _, _ = serve(prefill, {b: paged_write(b) for b in TICK_BUCKETS},
+                       lambda p, t, a: ptick(p, table, t, a, *samp)[:2],
+                       pool)
+    if pgot != got:
+        fail(f"ticks: the paged pool's tokens differ from the dense grid's "
+             f"in slots {[s for s in range(s_) if pgot[s] != got[s]]}")
+    res["paged_pages_in_use"] = alloc.pages_in_use
+    print(f"paged ticks (f32 pool, {pages} pages of {TICK_PAGE}, "
+          f"{alloc.pages_in_use} granted): tokens equal the dense grid's",
+          flush=True)
+
+    # sampling: half the rows at temp 0.8, top_k 40, top_p 0.9
+    for b, slots, _ in waves:  # every slot admitted at once
+        last, bc = prefill[b](*batch(b, slots))
+        for r, s in enumerate(slots):
+            write[b](grid, bc, scalar(r), scalar(s))
+    start = graphs.clone(grid)
+    tokens0 = torch.arange(s_, dtype=torch.int32, device=dev)
+    on = torch.ones(s_, dtype=torch.bool, device=dev)
+    hot = torch.arange(s_, device=dev) % 2 == 0
+    temp = torch.where(hot, 0.8, 0.0)
+    top_k = torch.where(hot, 40, 0).to(torch.int32)
+    top_p = torch.where(hot, 0.9, 1.0)
+    keys = torch.arange(s_, dtype=torch.int64, device=dev) * 7919 + 1
+    stick = sd.build_sampling_tick(model, grid, tokens0, on, keys, temp,
+                                   top_k, top_p)
+
+    def run(sampled):
+        for lk, c in grid.items():
+            for name, leaf in c.items():
+                leaf.copy_(start[lk][name])
+        t, k, out = tokens0, keys, []
+        for _ in range(SAMPLE_TICKS):
+            if sampled:
+                _, t, k = stick(grid, t, on, k, temp, top_k, top_p)
+                k = k.clone()
+            else:
+                _, t = tick(grid, t, on)
+            t = t.clone()
+            out.append(t)
+        return torch.stack(out)
+
+    a, b2, g = run(True), run(True), run(False)
+    greedy_rows = ~hot
+    if not torch.equal(a, b2) or not torch.equal(a[:, greedy_rows],
+                                                 g[:, greedy_rows]):
+        fail("sampling tick: the same keys gave other tokens, or its greedy "
+             "rows differ from the greedy tick's")
+    res["sampling"] = {"repeats": True, "greedy_rows_equal": True,
+                       "distinct_sampled_tokens": len(set(
+                           a[:, hot].flatten().tolist()))}
+    print(f"sampling tick ({SAMPLE_TICKS} ticks, rows 0, 2, 4, 6 at temp "
+          f"0.8, top_k 40, top_p 0.9): repeats under the same keys, greedy "
+          f"rows equal the greedy tick's", flush=True)
+    return res
+
+
+def int8_kv_checks(model, rs):
+    """The LM with D 128 over an int8 paged pool: each extend_paged chunk
+    of DECODE_CHUNK tokens runs kernel 7 layers x slots x heads times
+    (no operand copy) and gives logits bit-equal to the same call with
+    the scores on the kernel's plain version; a decode step (Tq 1) runs
+    it not at all.  Kernel 7's device ms per chunk is the profiler's
+    sum over the chunk's kernel-7 launches; the bare call is timed at
+    the chunk's product beside its plain version and _int_mm."""
+    import torch
+
+    from bigdl_tpu_torch.ops import int8_matmul as im
+    from bigdl_tpu_torch.ops import paged_kv
+    from bigdl_tpu_torch.serving.paging import PageAllocator
+
+    dev = torch.device("cuda")
+    s_, page = INT8_SLOTS, TICK_PAGE
+    pages = s_ * INT8_EXTENT // page + 1
+    alloc = PageAllocator(pages, page, s_, INT8_EXTENT)
+    for s in range(s_):
+        alloc.ensure(s, INT8_EXTENT)
+    table = torch.from_numpy(alloc.table).to(dev)
+    active = torch.ones(s_, dtype=torch.bool, device=dev)
+    pool = model.init_paged_cache(pages, page, s_, kv_dtype="int8")
+    ids = torch.from_numpy(rs.randint(0, LM["vocab_size"], (
+        s_, INT8_CHUNKS * DECODE_CHUNK))).to(dev)
+    d = LM["hidden_size"] // INT8_HEADS
+    want = LM["num_layers"] * s_ * INT8_HEADS
+    if not paged_kv._int8_eligible(DECODE_CHUNK, INT8_EXTENT, d, dev):
+        fail(f"int8 KV: ({DECODE_CHUNK}, {d}, {INT8_EXTENT}) is not "
+             "eligible for kernel 7")
+    per_chunk, chunk_ms = [], []
+    for c in range(INT8_CHUNKS):
+        chunk = ids[:, c * DECODE_CHUNK:(c + 1) * DECODE_CHUNK]
+        im.reset_launches()
+        out = []
+        ran, _, by_kernel = replay_kernels(lambda: out.append(
+            model.extend_paged(pool, table, chunk, active)), by_kernel=True)
+        (logits, new), = out
+        got = dict(im.LAUNCHES)
+        kernel, paged_kv.int8_matmul_dequant = \
+            paged_kv.int8_matmul_dequant, im.int8_matmul_dequant_plain
+        try:
+            plain, pnew = model.extend_paged(pool, table, chunk, active)
+        finally:
+            paged_kv.int8_matmul_dequant = kernel
+        if got != {"int8_matmul": want, "int8_matmul_w_relayout": 0,
+                   "int8_matmul_pad": 0} or \
+                ran.get("int8_matmul") != want:
+            fail(f"int8 KV chunk {c}: launches {got}, on the card "
+                 f"{ran.get('int8_matmul')}, expected {want} kernel 7 "
+                 "launches and no operand copy")
+        # the pools alike outside the trash page 0 (several writes may
+        # land there, in any order)
+        if not torch.equal(logits, plain) or any(
+                not torch.equal(new[lk][n][1:], pnew[lk][n][1:])
+                for lk in new for n in new[lk] if n != "length"):
+            fail(f"int8 KV chunk {c}: the kernel route's logits or pool "
+                 "differ from the plain route's")
+        per_chunk.append(got["int8_matmul"])
+        chunk_ms.append(by_kernel["int8_matmul"])
+        pool = new
+    im.reset_launches()
+    step, pool = model.decode_step_paged(pool, table, logits[:, -1].argmax(
+        -1).to(torch.int32), active)
+    torch.cuda.synchronize()
+    if im.LAUNCHES["int8_matmul"] or not torch.isfinite(step).all():
+        fail(f"int8 KV decode step: {im.LAUNCHES} (expected no kernel 7 "
+             "launch at Tq 1), or non-finite logits")
+
+    # kernel 7 at the chunk's product: q (Tq, D) @ k_q.T (D, L), f32 out
+    x = torch.randint(-127, 128, (DECODE_CHUNK, d), device=dev).to(
+        torch.int8)
+    kq = torch.randint(-127, 128, (INT8_EXTENT, d), device=dev).to(
+        torch.int8)
+    sc = torch.rand(INT8_EXTENT, device=dev) * 1e-4
+    w, wk = kq.t(), kq.t().contiguous()
+    xp = torch.zeros((24, d), dtype=torch.int8, device=dev)  # _int_mm: M>16
+    xp[:DECODE_CHUNK] = x
+
+    def library():
+        return torch._int_mm(xp, wk)[:DECODE_CHUNK].float() * sc
+
+    nbytes = DECODE_CHUNK * d + INT8_EXTENT * d + 4 * INT8_EXTENT \
+        + 4 * DECODE_CHUNK * INT8_EXTENT
+    ops = 2 * DECODE_CHUNK * d * INT8_EXTENT
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+    err = (im.int8_matmul_dequant(x, w, sc, torch.float32)
+           - im.int8_matmul_dequant_plain(x, w, sc, torch.float32)).abs(
+    ).max().item()
+    r = {"shape": [DECODE_CHUNK, d, INT8_EXTENT], "max_abs_err": err,
+         "ms": device_ms(lambda: im.int8_matmul_dequant(x, w, sc,
+                                                        torch.float32)),
+         "plain_ms": device_ms(lambda: im.int8_matmul_dequant_plain(
+             x, w, sc, torch.float32), reps=2),
+         "library_ms": device_ms(library), "bytes_ms": bytes_ms,
+         "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+         "launches_per_chunk": per_chunk, "launches": sum(per_chunk),
+         "chunk_ms": chunk_ms, "ms_per_chunk": statistics.median(chunk_ms)}
+    print(f"int8 KV (LM with {INT8_HEADS} heads of {d}, {s_} slots of "
+          f"{INT8_EXTENT}): {INT8_CHUNKS} extend_paged chunks of "
+          f"{DECODE_CHUNK}, kernel 7 launches per chunk {per_chunk} (host "
+          f"and profiler), no operand copy, logits bit-equal to the plain "
+          f"route; a decode step launches none.  Kernel 7's device ms per "
+          f"chunk {[round(t, 4) for t in chunk_ms]} (profiler sum; median "
+          f"{r['ms_per_chunk']:.4f}, bound {per_chunk[-1] * r['bound_ms']:.5f}"
+          f").  Kernel 7 alone at {tuple(r['shape'])}: {r['ms']:.4f} ms "
+          f"(plain {r['plain_ms']:.4f}, _int_mm at (24, {d}, {INT8_EXTENT}) "
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by bytes, "
+          f"max |d| {err})", flush=True)
+    if err != 0:
+        fail(f"int8 KV: kernel 7 differs from its plain version at "
+             f"{tuple(r['shape'])}: {err}")
+    return r
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2246,6 +2837,10 @@ def main():
 
     # ---------------------------------------------------------- 7. graphs
     graph_res = graphs_phase(args)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 8. decode
+    decode = decode_phase(args, card)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -2261,7 +2856,7 @@ def main():
                    "losses_one_batch": losses,
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
-         "graphs": graph_res},
+         "graphs": graph_res, "decode": decode},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -2305,7 +2900,9 @@ def main():
         "launches_by_path": {
             "lm_train_step": LM["num_layers"],
             "lm_eval_forward": LM["num_layers"],
-            "transformer_train_main": lm["main"]["launches"]},
+            "transformer_train_main": lm["main"]["launches"],
+            "generate_reforward_per_step": decode["greedy"]["flash_per_step"],
+            "generate_reforward": decode["launches_6"]},
         "shapes": f"{tuple(lm_row['shape'])} causal bf16 as "
                   "MultiHeadAttention gives it, per call; "
                   f"{LM['num_layers']} calls per LM forward"})
@@ -2329,7 +2926,13 @@ def main():
             "resnet50_dynamic_forward": quant["launches"]["dynamic_forward"],
             "resnet50_weight_only_forward":
                 quant["launches"]["weight_only_forward"],
-            "mlp_forward": quant["launches"]["mlp_forward"]},
+            "mlp_forward": quant["launches"]["mlp_forward"],
+            "int8_kv_extend_paged_per_chunk":
+                decode["int8"]["launches_per_chunk"],
+            "int8_kv_extend_paged": decode["int8"]["launches"]},
+        "int8_kv_scores": {key: decode["int8"][key] for key in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+            "chunk_ms", "ms_per_chunk")},
         "shapes": f"one quantized ResNet-50 forward at batch {QUANT_BATCH}: "
                   f"{sum(r['calls_per_forward'] for r in fwd7)} calls at "
                   f"{len(fwd7)} shapes, times summed; library is "

@@ -260,6 +260,33 @@ def test_donated_step_compiles_per_batch_shape():
 
 
 # ------------------------------------------------------- compile helpers
+@pytest.mark.parametrize("out_at", [None, 1, (1, 0)])
+def test_donate_writes_the_new_trees_into_the_arguments(out_at):
+    """``graphs.donate``: the new value of each donated argument (a dict
+    tree, or a tuple holding one) is copied into its tensors, by key, and
+    the argument object is returned in its place; the rest of the output
+    is passed through."""
+    def fn(tree, other):
+        new = {"b": tree["b"] * 2, "a": (tree["a"][0] + 1,)}
+        return new if out_at is None else (other + 1, new, -other)
+
+    tree = {"a": (torch.arange(3.0),), "b": torch.ones(2)}
+    other = torch.full((2,), 5.0)
+    a0, b0 = tree["a"][0], tree["b"]
+    out = graphs.donate(fn, out_at)(tree, other)
+    assert tree["a"][0] is a0 and tree["b"] is b0
+    assert torch.equal(a0, torch.tensor([1.0, 2.0, 3.0]))
+    assert torch.equal(b0, torch.full((2,), 2.0))
+    if out_at is None:
+        assert out is tree
+    elif out_at == 1:
+        assert out[1] is tree and torch.equal(out[0], torch.full((2,), 6.0))
+        assert torch.equal(out[2], -other)
+    else:  # argument 1 takes output 0: other <- other + 1
+        assert out[1] is tree and out[0] is other
+        assert torch.equal(other, torch.full((2,), 6.0))
+
+
 def test_compile_is_the_eager_call_on_the_cpu():
     def fn(a, b):
         return a + b

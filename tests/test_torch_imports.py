@@ -25,7 +25,9 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "nn.dropout", "nn.embedding", "optim.validation",
               "dataset.text", "models.train_utils",
               "models.transformer_train", "nn.quantized", "ops.int8_matmul",
-              "utils.serialization", "optim.prediction_service"):
+              "utils.serialization", "optim.prediction_service",
+              "ops.paged_kv", "nn.beam_search", "serving.paging",
+              "serving.decode"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -287,13 +287,19 @@ def test_initializers_use_the_generator():
 
 
 def test_later_slices_raise():
-    tm = tnn.Transformer(VOCAB, D, HEADS, FILTER, 1)
-    for name in ("init_cache", "prefill", "decode_step", "extend",
-                 "generate", "init_paged_cache", "decode_step_paged"):
-        with pytest.raises(NotImplementedError, match="decode slice"):
-            getattr(tm, name)(1, 8)
-    with pytest.raises(NotImplementedError, match="decode slice"):
-        tm.layer0.mha.apply_cached(None, None)
+    """Decoding is ported (tests/test_torch_decode*.py); what the JAX
+    package refuses, the port refuses alike, and the parallelism slice's
+    options still raise."""
+    tm = tnn.Transformer(VOCAB, D, HEADS, FILTER, 1, causal=False)
+    with pytest.raises(ValueError, match="needs a causal Transformer"):
+        tm.generate(torch.zeros(2, dtype=torch.int32), 4)
+    mha = tnn.MultiHeadAttention(D, HEADS)
+    mha.seq_mesh = object()  # as a layer built for ring attention holds
+    for call in (lambda: mha.init_cache(2, 8),
+                 lambda: mha.init_paged_cache(5, 4, 2)):
+        with pytest.raises(ValueError, match="does not compose with "
+                                             "seq_mesh"):
+            call()
     with pytest.raises(NotImplementedError, match="moe_experts"):
         tnn.Transformer(VOCAB, D, HEADS, FILTER, 1, moe_experts=4)
     with pytest.raises(NotImplementedError, match="seq_mesh"):
