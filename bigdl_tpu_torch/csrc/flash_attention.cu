@@ -23,7 +23,8 @@
 // enough blocks, and at D <= 64 two blocks share an SM), plus one
 // producer warpgroup.
 // One producer thread loads the Q tile once and the K and V tiles of 128
-// keys into a three-stage ring with TMA (4-D tensor maps over the
+// keys (64 at D = 256) into a ring of three stages (two at D = 256) with
+// TMA (4-D tensor maps over the
 // (b, h, t, d) views with their own strides, so the LM's (N, T, H, D)
 // head view needs no copy; rows past T and S load as 0), each tile on
 // its own mbarrier; the consumers release a stage on an "empty" mbarrier
@@ -41,9 +42,16 @@
 // masked.  The tiles are laid out in the hardware's 128-byte swizzle
 // (64-byte at D = 32), see hopper.cuh.
 //
+// D = 256 (bf16): one consumer warpgroup of 64 rows; its O accumulator
+// is 64 x 256 f32, 128 registers a thread, so the key step is 64 (32
+// registers of S, 16 of P) and the ring two stages: 32 KiB of Q and 2 x
+// 64 KiB of K and V, 160 KiB of shared memory, one block per SM.  Head
+// dims between 128 and 256 reach it zero-padded (ops/flash_attention.py).
+//
 // f32 (evaluation): one block of 4 warps per 64 query rows walks the
 // keys in tiles of 64 through shared memory with FMAs, P through a
-// per-warp shared tile.  A TF32 wgmma would change its numbers.
+// per-warp shared tile (215 KiB of it at D = 256).  A TF32 wgmma would
+// change its numbers.
 //
 // Rounding points, as the TPU kernel (and flash_attention_plain):
 //   scale rounds to the input type and q * scale rounds to it (the
@@ -82,12 +90,14 @@ __device__ __forceinline__ float round_bf16(float x) {
 namespace wg {
 
 using bf16 = __nv_bfloat16;
-constexpr int BKV = 128;  // keys per step (ops/flash_attention.py BLOCK_K)
-constexpr int STAGES = 3;
 constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 
 template <int D, int NWG>
 struct Cfg {
+  // keys per step (ops/flash_attention.py BLOCK_K, BLOCK_K_WIDE above
+  // D = 128) and stages of the K/V ring
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
   static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle width, bytes
   static constexpr int CB = SWB / 2;               // columns per block
   static constexpr int NV = D / 8;                 // 16-byte chunks per row
@@ -127,6 +137,7 @@ __global__ void __launch_bounds__(Cfg<D, NWG>::THREADS,
   using C = Cfg<D, NWG>;
   using namespace hopper;
   constexpr int SWB = C::SWB, NV = C::NV, BQ = C::BQ;
+  constexpr int BKV = C::BKV, STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -363,8 +374,8 @@ int launch_nwg(const void* q, const void* k, const void* v, void* o,
                                 static_cast<cuuint64_t>(B)};
     const cuuint64_t strides[3] = {2ull * st[i]->t, 2ull * st[i]->h,
                                    2ull * st[i]->b};
-    const cuuint32_t box[4] = {C::CB, static_cast<cuuint32_t>(i ? BKV : C::BQ),
-                               1, 1};
+    const cuuint32_t box[4] = {
+        C::CB, static_cast<cuuint32_t>(i ? C::BKV : C::BQ), 1, 1};
     const int e = hopper::make_map<4>(&maps[i], base[i], dims, strides, box,
                                       C::SWB);
     if (e) return e;
@@ -378,8 +389,9 @@ int launch_nwg(const void* q, const void* k, const void* v, void* o,
 
 // 128 query rows per block (two consumer warpgroups taking turns) at
 // D = 128 where (B * H) x 128-row tiles still fill the card twice; else
-// 64 rows, and at D <= 64 two blocks per SM, which hide the softmax's
-// latency better than turns do when the products are short
+// 64 rows (always at D = 256), and at D <= 64 two blocks per SM, which
+// hide the softmax's latency better than turns do when the products are
+// short
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Tq, int S, Strides sq, Strides sk, Strides sv,
@@ -613,7 +625,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace f32
 
-// D in {32, 64, 128} on the family's launch<D>
+// D in {32, 64, 128, 256} on the family's launch<D>
 template <typename Launch>
 int by_head_dim(int D, Launch&& fn) {
   switch (D) {
@@ -623,6 +635,8 @@ int by_head_dim(int D, Launch&& fn) {
       return fn(std::integral_constant<int, 64>{});
     case 128:
       return fn(std::integral_constant<int, 128>{});
+    case 256:
+      return fn(std::integral_constant<int, 256>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

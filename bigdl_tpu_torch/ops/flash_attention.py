@@ -16,18 +16,19 @@ The forward takes one of two routes, decided by where ``q`` lies:
 
 - a CUDA tensor launches the hand-written Hopper kernel
   (``csrc/flash_attention.cu``) or raises.  The kernel takes D in
-  {32, 64, 128}, bf16 or f32, any T and S (it masks the ragged edges
+  {32, 64, 128, 256}, bf16 or f32, any T and S (it masks the ragged edges
   itself), and the tensors' strides as they are, as long as D is
   contiguous and each row is 16-byte aligned; the transposed head views
   that ``MultiHeadAttention`` makes pass without a copy.  Any other
   layout is copied to a contiguous tensor first.  O is allocated with
   q's strides, so the attention output folds back into ``(N, T, H * D)``
-  as a view.  A head dim below 128 and not in that set is zero-padded to
+  as a view.  A head dim up to 256 and not in that set is zero-padded to
   the next one (:func:`_padded`: zero columns add nothing to a score,
   ``sm_scale`` stays ``1/sqrt(D)`` of the true D, and O's extra columns
-  are dropped); a head dim above 128 raises;
+  are dropped); a head dim above 256 raises;
 - a CPU tensor runs :func:`flash_attention_plain`, which repeats the
-  kernel's arithmetic block for block (key blocks of ``BLOCK_K``).
+  kernel's arithmetic block for block (key blocks of ``BLOCK_K``, of
+  ``BLOCK_K_WIDE`` above D = 128).
 
 Rounding points, as the TPU kernel keeps them: ``sm_scale`` and
 ``q * sm_scale`` round to q's type before the product; scores, the
@@ -50,7 +51,7 @@ import torch
 from bigdl_tpu_torch.ops import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
-           "LAUNCHES", "reset_launches", "BLOCK_K"]
+           "LAUNCHES", "reset_launches", "BLOCK_K", "BLOCK_K_WIDE"]
 
 Tensor = torch.Tensor
 
@@ -60,14 +61,17 @@ Tensor = torch.Tensor
 LAUNCHES = {"flash_attention": 0}
 _launch_lock = threading.Lock()
 
-#: keys per step of the bf16 kernel (csrc/flash_attention.cu wg::BKV): p
+#: keys per step of the bf16 kernel (csrc/flash_attention.cu Cfg::BKV): p
 #: rounds against the running max of its key block, so the plain version
 #: blocks keys alike.  The f32 kernel steps 64 keys, which changes only
 #: the order of f32 sums (p is not rounded in f32).
 BLOCK_K = 128
+#: keys per step of the bf16 kernel at head dims above 128 (D = 256:
+#: its 64 x 256 f32 accumulator leaves registers for 64 keys of scores)
+BLOCK_K_WIDE = 64
 BLOCK_Q = 1024   # query rows per block of the backward (JAX's block_q)
 NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -109,15 +113,19 @@ def _check_shapes(q: Tensor, k: Tensor, v: Tensor, causal: bool):
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
                           causal: bool = False,
                           sm_scale: Optional[float] = None,
-                          block_k: int = BLOCK_K) -> Tuple[Tensor, Tensor]:
+                          block_k: Optional[int] = None
+                          ) -> Tuple[Tensor, Tensor]:
     """The plain PyTorch version of the forward kernel: ``(O, lse)``.
 
     The online softmax of ``_attn_kernel`` (flash_attention.py:36-86)
-    over key blocks of ``block_k``, with its rounding points.  All query
+    over key blocks of ``block_k`` (default: the kernel's, ``BLOCK_K``
+    or, above D = 128, ``BLOCK_K_WIDE``), with its rounding points.  All query
     rows go at once: a row's result depends only on the key blocking, so
     this equals the kernel's 64- or 128-row tiles.  A short last block is
     the kernel's masked ragged edge (a masked key adds exactly 0)."""
     _check_shapes(q, k, v, causal)
+    if block_k is None:
+        block_k = BLOCK_K if q.shape[-1] <= 128 else BLOCK_K_WIDE
     t, s = q.shape[2], k.shape[2]
     qs = (q * _in_type(_scale(q, sm_scale), q.dtype)).float()
     shape = q.shape[:3] + (1,)

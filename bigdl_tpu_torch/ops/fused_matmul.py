@@ -30,8 +30,18 @@ Each kernel wrapper takes one of two routes, decided by where ``x`` lies:
   CPU tests hold against the JAX package and ``chip_smoke.py`` holds the
   kernels against on the card.
 
-``LAUNCHES`` counts kernel launches per wrapper; the plain versions do
-not count.
+The kernels read channels in 16-byte vectors, so every channel width
+must be a multiple of 8.  A call on the card with any other width runs
+the kernel on operands zero-padded to the next multiple of 8 and slices
+the outputs back (:func:`_padded_forward`, :func:`_padded_dgrad`,
+:func:`_padded_wgrad`): a padded input channel is 0 after the prologue
+(``relu(0 * 0 + 0)``) and meets a zero row of the weight; a padded output
+channel has zero y, ssum and ssq, and in the backward zero dy, y and
+statistics cotangents, so its ``ytot`` is 0 and adds nothing to dx or dW.
+
+``LAUNCHES`` counts kernel launches per wrapper and ``COPIES`` the
+calls whose operands were copied to be padded; the plain versions do not
+count.
 """
 from __future__ import annotations
 
@@ -48,7 +58,7 @@ __all__ = ["fused_matmul_bn", "fused_conv3x3_bn", "fused_matmul_bn_plain",
            "fused_matmul_bn_wgrad", "fused_conv3x3_bn_dgrad",
            "fused_matmul_bn_dgrad_plain", "fused_matmul_bn_wgrad_plain",
            "fused_conv3x3_bn_dgrad_plain", "conv3x3_wgrad", "bn_constants",
-           "LAUNCHES", "reset_launches"]
+           "COPIES", "LAUNCHES", "reset_launches"]
 
 Tensor = torch.Tensor
 Stats = Tuple[Tensor, Tensor, Tensor]
@@ -60,6 +70,9 @@ Dgrad = Tuple[Tensor, Optional[Tensor], Optional[Tensor]]
 LAUNCHES = {"fused_matmul_bn": 0, "fused_conv3x3_bn": 0,
             "fused_matmul_bn_dgrad": 0, "fused_matmul_bn_wgrad": 0,
             "fused_conv3x3_bn_dgrad": 0}
+#: calls on the card whose channel widths were padded (their operands
+#: copied), since the last :func:`reset_launches`
+COPIES = {"fused_channel_pad": 0}
 _launch_lock = threading.Lock()
 
 _BM = 128  # row tile of the kernels (fused_gemm_bn.cuh BM)
@@ -76,6 +89,7 @@ def reset_launches():
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        COPIES["fused_channel_pad"] = 0
 
 
 def _prologue(x: Tensor, ps: Optional[Tensor], pb: Optional[Tensor],
@@ -218,13 +232,70 @@ def conv3x3_wgrad(x: Tensor, prologue_scale: Optional[Tensor],
 
 
 # --------------------------------------------------------------------------
+# channel padding (widths that are not multiples of 8)
+# --------------------------------------------------------------------------
+def _pad8(t: Optional[Tensor], *axes: int) -> Optional[Tensor]:
+    """``t`` zero-padded along ``axes`` (default the last) to multiples
+    of 8; ``None`` stays ``None``."""
+    if t is None:
+        return None
+    pads = [0] * (2 * t.dim())
+    for a in axes or (-1,):
+        pads[2 * (-a - 1 if a < 0 else t.dim() - 1 - a) + 1] = \
+            -t.shape[a] % 8
+    return F.pad(t, pads)
+
+
+def _padded_forward(fn, x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
+    """``fn(x, w, ps, pb, relu)`` (kernel 1 or 4, or a plain version) on
+    channels zero-padded to multiples of 8: x's last axis and the
+    prologue vectors to C', w's last two axes (C, Co) to (C', Co'); y,
+    ssum and ssq are sliced back to Co."""
+    co = w.shape[-1]
+    y, ssum, ssq = fn(_pad8(x), _pad8(w, -2, -1), _pad8(ps), _pad8(pb), relu)
+    return y[..., :co].contiguous(), ssum[:co], ssq[:co]
+
+
+def _padded_dgrad(fn, dy: Tensor, y: Tensor, dssum: Tensor, dssq: Tensor,
+                  w: Tensor, x: Tensor, ps, pb, relu: bool) -> Dgrad:
+    """``fn(dy, y, dssum, dssq, w, x, ps, pb, relu)`` (kernel 2 or 5, or
+    a plain version) on zero-padded channels: dy, y and the statistics'
+    cotangents to Co', w to (C', Co'), x and the prologue vectors to C';
+    dx, d_ps and d_pb are sliced back to C."""
+    c = x.shape[-1]
+    dx, dps, dpb = fn(_pad8(dy), _pad8(y), _pad8(dssum), _pad8(dssq),
+                      _pad8(w, -2, -1), _pad8(x), _pad8(ps), _pad8(pb), relu)
+    return (dx[..., :c].contiguous(),
+            None if dps is None else dps[:c],
+            None if dpb is None else dpb[:c])
+
+
+def _padded_wgrad(fn, x: Tensor, ps, pb, dy: Tensor, y: Tensor,
+                  dssum: Tensor, dssq: Tensor, relu: bool) -> Tensor:
+    """``fn(x, ps, pb, dy, y, dssum, dssq, relu)`` (kernel 3, or its
+    plain version) on zero-padded channels; dW sliced back to (K, N)."""
+    k, n = x.shape[-1], dy.shape[-1]
+    dw = fn(_pad8(x), _pad8(ps), _pad8(pb), _pad8(dy), _pad8(y),
+            _pad8(dssum), _pad8(dssq), relu)
+    return dw[:k, :n].contiguous()
+
+
+def _count_pad(widths) -> bool:
+    """Whether a call with these channel widths pads (and count it)."""
+    if all(v % 8 == 0 for v in widths):
+        return False
+    with _launch_lock:
+        COPIES["fused_channel_pad"] += 1
+    return True
+
+
+# --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
-def _check_cuda(name: str, x: Tensor, others, widths):
+def _check_cuda(name: str, x: Tensor, others):
     """Raise on what the kernels do not take: a type other than bf16/f32,
     operands of another type or device, non-contiguous or unaligned
-    operands, channel widths that are not multiples of 8, or ``x`` off
-    the current device."""
+    operands, or ``x`` off the current device."""
     if x.dtype not in _SUFFIX:
         raise TypeError(f"{name}: x must be bfloat16 or float32, "
                         f"got {x.dtype}")
@@ -240,10 +311,6 @@ def _check_cuda(name: str, x: Tensor, others, widths):
             raise ValueError(f"{name}: operands must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
-    for v in widths:
-        if v % 8:
-            raise ValueError(f"{name}: channel widths must be multiples "
-                             f"of 8 (16-byte vectors), got {tuple(widths)}")
     if x.device.index not in (None, torch.cuda.current_device()):
         raise ValueError(f"{name}: x is on {x.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
@@ -373,7 +440,9 @@ def _matmul_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
                          f"{tuple(w.shape)}")
     if not _route("fused_matmul_bn", x):
         return fused_matmul_bn_plain(x, w, ps, pb, relu)
-    _check_cuda("fused_matmul_bn", x, (w,), (k, n))
+    if _count_pad((k, n)):
+        return _padded_forward(_matmul_forward, x, w, ps, pb, relu)
+    _check_cuda("fused_matmul_bn", x, (w,))
     if m == 0:
         raise ValueError("fused_matmul_bn: x has no rows")
     psv, pbv = _prologue_vectors("fused_matmul_bn", x.device, k, ps, pb)
@@ -434,7 +503,9 @@ def _conv3x3_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
     co = w.shape[3]
     if not _route("fused_conv3x3_bn", x):
         return fused_conv3x3_bn_plain(x, w, ps, pb, relu)
-    _check_cuda("fused_conv3x3_bn", x, (w,), (c, co))
+    if _count_pad((c, co)):
+        return _padded_forward(_conv3x3_forward, x, w, ps, pb, relu)
+    _check_cuda("fused_conv3x3_bn", x, (w,))
     m = b * h * wd
     if m == 0:
         raise ValueError("fused_conv3x3_bn: x has no pixels")
@@ -537,7 +608,10 @@ def fused_matmul_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
         return fused_matmul_bn_dgrad_plain(dy, y, dssum, dssq, w, x,
                                            prologue_scale, prologue_bias,
                                            relu)
-    _check_cuda(name, x, (dy, y, w), (k, n))
+    if _count_pad((k, n)):
+        return _padded_dgrad(fused_matmul_bn_dgrad, dy, y, dssum, dssq, w,
+                             x, prologue_scale, prologue_bias, relu)
+    _check_cuda(name, x, (dy, y, w))
     if m == 0:
         raise ValueError(f"{name}: x has no rows")
     if x.dtype == torch.bfloat16:
@@ -595,7 +669,10 @@ def fused_matmul_bn_wgrad(x: Tensor, prologue_scale: Optional[Tensor],
     if not _route(name, x):
         return fused_matmul_bn_wgrad_plain(x, prologue_scale, prologue_bias,
                                            dy, y, dssum, dssq, relu)
-    _check_cuda(name, x, (dy, y), (k, n))
+    if _count_pad((k, n)):
+        return _padded_wgrad(fused_matmul_bn_wgrad, x, prologue_scale,
+                             prologue_bias, dy, y, dssum, dssq, relu)
+    _check_cuda(name, x, (dy, y))
     if m == 0:
         raise ValueError(f"{name}: x has no rows")
     dssum = _vector(name, dssum, n, x.device)
@@ -654,7 +731,10 @@ def fused_conv3x3_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
         return fused_conv3x3_bn_dgrad_plain(dy, y, dssum, dssq, w, x,
                                             prologue_scale, prologue_bias,
                                             relu)
-    _check_cuda(name, x, (dy, y, w), (ci, co))
+    if _count_pad((ci, co)):
+        return _padded_dgrad(fused_conv3x3_bn_dgrad, dy, y, dssum, dssq, w,
+                             x, prologue_scale, prologue_bias, relu)
+    _check_cuda(name, x, (dy, y, w))
     m = b * h * wd
     if m == 0:
         raise ValueError(f"{name}: x has no pixels")

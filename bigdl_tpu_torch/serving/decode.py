@@ -28,21 +28,44 @@ per-slot int64 key and the vocabulary index), so the key is data to a
 captured tick; it cannot reproduce the JAX package's threefry streams.
 Greedy rows (``temp <= 0``) take the exact argmax.
 
-The decode engine itself (queue, admission, eviction, chunk scheduling,
-speculative rounds) is not ported yet.
+:class:`DecodeEngine` (bigdl_tpu/serving/decode.py:601-1860) drives
+these programs: a request queue, admission into free slots through a
+bucketed prefill (or a chunked one for long prompts), continuous
+batching at token granularity, deadlines, page budgeting with eviction
+of younger requests, and per-request sampling.  Speculative decoding
+(the draft's programs and the verify pass) is not ported yet, nor are
+the JAX engine's telemetry hooks (tracer, request X-ray, exemplars,
+program registry, HBM ledger), as ``ServingEngine`` leaves them out.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import collections
+import itertools
+import logging
+import queue
+import threading
+import time
+from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.nn.dropout import _GAMMA
 from bigdl_tpu_torch.nn.module import _lsr, mix64, split_rng
 from bigdl_tpu_torch.ops import paged_kv
+from bigdl_tpu_torch.serving import paging
+from bigdl_tpu_torch.serving.bucketing import BucketGrid
+from bigdl_tpu_torch.serving.engine import (DeadlineExceededError,
+                                            EngineClosedError,
+                                            QueueFullError, ServingFuture)
+from bigdl_tpu_torch.serving.metrics import (PeriodicMetricsLogger,
+                                             ServingMetrics)
 from bigdl_tpu_torch.utils import graphs
 
-__all__ = ["decode_tick_fn", "build_decode_tick", "prefill_fn",
+logger = logging.getLogger("bigdl_tpu_torch.serving")
+
+__all__ = ["DecodeEngine", "decode_tick_fn", "build_decode_tick", "prefill_fn",
            "build_prefill", "write_slot_fn", "build_write_slot",
            "sample_logits", "sampling_tick_fn", "build_sampling_tick",
            "paged_tick_fn", "build_paged_tick", "paged_write_slot_fn",
@@ -332,3 +355,829 @@ def build_prefill_chunk(model, cache, ids, advance) -> Callable:
     donated."""
     return _compile(prefill_chunk_fn(model), (cache, ids, advance),
                     out_at=1)
+
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+class _DecodeRequest:
+    __slots__ = ("prompt", "max_new", "fut", "t_submit", "deadline",
+                 "rid", "temp", "top_k", "top_p", "key")
+
+    def __init__(self, prompt, max_new, fut, t_submit, deadline, rid=0,
+                 temp=0.0, top_k=0, top_p=1.0, key=0):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.fut = fut
+        self.t_submit = t_submit
+        self.deadline = deadline
+        self.rid = rid
+        self.temp = temp
+        self.top_k = top_k
+        self.top_p = top_p
+        # the request's int64 sampling key, data to the tick (never a
+        # capture constant)
+        self.key = key
+
+
+def _key_for_seed(seed: int) -> int:
+    """A request's sampling key: the seed's low 63 bits, the form of the
+    per-slot keys that :func:`sample_logits` hashes (the JAX engine keeps
+    the seed's bits as a raw threefry key)."""
+    return int(seed) & ((1 << 63) - 1)
+
+
+def _host_sample(logits: Tensor, req: _DecodeRequest) -> int:
+    """Token 0 from the prefill's next-token logits (V,) on the host.
+    Greedy requests take the exact argmax (the first maximum); sampled
+    ones draw by :func:`sample_logits` under the request's key: the
+    first draw of the stream whose next keys, ``split_rng(key, 0)`` and
+    on, the slot's ticks use."""
+    if req.temp <= 0.0:
+        return int(torch.argmax(logits))
+    return int(sample_logits(
+        logits[None].float(), torch.tensor([req.key], dtype=torch.int64),
+        torch.tensor([req.temp], dtype=torch.float32),
+        torch.tensor([req.top_k], dtype=torch.int32),
+        torch.tensor([req.top_p], dtype=torch.float32))[0])
+
+
+class _Slot:
+    __slots__ = ("req", "generated")
+
+    def __init__(self, req: _DecodeRequest, first_token: int):
+        self.req = req
+        self.generated = [first_token]
+
+
+_CLOSE = object()  # queue sentinel
+
+
+class DecodeEngine:
+    """KV-cached incremental decoding with continuous batching
+    (bigdl_tpu/serving/decode.py:664).
+
+    ``model`` exposes the cached-decode methods of ``nn.Transformer``
+    (``init_cache``/``prefill``/``decode_step``/``extend`` and the paged
+    twins); ``variables``, when given, is a JAX ``{"params", "state"}``
+    tree loaded into it by name.  ``device`` defaults to the card;
+    ``device="cpu"`` serves on the CPU.  ``slots`` sequences decode
+    together, one tick program advancing all of them; ``max_len`` bounds
+    each slot's cache (prompt + new tokens - 1 must fit).  Prompts are
+    prefilled in buckets of ``prompt_buckets`` x ``prefill_batch_sizes``
+    (a longer prompt becomes a learned bucket), or, with
+    ``prefill_chunk=C``, a prompt longer than the largest bucket is fed
+    C tokens per loop iteration through a batch-1 staging cache.
+    Per-request sampling (``temperature``/``top_k``/``top_p``/``seed``)
+    runs inside the tick; the default is greedy, the exact argmax.
+    ``continuous=False`` admits only into an empty grid (static
+    batching, the baseline).  ``kv_layout="paged"`` keeps the cache in
+    a page pool (``page_size``, ``num_pages``; pages return to the
+    allocator at retirement) and ``kv_dtype="int8"`` quantizes it.
+
+    Every program is one of this module's ``build_*``: on the card a
+    CUDA graph captured at its first sight, which ``metrics.recompiles``
+    counts; ``warmup()`` captures :meth:`declared_programs` of them.
+    Speculative decoding (``draft``, ``draft_k``) raises
+    ``NotImplementedError``.
+    """
+
+    #: tokens a slot may write past its valid length in one round (the
+    #: next tick's token), which page budgeting funds ahead
+    _PAGE_SLACK = 1
+
+    def __init__(self, model, variables: Optional[dict] = None, *,
+                 slots: int = 8,
+                 max_len: int = 160,
+                 prompt_buckets: Sequence[int] = (8, 16, 32),
+                 prefill_batch_sizes: Sequence[int] = (1, 4, 8),
+                 eos_id: Optional[int] = None,
+                 max_queue: int = 1024,
+                 default_deadline_ms: Optional[float] = None,
+                 continuous: bool = True,
+                 warmup: bool = True,
+                 start: bool = True,
+                 metrics: Optional[ServingMetrics] = None,
+                 metrics_log_every_s: Optional[float] = None,
+                 kv_layout: str = "dense",
+                 page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 kv_dtype=None,
+                 prefill_chunk: Optional[int] = None,
+                 draft: Optional[tuple] = None,
+                 draft_k: Optional[int] = None,
+                 device: DeviceLike = None):
+        if draft is not None or draft_k is not None:
+            raise NotImplementedError(
+                "speculative decoding (draft=, draft_k=) is not ported "
+                "yet: it comes with the port's speculative-decoding slice")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', "
+                             f"got {kv_layout!r}")
+        if kv_dtype is not None and kv_layout != "paged":
+            raise ValueError("kv_dtype requires kv_layout='paged'")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        if variables is not None:
+            from bigdl_tpu_torch.utils.convert import load_jax_variables
+            load_jax_variables(self.model, variables)
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self.eos_id = eos_id
+        self.default_deadline_ms = default_deadline_ms
+        self.continuous = continuous
+        self.metrics = metrics if metrics is not None else ServingMetrics()
+        self.grid = BucketGrid([(int(t),) for t in prompt_buckets],
+                               prefill_batch_sizes, pad_value=0)
+        self._largest_bucket = max(int(t) for t in prompt_buckets)
+        self._dtype = self.model.embed.weight.dtype
+        self.kv_layout = kv_layout
+        self.paged = kv_layout == "paged"
+        if self.paged:
+            self.page_size = int(page_size if page_size is not None
+                                 else paging.page_size_default())
+            self.num_pages = int(
+                num_pages if num_pages is not None
+                else paging.default_num_pages(self.slots, self.max_len,
+                                              self.page_size))
+            self.kv_dtype = kv_dtype if kv_dtype is not None \
+                else paging.kv_dtype_default()
+            self._page_zero = paging.page_zero_enabled()
+            self._alloc = paging.PageAllocator(
+                self.num_pages, self.page_size, self.slots, self.max_len)
+            self._cache = self.model.init_paged_cache(
+                self.num_pages, self.page_size, self.slots, self._dtype,
+                kv_dtype=self.kv_dtype)
+        else:
+            self.page_size = None
+            self.num_pages = 0
+            self.kv_dtype = None
+            self._page_zero = False
+            self._alloc = None
+            self._cache = self.model.init_cache(self.slots, self.max_len,
+                                                self._dtype)
+        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        self._programs: dict = {}  # key -> compiled program
+
+        # the host's grid state, copied into each tick
+        self._tokens = np.zeros((self.slots,), np.int32)
+        self._active = np.zeros((self.slots,), bool)
+        self._slot_state: List[Optional[_Slot]] = [None] * self.slots
+        self._keys = np.zeros((self.slots,), np.int64)
+        self._temps = np.zeros((self.slots,), np.float32)
+        self._topks = np.zeros((self.slots,), np.int32)
+        self._topps = np.ones((self.slots,), np.float32)
+        # each slot's valid cache extent (prompt + generated - 1), which
+        # page budgeting reads
+        self._host_len = np.zeros((self.slots,), np.int32)
+        self._chunking: Optional[dict] = None
+        self._chunk_pending: "collections.deque[_DecodeRequest]" = \
+            collections.deque()
+
+        self._rids = itertools.count()
+        self._periodic = PeriodicMetricsLogger(
+            self.log_line, every_s=metrics_log_every_s)
+        self._rq: "queue.Queue" = queue.Queue(maxsize=max(1, max_queue))
+        self._pending: "collections.deque[_DecodeRequest]" = \
+            collections.deque()
+        self._closed = False
+        self._discard = False
+        self._close_lock = threading.Lock()
+        # the programs and the grid state: one loop iteration, or a
+        # warmup, at a time
+        self._lock = threading.Lock()
+        self._loop_thread = threading.Thread(
+            target=self._loop, daemon=True, name="bigdl-decode-loop")
+        self._started = False
+
+        if warmup:
+            self.warmup()
+        if start:
+            self.start()
+
+    # ------------------------------------------------------------------
+    # programs (the compile counter lives here)
+    # ------------------------------------------------------------------
+    @property
+    def recompiles(self) -> int:
+        return self.metrics.recompiles
+
+    def _tracked(self, key, build: Callable) -> Callable:
+        """The program ``key``, built by ``build()`` at its first sight,
+        which ``metrics.recompiles`` counts with its seconds (on the card
+        a CUDA graph captured, its warm-up calls included; on the CPU
+        the eager function)."""
+        prog = self._programs.get(key)
+        if prog is None:
+            t0 = time.perf_counter()
+            prog = build()
+            self.metrics.record_recompile(time.perf_counter() - t0)
+            self._programs[key] = prog
+        return prog
+
+    def _dev(self, a: np.ndarray) -> Tensor:
+        """A host array on the engine's device: a program's example
+        argument (calls pass ``torch.from_numpy`` views, which a captured
+        program copies into its inputs)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def declared_programs(self) -> int:
+        """How many programs a full warmup captures: the tick, and a
+        prefill and its slot write per declared (batch, prompt) bucket;
+        chunked prefill adds the chunk program and its write, and a
+        paged engine that zeroes pages the page reset.  A write is keyed
+        by the program whose cache it reads, so it always reads that
+        cache in place (the JAX engine keys it by batch size: one
+        compiled program serves any input buffer there, while a graph
+        reads fixed addresses)."""
+        n = 2 * len(self.grid.declared_buckets()) + 1
+        if self.prefill_chunk:
+            n += 2
+        if self.paged and self._page_zero:
+            n += 1
+        return n
+
+    def warmup(self) -> int:
+        """Capture every declared program not captured yet, each run
+        once (an all-idle tick, zero prompts prefilled and written into a
+        slot that holds no request, a chunk into a fresh staging cache,
+        an empty page reset), so that no request waits on a capture;
+        returns how many ran (0 on a re-warm).  Writes need a slot with
+        no request, and the chunk program a moment when no chunked
+        prefill holds its staging cache; otherwise they are captured at
+        their first use."""
+        before = self.metrics.recompiles
+        with self._lock:
+            if ("tick",) not in self._programs:
+                self._run_tick()
+            idle = next((s for s in range(self.slots)
+                         if self._slot_state[s] is None
+                         and not self._active[s]
+                         and (self._chunking is None
+                              or self._chunking["slot"] != s)), None)
+            for bucket in self.grid.declared_buckets():
+                ids = np.zeros((bucket.batch,) + bucket.dims, np.int32)
+                src = ("prefill", ids.shape)
+                write = ("write",) + src not in self._programs \
+                    and idle is not None
+                if src in self._programs and not write:
+                    continue
+                _, pcache = self._run_prefill(
+                    ids, np.ones((bucket.batch,), np.int32))
+                if write:
+                    self._run_write(pcache, 0, idle, src)
+            write = ("write", "chunk") not in self._programs \
+                and idle is not None
+            if self.prefill_chunk and self._chunking is None and (
+                    ("chunk",) not in self._programs or write):
+                staging = self.model.init_cache(1, self.max_len,
+                                                self._dtype)
+                _, staging = self._run_chunk(
+                    staging, np.zeros((1, self.prefill_chunk), np.int32),
+                    np.ones((1,), np.int32))
+                if write:
+                    self._run_write(staging, 0, idle, ("chunk",))
+            if self._page_zero and ("page_reset",) not in self._programs:
+                self._run_page_reset([])
+        return self.metrics.recompiles - before
+
+    def _tick_args(self, place: Callable) -> tuple:
+        host = (self._tokens, self._active, self._keys, self._temps,
+                self._topks, self._topps)
+        if self.paged:
+            host = (self._alloc.table,) + host
+        return (self._cache,) + tuple(place(a) for a in host)
+
+    def _run_tick(self) -> np.ndarray:
+        """One tick of the whole grid; the next tokens on the host (the
+        tick's one synchronisation), the slots' keys advanced."""
+        build = build_paged_tick if self.paged else build_sampling_tick
+        prog = self._tracked(("tick",), lambda: build(
+            self.model, *self._tick_args(self._dev)))
+        self._cache, nxt, keys = prog(*self._tick_args(torch.from_numpy))
+        self._keys = keys.cpu().numpy().copy()
+        return nxt.cpu().numpy().copy()
+
+    def _run_prefill(self, ids: np.ndarray, lengths: np.ndarray):
+        prog = self._tracked(("prefill", ids.shape), lambda: build_prefill(
+            self.model, self.max_len, self._dev(ids), self._dev(lengths),
+            self._dtype))
+        return prog(torch.from_numpy(ids), torch.from_numpy(lengths))
+
+    def _run_write(self, pcache, row: int, slot: int, src: tuple):
+        """Row ``row`` of ``pcache`` into grid slot ``slot``: one write
+        program per program ``src`` that makes such caches (a prefill
+        bucket, or the chunk program's staging cache), built on that
+        program's output, which each call then reads in place."""
+        rs = (np.array([row], np.int32), np.array([slot], np.int32))
+        key = ("write",) + src
+        if self.paged:
+            table_row = self._alloc.table[slot]
+            prog = self._tracked(key, lambda: build_paged_write_slot(
+                self._cache, self._dev(table_row), pcache,
+                *map(self._dev, rs)))
+            self._cache = prog(self._cache, torch.from_numpy(table_row),
+                               pcache, *map(torch.from_numpy, rs))
+        else:
+            prog = self._tracked(key, lambda: build_write_slot(
+                self._cache, pcache, *map(self._dev, rs)))
+            self._cache = prog(self._cache, pcache,
+                               *map(torch.from_numpy, rs))
+
+    def _run_page_reset(self, pages):
+        """Zero freed physical pages; the id vector has a fixed length,
+        padded with the trash page 0."""
+        arr = np.zeros((self._alloc.pages_per_slot,), np.int32)
+        ids = np.asarray(pages, np.int32)[:arr.size]
+        arr[:ids.size] = ids
+        prog = self._tracked(("page_reset",), lambda: build_page_reset(
+            self._cache, self._dev(arr)))
+        self._cache = prog(self._cache, torch.from_numpy(arr))
+
+    def _run_chunk(self, staging, ids: np.ndarray, adv: np.ndarray):
+        """One prompt chunk into the batch-1 ``staging`` cache: the last
+        valid position's logits on the host, and the staging cache."""
+        prog = self._tracked(("chunk",), lambda: build_prefill_chunk(
+            self.model, staging, self._dev(ids), self._dev(adv)))
+        last, staging = prog(staging, torch.from_numpy(ids),
+                             torch.from_numpy(adv))
+        return last.float().cpu(), staging
+
+    # ------------------------------------------------------------------
+    # client API
+    # ------------------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int,
+               deadline_ms: Optional[float] = None, *,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0,
+               seed: Optional[int] = None) -> ServingFuture:
+        """Queue one prompt (1-D ints, at least one); returns a future
+        resolving to the generated token ids (1-D ``int32``, the EOS
+        included when hit).  ``temperature > 0`` samples inside the tick
+        (``top_k``/``top_p`` filter; ``seed``, by default the request's
+        id, makes the stream reproducible); ``temperature == 0`` is exact
+        greedy.  Raises :class:`QueueFullError` when the bounded queue is
+        full, :class:`EngineClosedError` after ``close()``,
+        ``ValueError`` when the request cannot fit the cache and
+        ``OutOfPagesError`` when it cannot fit an empty page pool."""
+        if self._closed:
+            raise EngineClosedError("submit on a closed decode engine")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt: cached decode needs at "
+                             "least one prompt token to prefill")
+        max_new_tokens = int(max_new_tokens)
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{max_new_tokens}")
+        temperature, top_k, top_p = float(temperature), int(top_k), \
+            float(top_p)
+        if temperature > 0.0 and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        worst = int(prompt.size) + max_new_tokens - 1
+        if worst > self.max_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({max_new_tokens}) - 1 exceeds the cache max_len "
+                f"({self.max_len})")
+        if self.paged:
+            pages = min(-(-worst // self.page_size),
+                        self._alloc.pages_per_slot)
+            if pages > self.num_pages - 1:
+                raise paging.OutOfPagesError(
+                    f"request needs {pages} pages at its longest but "
+                    f"the pool only has {self.num_pages - 1} usable "
+                    f"pages of {self.page_size} tokens")
+        fut = ServingFuture()
+        now = time.perf_counter()
+        dl = deadline_ms if deadline_ms is not None \
+            else self.default_deadline_ms
+        rid = next(self._rids)
+        req = _DecodeRequest(prompt, max_new_tokens, fut, now,
+                             now + dl / 1e3 if dl is not None else None,
+                             rid=rid, temp=temperature, top_k=top_k,
+                             top_p=top_p,
+                             key=_key_for_seed(rid if seed is None
+                                               else seed))
+        try:
+            self._rq.put_nowait(req)
+        except queue.Full:
+            self.metrics.inc_rejected()
+            raise QueueFullError(
+                f"decode queue full ({self._rq.maxsize}); retry later"
+            ) from None
+        return fut
+
+    def generate(self, prompt, max_new_tokens: int,
+                 deadline_ms: Optional[float] = None,
+                 timeout: Optional[float] = None, **sampling) -> np.ndarray:
+        """Submit one prompt and wait for its generated tokens;
+        ``**sampling`` forwards ``temperature``/``top_k``/``top_p``/
+        ``seed`` to :meth:`submit`."""
+        return self.submit(prompt, max_new_tokens, deadline_ms=deadline_ms,
+                           **sampling).result(timeout)
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    def start(self):
+        if not self._started:
+            self._started = True
+            self._loop_thread.start()
+            self._periodic.start()
+
+    def close(self, drain: bool = True, timeout: float = 60.0):
+        """Stop accepting requests and shut down.  ``drain=True`` decodes
+        everything queued or in flight to its end first; ``drain=False``
+        fails undelivered requests with :class:`EngineClosedError`.
+        Waits at most ``timeout`` seconds for the loop.  Idempotent."""
+        with self._close_lock:
+            already, self._closed = self._closed, True
+        if already:
+            return
+        self._periodic.close()
+        self._discard = not drain
+        if not self._started:
+            self._fail_queued(EngineClosedError(
+                "decode engine closed before start"))
+            return
+        self._rq.put(_CLOSE)
+        self._loop_thread.join(timeout)
+
+    def _fail_queued(self, exc: BaseException):
+        while True:
+            try:
+                req = self._rq.get_nowait()
+            except queue.Empty:
+                break
+            if req is not _CLOSE:
+                req.fut.set_exception(exc)
+        for q in (self._pending, self._chunk_pending):
+            while q:
+                q.popleft().fut.set_exception(exc)
+        if self._chunking is not None:
+            self._chunking["req"].fut.set_exception(exc)
+            self._chunking = None
+
+    def _fail_slots(self, exc: BaseException):
+        """Fail every occupied slot's request, then free the slots with
+        no program run (freed pages are not zeroed), so that a device
+        fault cannot leave a request waiting."""
+        held = [s for s in range(self.slots)
+                if self._slot_state[s] is not None]
+        for s in held:
+            self._slot_state[s].req.fut.set_exception(exc)
+        for s in held:
+            self._free(s, zero_pages=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------------
+    # engine loop: admit (prefill into free slots), then tick the grid
+    # ------------------------------------------------------------------
+    def _idle(self) -> bool:
+        return (not self._active.any() and not self._pending
+                and self._chunking is None and not self._chunk_pending
+                and all(st is None for st in self._slot_state))
+
+    def _loop(self):
+        try:
+            self._serve()
+        except Exception as e:  # a fault fails every request, not hangs
+            logger.exception("decode loop failed")
+            self._closed = True
+            self._periodic.close()
+            with self._lock:
+                self._fail_queued(e)
+                self._fail_slots(e)
+
+    def _serve(self):
+        stopping = False
+        while True:
+            stopping = self._drain_queue(block=self._idle(),
+                                         stopping=stopping)
+            with self._lock:
+                if stopping and self._discard:
+                    exc = EngineClosedError("decode engine closed")
+                    self._fail_queued(exc)
+                    self._fail_slots(exc)
+                    return
+                self._admit()
+                self._chunk_step()
+                if self.paged:
+                    # fund (and resume) occupied slots before the tick
+                    self._budget_pages()
+                if not self._active.any():
+                    if stopping and self._idle():
+                        return
+                    continue
+                t0 = time.perf_counter()
+                nxt = self._run_tick()
+                self.metrics.record_tick(time.perf_counter() - t0)
+                self._tokens = nxt
+                n_active = int(self._active.sum())
+                self.metrics.record_decode_tokens(n_active)
+                self.metrics.record_slot_occupancy(n_active / self.slots)
+                self._host_len[self._active] += 1
+                self._retire(nxt)
+
+    def _drain_queue(self, block: bool, stopping: bool) -> bool:
+        """Move queued requests into the admission deque; ``block`` waits
+        briefly when the engine is otherwise idle."""
+        while True:
+            try:
+                req = self._rq.get(timeout=0.005) if block \
+                    else self._rq.get_nowait()
+            except queue.Empty:
+                return stopping
+            block = False
+            if req is _CLOSE:
+                stopping = True
+                continue
+            self._pending.append(req)
+
+    def _free_slots(self) -> List[int]:
+        reserved = self._chunking["slot"] if self._chunking else -1
+        return [s for s in range(self.slots)
+                if not self._active[s] and self._slot_state[s] is None
+                and s != reserved]
+
+    def _expire(self, req: _DecodeRequest, now: float, what: str) -> bool:
+        """Fail ``req`` if its deadline passed before ``what``."""
+        if req.deadline is None or now <= req.deadline:
+            return False
+        self.metrics.inc_expired()
+        req.fut.set_exception(DeadlineExceededError(
+            f"deadline expired {1e3 * (now - req.deadline):.1f}ms before "
+            f"{what}"))
+        return True
+
+    def _admit(self):
+        if self.prefill_chunk:
+            # prompts longer than the largest declared bucket take the
+            # chunked path instead of learning a one-off bucket
+            keep: "collections.deque[_DecodeRequest]" = collections.deque()
+            while self._pending:
+                r = self._pending.popleft()
+                (self._chunk_pending if r.prompt.size > self._largest_bucket
+                 else keep).append(r)
+            self._pending = keep
+        free = self._free_slots()
+        if not self._pending or not free:
+            return
+        if not self.continuous and len(free) < self.slots:
+            # static batching: wait for the whole grid to drain
+            return
+        now = time.perf_counter()
+        taken: List[_DecodeRequest] = []
+        while self._pending and len(taken) < len(free):
+            req = self._pending.popleft()
+            if not self._expire(req, now, "prefill"):
+                taken.append(req)
+        if self.paged and taken:
+            # admission never evicts (an evicted request re-queues and
+            # could evict its evictor back): a prompt that does not fit
+            # the free list waits for retirements
+            fits: List[_DecodeRequest] = []
+            free_pages = self._alloc.pages_free
+            for i, req in enumerate(taken):
+                need = min(-(-(int(req.prompt.size) + self._PAGE_SLACK)
+                             // self.page_size),
+                           self._alloc.pages_per_slot)
+                if need > free_pages:
+                    self._pending.extendleft(reversed(taken[i:]))
+                    break
+                free_pages -= need
+                fits.append(req)
+            taken = fits
+        groups: dict = {}
+        for r in taken:
+            dims, _ = self.grid.choose_dims(r.prompt.shape)
+            groups.setdefault(dims, []).append(r)
+        free_iter = iter(free)
+        for dims, rs in groups.items():
+            for lo in range(0, len(rs), self.grid.max_batch):
+                chunk = rs[lo:lo + self.grid.max_batch]
+                t0 = time.perf_counter()
+                try:
+                    self._prefill_batch(chunk, dims, free_iter)
+                except Exception as e:  # per-request delivery
+                    for r in chunk:
+                        if not r.fut.done():
+                            r.fut.set_exception(e)
+                    continue
+                self.metrics.record_prefill(time.perf_counter() - t0)
+
+    def _prefill_batch(self, chunk: List[_DecodeRequest], dims, free_iter):
+        b = self.grid.choose_batch(len(chunk))
+        ids = self.grid.pad_batch([r.prompt for r in chunk], dims, b,
+                                  np.int32)
+        lengths = np.ones((b,), np.int32)
+        lengths[:len(chunk)] = [r.prompt.size for r in chunk]
+        logits, pcache = self._run_prefill(ids, lengths)
+        logits = logits.float().cpu()
+        for i, r in enumerate(chunk):
+            tok0 = _host_sample(logits[i], r)
+            if self._done_at_first(r, tok0):
+                continue
+            slot = next(free_iter)
+            if self.paged and not self._alloc.ensure(
+                    slot, int(r.prompt.size) + self._PAGE_SLACK):
+                # admission reserved these pages; losing them is
+                # unexpected but recoverable: wait, do not evict
+                self._pending.appendleft(r)
+                continue
+            if self.paged:
+                self.metrics.record_pages(self._alloc.pages_in_use)
+            self._run_write(pcache, i, slot, ("prefill", ids.shape))
+            self._activate(slot, r, tok0)
+
+    def _done_at_first(self, req: _DecodeRequest, tok0: int) -> bool:
+        """Deliver ``req`` at its first token when that is an EOS or its
+        whole budget."""
+        eos = self.eos_id is not None and tok0 == self.eos_id
+        if eos or req.max_new <= 1:
+            self._finish(req, [tok0], "eos" if eos else "length")
+            return True
+        return False
+
+    def _activate(self, slot: int, req: _DecodeRequest, tok0: int):
+        """Bind a prefilled request to its slot: the token fed to the
+        next tick, its sampling state and the host's length."""
+        self._tokens[slot] = tok0
+        self._active[slot] = True
+        self._slot_state[slot] = _Slot(req, tok0)
+        self._host_len[slot] = int(req.prompt.size)
+        self._keys[slot] = split_rng(req.key, 0)
+        self._temps[slot] = req.temp
+        self._topks[slot] = req.top_k
+        self._topps[slot] = req.top_p
+
+    # ------------------------------------------------------------------
+    # chunked prefill: one chunk per loop iteration, so a long prompt
+    # never stalls the occupied slots between ticks
+    # ------------------------------------------------------------------
+    def _chunk_step(self):
+        if not self.prefill_chunk:
+            return
+        if self._chunking is None and self._chunk_pending:
+            free = self._free_slots()
+            if free:
+                req = self._chunk_pending.popleft()
+                if self._expire(req, time.perf_counter(), "prefill"):
+                    return
+                self._chunking = {
+                    "req": req, "slot": free[0], "offset": 0,
+                    "staging": self.model.init_cache(1, self.max_len,
+                                                     self._dtype)}
+        c = self._chunking
+        if c is None:
+            return
+        if "tok0" in c:
+            # prefilled, but the page pool was full: retry as ticks
+            # retire slots and free pages
+            self._finalize_chunk(c)
+            return
+        req = c["req"]
+        now = time.perf_counter()
+        if self._expire(req, now, f"the rest of its chunked prefill "
+                        f"({c['offset']}/{req.prompt.size} tokens in)"):
+            self._chunking = None  # nothing reached the grid cache yet
+            return
+        size, lo = self.prefill_chunk, c["offset"]
+        hi = min(lo + size, int(req.prompt.size))
+        ids = np.zeros((1, size), np.int32)
+        ids[0, :hi - lo] = req.prompt[lo:hi]
+        last, c["staging"] = self._run_chunk(
+            c["staging"], ids, np.array([hi - lo], np.int32))
+        self.metrics.inc_prefill_chunks()
+        self.metrics.record_prefill(time.perf_counter() - now)
+        c["offset"] = hi
+        if hi < req.prompt.size:
+            return  # more chunks on later loop iterations
+        tok0 = _host_sample(last[0], req)
+        if self._done_at_first(req, tok0):
+            self._chunking = None
+            return
+        c["tok0"] = tok0
+        self._finalize_chunk(c)
+
+    def _finalize_chunk(self, c: dict):
+        """Splice a chunk-prefilled request into its reserved slot,
+        deferred while the page pool is full (admission never evicts)."""
+        req, slot = c["req"], c["slot"]
+        if self.paged:
+            if not self._alloc.ensure(
+                    slot, int(req.prompt.size) + self._PAGE_SLACK):
+                return  # retry next loop iteration
+            self.metrics.record_pages(self._alloc.pages_in_use)
+        self._chunking = None
+        self._run_write(c["staging"], 0, slot, ("chunk",))
+        self._activate(slot, req, c["tok0"])
+
+    # ------------------------------------------------------------------
+    # page budgeting
+    # ------------------------------------------------------------------
+    def _budget_pages(self):
+        """Before each tick, fund every occupied slot with pages for the
+        tokens this tick writes, oldest request first.  A slot the free
+        list cannot fund evicts strictly younger requests (they re-queue
+        and decode again to the same tokens); with no younger donor it
+        is paused, keeping its pages and tokens, until retirements free
+        pages.  ``submit`` lets in only requests that fit an empty pool,
+        so the oldest slot is always funded: no livelock."""
+        order = sorted((s for s in range(self.slots)
+                        if self._slot_state[s] is not None),
+                       key=lambda s: self._slot_state[s].req.rid)
+        for s in order:
+            if self._slot_state[s] is None:
+                continue  # evicted by an older slot this round
+            need = int(self._host_len[s]) + self._PAGE_SLACK
+            self._active[s] = self._ensure_pages(s, need)
+
+    def _ensure_pages(self, slot: int, tokens: int) -> bool:
+        """Grow ``slot`` to cover ``tokens``, evicting the youngest
+        occupied slot younger than this one while the free list runs
+        short.  False when no such donor is left."""
+        me = self._slot_state[slot].req.rid
+        while not self._alloc.ensure(slot, tokens):
+            victim, rid = None, me
+            for s in range(self.slots):
+                st = self._slot_state[s]
+                if s != slot and st is not None and st.req.rid > rid:
+                    victim, rid = s, st.req.rid
+            if victim is None:
+                return False
+            self._evict(victim)
+        self.metrics.record_pages(self._alloc.pages_in_use)
+        return True
+
+    def _evict(self, victim: int):
+        """Free ``victim``'s pages and re-queue its request at the front:
+        greedy and seeded decoding restart to the same tokens, so an
+        eviction costs time, not output."""
+        self.metrics.inc_page_evictions()
+        self._pending.appendleft(self._slot_state[victim].req)
+        self._free(victim)
+
+    # ------------------------------------------------------------------
+    # bytes, retirement
+    # ------------------------------------------------------------------
+    def _page_bytes_total(self) -> int:
+        """Bytes one physical page takes across every layer's pool (K, V
+        and, int8, their scales)."""
+        return sum(leaf[0].numel() * leaf.element_size()
+                   for pool in self._cache.values()
+                   for name, leaf in pool.items() if name != "length")
+
+    def _cache_bytes_total(self) -> int:
+        """Bytes of the whole cache: the dense grid's fixed reservation,
+        or the whole page pool."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for leaf in graphs.leaves(self._cache))
+
+    def _retire(self, nxt: np.ndarray):
+        now = time.perf_counter()
+        for s in range(self.slots):
+            if not self._active[s]:
+                continue
+            st = self._slot_state[s]
+            st.generated.append(int(nxt[s]))
+            req = st.req
+            if self.eos_id is not None and int(nxt[s]) == self.eos_id:
+                self._finish(req, st.generated, "eos")
+            elif len(st.generated) >= req.max_new:
+                self._finish(req, st.generated, "length")
+            elif req.deadline is not None and now > req.deadline:
+                # decoding has started: truncate, do not fail
+                self._finish(req, st.generated, "deadline")
+            else:
+                continue
+            self._free(s)
+
+    def _finish(self, req: _DecodeRequest, tokens: List[int], reason: str):
+        self.metrics.inc_finished(reason)
+        self.metrics.inc_completed()
+        self.metrics.record_latency(time.perf_counter() - req.t_submit)
+        req.fut.set_result(np.asarray(tokens, np.int32))
+
+    def _free(self, slot: int, zero_pages: bool = True):
+        self._active[slot] = False
+        self._slot_state[slot] = None
+        self._temps[slot] = 0.0
+        self._topks[slot] = 0
+        self._topps[slot] = 1.0
+        self._host_len[slot] = 0
+        if self.paged:
+            freed = self._alloc.release(slot)
+            if freed and self._page_zero and zero_pages:
+                self._run_page_reset(freed)
+            self.metrics.record_pages(self._alloc.pages_in_use)
+
+    def log_line(self) -> str:
+        return self.metrics.log_line()

@@ -37,7 +37,8 @@ import torch
 
 from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.serving.bucketing import Bucket, BucketGrid
-from bigdl_tpu_torch.serving.metrics import ServingMetrics
+from bigdl_tpu_torch.serving.metrics import (PeriodicMetricsLogger,
+                                             ServingMetrics)
 from bigdl_tpu_torch.serving.warmup import build_forward, compile_bucket
 from bigdl_tpu_torch.utils import graphs
 
@@ -180,9 +181,8 @@ class ServingEngine:
             target=self._dispatch_loop, daemon=True, name="bigdl-serve-dispatch")
         self._drainer = threading.Thread(
             target=self._drain_loop, daemon=True, name="bigdl-serve-drain")
-        self._log_every_s = metrics_log_every_s or 0.0
-        self._log_stop = threading.Event()
-        self._logger: Optional[threading.Thread] = None
+        self._periodic = PeriodicMetricsLogger(
+            self.log_line, every_s=metrics_log_every_s)
         self._started = False
 
         if warmup and self.grid.dims_grid:
@@ -292,15 +292,12 @@ class ServingEngine:
             self._started = True
             self._dispatcher.start()
             self._drainer.start()
-            if self._log_every_s > 0:
-                self._logger = threading.Thread(
-                    target=self._log_loop, daemon=True,
-                    name="bigdl-serve-log")
-                self._logger.start()
+            self._periodic.start()
 
-    def _log_loop(self):
-        while not self._log_stop.wait(self._log_every_s):
-            logger.info(self.log_line())
+    @property
+    def _logger(self) -> Optional[threading.Thread]:
+        """The periodic log line's thread (``None`` while it is off)."""
+        return self._periodic.thread
 
     def close(self, drain: bool = True, timeout: float = 30.0):
         """Stop accepting requests and shut down.  ``drain=True`` serves
@@ -311,9 +308,7 @@ class ServingEngine:
             already, self._closed = self._closed, True
         if already:
             return
-        self._log_stop.set()
-        if self._logger is not None:
-            self._logger.join(timeout)
+        self._periodic.close(timeout)
         self._discard = not drain
         if not self._started:
             while True:

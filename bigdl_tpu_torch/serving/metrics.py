@@ -1,19 +1,29 @@
 """Serving metrics (the subset of bigdl_tpu/serving/metrics.py that the
-engine records): request latency percentiles, throughput, batch
+engines record): request latency percentiles, throughput, batch
 occupancy, queue depth, rejected and expired requests, the compile
 counter ``recompiles`` (bigdl_tpu/serving/metrics.py:27) with its
-seconds, and the canonical ``log_line()``.
+seconds; the decode engine's counters (prefill and tick times, decoded
+tokens, slot occupancy, retirements by reason, pages in use, page
+evictions, prefill chunks); the canonical ``log_line()``; and
+:class:`PeriodicMetricsLogger`, which logs an engine's line on a
+cadence.
 
-The JAX engine's cost/MFU columns read XLA's ``cost_analysis`` and have
-no counterpart here yet.
+The JAX engine's cost/MFU columns read XLA's ``cost_analysis`` and its
+speculative counters belong to speculative decoding; neither has a
+counterpart here yet.
 """
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 from collections import deque
+from typing import Callable, Optional
 
-__all__ = ["ServingMetrics"]
+__all__ = ["PeriodicMetricsLogger", "ServingMetrics", "metrics_log_every_s"]
+
+logger = logging.getLogger("bigdl_tpu_torch.serving")
 
 
 class ServingMetrics:
@@ -27,10 +37,16 @@ class ServingMetrics:
         self._t0 = time.perf_counter()
         self._latency = deque(maxlen=window)
         self._occupancy = deque(maxlen=window)
+        self._ticks = deque(maxlen=window)
         self._counts = {"completed": 0, "rejected": 0, "expired": 0,
-                        "batches": 0, "recompiles": 0}
+                        "batches": 0, "recompiles": 0, "decoded_tokens": 0,
+                        "page_evictions": 0, "prefill_chunks": 0}
+        # decode phases: (sum, count) since the start, for their means
+        self._means = {"prefill": [0.0, 0], "tick": [0.0, 0],
+                       "slot_occupancy": [0.0, 0]}
         self._recompile_s = 0.0
         self._queue_depth = 0
+        self._pages_in_use = 0
 
     # -- recording (engine-internal) -----------------------------------
     def _inc(self, key: str, n: int = 1):
@@ -52,6 +68,54 @@ class ServingMetrics:
         with self._lock:
             self._counts["recompiles"] += 1
             self._recompile_s += seconds
+
+    def _mean_add(self, key: str, value: float):
+        with self._lock:
+            m = self._means[key]
+            m[0] += value
+            m[1] += 1
+
+    def _mean(self, key: str) -> float:
+        with self._lock:
+            total, n = self._means[key]
+        return total / n if n else 0.0
+
+    # -- the decode engine (serving/decode.py) --------------------------
+    def record_prefill(self, seconds: float):
+        """One prefill batch or prefill chunk, host seconds."""
+        self._mean_add("prefill", seconds)
+
+    def record_tick(self, seconds: float):
+        """One grid tick (one token per active slot), host seconds."""
+        with self._lock:
+            self._ticks.append(seconds)
+        self._mean_add("tick", seconds)
+
+    def record_decode_tokens(self, n: int):
+        self._inc("decoded_tokens", n)
+
+    def record_slot_occupancy(self, frac: float):
+        """Active slots / grid slots of one tick."""
+        self._mean_add("slot_occupancy", frac)
+
+    def inc_finished(self, reason: str, n: int = 1):
+        """Count a sequence retirement by reason: eos, length or
+        deadline."""
+        with self._lock:
+            key = f"finished_{reason}"
+            self._counts[key] = self._counts.get(key, 0) + n
+
+    def record_pages(self, in_use: int):
+        """Physical KV pages allocated now (a gauge; paged engines set
+        it on every allocation and release)."""
+        with self._lock:
+            self._pages_in_use = int(in_use)
+
+    def inc_page_evictions(self, n: int = 1):
+        self._inc("page_evictions", n)
+
+    def inc_prefill_chunks(self, n: int = 1):
+        self._inc("prefill_chunks", n)
 
     def inc_completed(self, n: int = 1):
         self._inc("completed", n)
@@ -125,6 +189,46 @@ class ServingMetrics:
         dt = time.perf_counter() - self._t0
         return self.completed / dt if dt > 0 else 0.0
 
+    @property
+    def decoded_tokens(self) -> int:
+        return self._counts["decoded_tokens"]
+
+    def finished(self, reason: str) -> int:
+        """Sequences retired for ``reason`` (eos, length, deadline)."""
+        return self._counts.get(f"finished_{reason}", 0)
+
+    def tokens_per_sec(self) -> float:
+        """Decoded tokens per second since the metrics started."""
+        dt = time.perf_counter() - self._t0
+        return self.decoded_tokens / dt if dt > 0 else 0.0
+
+    def tick_ms(self, q: float) -> float:
+        """q-th percentile (0-100, nearest rank) of the tick time over
+        the sample window."""
+        with self._lock:
+            xs = sorted(self._ticks)
+        if not xs:
+            return 0.0
+        i = max(0, min(len(xs) - 1, int(round(q / 100.0 * (len(xs) - 1)))))
+        return 1e3 * xs[i]
+
+    def slot_occupancy(self) -> float:
+        """Mean active slots / grid slots over the ticks so far."""
+        return self._mean("slot_occupancy")
+
+    @property
+    def pages_in_use(self) -> int:
+        with self._lock:
+            return self._pages_in_use
+
+    @property
+    def page_evictions(self) -> int:
+        return self._counts["page_evictions"]
+
+    @property
+    def prefill_chunks(self) -> int:
+        return self._counts["prefill_chunks"]
+
     def snapshot(self) -> dict:
         return {
             "completed": self.completed,
@@ -139,14 +243,89 @@ class ServingMetrics:
             "recompiles": self.recompiles,
             "recompile_seconds": self.recompile_seconds,
             "req_per_sec": self.throughput(),
+            "tokens_per_sec": self.tokens_per_sec(),
+            "decoded_tokens": self.decoded_tokens,
+            "slot_occupancy": self.slot_occupancy(),
+            "p50_tick_ms": self.tick_ms(50),
+            "p95_tick_ms": self.tick_ms(95),
+            "prefill_ms": 1e3 * self._mean("prefill"),
+            "decode_ms": 1e3 * self._mean("tick"),
+            "pages_in_use": self.pages_in_use,
+            "page_evictions": self.page_evictions,
+            "prefill_chunks": self.prefill_chunks,
         }
 
     def log_line(self) -> str:
         s = self.snapshot()
-        return (f"serving: ok={s['completed']} rej={s['rejected']} "
+        line = (f"serving: ok={s['completed']} rej={s['rejected']} "
                 f"exp={s['expired']} | p50={s['p50_ms']:.2f}ms "
                 f"p95={s['p95_ms']:.2f}ms p99={s['p99_ms']:.2f}ms | "
                 f"occ={100 * s['occupancy']:.0f}% | "
                 f"qdepth={s['queue_depth']} | "
                 f"recompiles={s['recompiles']} | "
                 f"{s['req_per_sec']:.1f} req/s")
+        if s["decoded_tokens"]:
+            line += (f" | {s['tokens_per_sec']:.1f} tok/s | "
+                     f"slots={100 * s['slot_occupancy']:.0f}% | "
+                     f"tick p50={s['p50_tick_ms']:.2f}ms "
+                     f"p95={s['p95_tick_ms']:.2f}ms")
+        if s["pages_in_use"] or s["page_evictions"]:
+            line += (f" | pages={s['pages_in_use']} "
+                     f"evict={s['page_evictions']}")
+        if s["prefill_chunks"]:
+            line += f" | chunks={s['prefill_chunks']}"
+        return line
+
+
+def metrics_log_every_s(default: float = 0.0) -> float:
+    """The periodic log cadence in seconds from
+    ``BIGDL_TPU_METRICS_EVERY_S`` (0, the default, is off)."""
+    try:
+        return max(0.0, float(os.environ.get("BIGDL_TPU_METRICS_EVERY_S",
+                                             default)))
+    except ValueError:
+        return default
+
+
+class PeriodicMetricsLogger:
+    """A thread that logs an engine's ``log_line()`` every ``every_s``
+    seconds (``None``: :func:`metrics_log_every_s`; 0 is off) to
+    ``sink`` (default: this module's logger at INFO).  ``thread`` is the
+    thread once started (``None`` while off).  ``close()`` stops it and
+    is idempotent; both serving engines call it from their own
+    ``close()``."""
+
+    def __init__(self, emit: Callable[[], str],
+                 every_s: Optional[float] = None,
+                 sink: Optional[Callable[[str], None]] = None):
+        self.every_s = metrics_log_every_s() if every_s is None \
+            else max(0.0, float(every_s))
+        self._emit = emit
+        self._sink = sink if sink is not None else logger.info
+        self._stop = threading.Event()
+        self.thread: Optional[threading.Thread] = None
+
+    def start(self) -> "PeriodicMetricsLogger":
+        if self.every_s > 0 and self.thread is None \
+                and not self._stop.is_set():
+            self.thread = threading.Thread(
+                target=self._run, daemon=True, name="bigdl-metrics-log")
+            self.thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(self.every_s):
+            try:
+                self._sink(self._emit())
+            except Exception:  # a log line must never stop an engine
+                logger.debug("periodic metrics emit failed",
+                             exc_info=True)
+
+    @property
+    def running(self) -> bool:
+        return self.thread is not None and self.thread.is_alive()
+
+    def close(self, timeout: float = 5.0):
+        self._stop.set()
+        if self.thread is not None:
+            self.thread.join(timeout)

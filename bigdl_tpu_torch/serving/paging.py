@@ -5,13 +5,37 @@ A compiled tick only ever sees a block table (an (S, M) int32 tensor)
 and the page pool (:mod:`bigdl_tpu_torch.ops.paged_kv`).  Everything
 stateful (the free list, which slot owns which physical page) lives
 here on the host, in plain Python, under one thread.
+
+The decode engine's defaults, read from the environment as the JAX
+package reads them:
+
+* ``BIGDL_TPU_KV_PAGE``: tokens per page (default 16);
+* ``BIGDL_TPU_KV_DTYPE``: ``int8`` quantizes the pool (default: the
+  model's compute type);
+* ``BIGDL_TPU_PAGE_ZERO``: ``1`` zeroes freed pages through the
+  ``page_reset`` program (hygiene only: the length mask hides stale
+  bytes).
 """
 from __future__ import annotations
 
+import os
 from collections import deque
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+
+
+def page_size_default() -> int:
+    return int(os.environ.get("BIGDL_TPU_KV_PAGE", "16"))
+
+
+def kv_dtype_default() -> Optional[str]:
+    v = os.environ.get("BIGDL_TPU_KV_DTYPE", "").strip().lower()
+    return v or None
+
+
+def page_zero_enabled() -> bool:
+    return os.environ.get("BIGDL_TPU_PAGE_ZERO", "0") == "1"
 
 
 def default_num_pages(slots: int, max_len: int, page_size: int) -> int:

@@ -28,7 +28,12 @@ Phases:
    versions' (bf16 and f32; the prologue's ReLU keeps a NaN, the
    dgrads' mask zeroes g there, so only d_ps carries it); kernels 1-5
    are also checked and timed beside their library calls at the
-   batch-256 shapes of the train step;
+   batch-256 shapes of the train step; at a channel width of 12 (a
+   FusedBottleneck of width 12) kernels 1-5 each launch once on
+   channels zero-padded to 16 (one operand copy) and agree with their
+   plain versions in bf16 and f32, while the main paths below pad
+   nothing (fm.COPIES stays 0 in serving, the train steps and
+   optimize());
 3. serve: fused ResNet-50 (space-to-depth stem, 1000 classes) with
    random weights from --seed and randomised BatchNorm, carried in
    through load_jax_variables, served by ServingEngine in bf16 to 4
@@ -57,9 +62,11 @@ Phases:
 5. lm: the flash-attention kernel held against its plain version (O and
    lse) at the LM's (8, 8, 512, 32) and (8, 8, 4096, 32) causal shapes
    as MultiHeadAttention gives them, the FLASH shape, a ragged T, KV
-   longer than Q, f32, a causal (1, 8, 8192, 128) and head dims 12 and
-   8 (zero-padded to 32 by the wrapper), timed beside its plain version
-   and SDPA;
+   longer than Q, f32, a causal (1, 8, 8192, 128), head dims 12 and
+   8 (zero-padded to 32 by the wrapper), one head of 256 as the LM at
+   --numHeads 1 gives it (bf16 and f32, causal and not) and a head dim
+   of 200 (zero-padded to 256), one launch each, timed beside its plain
+   version and SDPA;
    the default Transformer LM (10001 tokens, hidden 256, 8 heads, filter
    1024, 4 layers) with random weights from --seed carried in through
    load_jax_variables: one Adam + clipping train step in bf16 and in f32
@@ -69,7 +76,9 @@ Phases:
    entry point transformer_train.main([]), whose loss must fall, in two
    compiled calls (the train step and the evaluation forward): 4 flash
    launches per capture and warm-up call, and a replay per iteration and
-   validation batch;
+   validation batch; then the LM with one head of 256 (--numHeads 1): a
+   bf16 step against the plain attention path and
+   transformer_train.main(['--numHeads', '1', '--maxEpoch', '1']);
 6. quant: the int8 kernel held bit for bit against its plain version
    (bf16 and f32 output, each case twice, so a split-K workspace left
    dirty would show) at every shape of one quantized ResNet-50 forward at
@@ -125,7 +134,21 @@ Phases:
    no operand copy), logits bit-equal to the plain route, none in a
    decode step, kernel 7's device ms per chunk (profiler sum over its
    launches) and kernel 7 alone timed at (16, 128, 512) beside its
-   bound and _int_mm.
+   bound and _int_mm; then the decode engine (DecodeEngine, 8 slots of
+   512, prompt buckets 64 and 256, 32 requests of 5 to 200 tokens with
+   budgets of 16 to 96): continuous against static batching (tokens/s
+   as the median of 7 rounds and its spread, tick p50/p95, slot
+   occupancy; no capture while serving, equal tokens, continuous
+   faster), greedy tokens against direct decode_step rollouts, sampling
+   repeated per seed, paged at 16 slots on the dense grid's bytes (7
+   rounds), the same pool with page zeroing (the page reset one more
+   program), chunked prefill of prompts of 300 and 420 tokens
+   against learned buckets, the int8 pool of the 2-head LM against its
+   f32 pool (bytes per page, token agreement, kernel 7's launches by
+   host and profiler), and bench.py decode_ab's leg 1 (DECODE_MODEL,
+   beam 1, one stream, T 128, the median of 7 searches each: cached
+   must beat re-forward; the JAX 3x gate reported).  Two arms' tokens must be equal or part at a
+   near-tie of the uncached forward.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -137,6 +160,7 @@ import argparse
 import json
 import logging
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -191,6 +215,12 @@ NAN_CASES = (("mm", (1000, 64, 256)), ("mm", (147, 2048, 512)),
              ("mm_dgrad", (1000, 64, 256)), ("mm_dgrad", (147, 2048, 512)),
              ("mm_wgrad", (1000, 64, 256)), ("mm_wgrad", (147, 2048, 512)),
              ("cv", (2, 14, 14, 64, 128)), ("cv_dgrad", (2, 14, 14, 64, 128)))
+# kernels 1-5 at a channel width that is not a multiple of 8 (a
+# FusedBottleneck of width 12): the wrappers zero-pad the channels to 16,
+# launch once and copy the operands once (fm.COPIES)
+WIDTH12_CASES = (("mm", (6272, 12, 12)), ("mm_dgrad", (6272, 12, 12)),
+                 ("mm_wgrad", (6272, 12, 12)), ("cv", (2, 56, 56, 12, 12)),
+                 ("cv_dgrad", (2, 56, 56, 12, 12)))
 # launches per train step (make_train_step, one batch): forward kernels
 # twice with remat (forward and recompute), each backward kernel once
 STEP_LAUNCHES = {
@@ -411,6 +441,13 @@ FLASH_CASES = (  # (B, H, T, S, D), causal, dtype, as the main path gives it
     ((8, 8, 4096, 4096, 32), True, "bf16", "mha"),  # LM's long step
     ((2, 4, 256, 256, 12), True, "bf16", ""),  # the decode model's D
     ((2, 4, 300, 300, 8), False, "bf16", ""),  # D padded to 32
+    # --numHeads 1 of the LM driver: one head of 256, as the step and the
+    # evaluation forward give it, causal and not
+    ((8, 1, 512, 512, 256), True, "bf16", "mha"),
+    ((8, 1, 512, 512, 256), False, "bf16", "mha"),
+    ((8, 1, 512, 512, 256), True, "f32", "mha"),
+    ((8, 1, 512, 512, 256), False, "f32", "mha"),
+    ((2, 4, 384, 384, 200), True, "bf16", ""),  # D padded to 256
 )
 LM = dict(vocab_size=10001, hidden_size=256, num_heads=8, filter_size=1024,
           num_layers=4)  # bigdl_tpu/models/transformer_train.py defaults
@@ -462,8 +499,10 @@ def flash_phase(gen, timing: bool):
                                ).to(dtype)
 
         q, k, v = rand(t), rand(s), rand(s)
+        fa.reset_launches()
         o, lse = fa.flash_attention_lse(q, k, v, causal)
         torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
         po, pl = fa.flash_attention_plain(q, k, v, causal)
         err = (o.float() - po.float()).abs().max().item()
         lse_err = (lse - pl).abs().max().item()
@@ -472,15 +511,15 @@ def flash_phase(gen, timing: bool):
                else 1e-5 * scale)
         name = f"flash_attention{shape} causal={causal} {dt} {layout}"
         if (not torch.isfinite(o.float()).all() or err > tol
-                or lse_err > 1e-5 * pl.abs().max().item()):
+                or lse_err > 1e-5 * pl.abs().max().item() or launches != 1):
             fail(f"{name}: kernel disagrees with the plain version: max "
                  f"|dO| {err:.4g} (limit {tol:.4g}), max |dlse| "
-                 f"{lse_err:.4g}")
+                 f"{lse_err:.4g}; {launches} launches (expected 1)")
         if dt == "bf16":
             max_err = max(max_err, err)
         r = {"shape": list(shape), "causal": causal, "dtype": dt,
              "layout": layout or "contiguous", "max_abs_err": err,
-             "lse_err": lse_err}
+             "lse_err": lse_err, "launches": launches}
         if timing:
             sm = 1.0 / math.sqrt(d)
             r.update(
@@ -759,11 +798,60 @@ def lm_phase(args):
           f"{res}; flash launches {launches} in {counts['captures']} "
           f"captures ({counts['capture_seconds']:.2f} s), "
           f"{counts['replays']} replays", flush=True)
+    # --numHeads 1: one head of 256 (kernel 6 at D 256).  A bf16 step
+    # against the plain attention path, then transformer_train for one epoch:
+    # the compiled step and evaluation forward, 4 launches per capture
+    wide = dict(LM, num_heads=1)
+    m1 = nn.Transformer(**wide, dropout=0.1).to(dev)
+    v1 = lm_variables(m1, args.seed)
+    load_jax_variables(m1, v1)
+    r1 = nn.Transformer(**wide, dropout=0.1, use_flash=False).to(dev)
+    load_jax_variables(r1, v1)
+    x, y = batch(LM_SEQ)
+    fa.reset_launches()
+    _, _, ok, lk = steps(m1, bf16)(*trees(m1), 1, args.seed, x, y, [1e-3])
+    torch.cuda.synchronize()
+    launches1 = fa.LAUNCHES["flash_attention"]
+    _, _, op_, lp = steps(r1, bf16)(*trees(r1), 1, args.seed, x, y, [1e-3])
+    grad = {k: rel(ok["__all__"]["m"][k], op_["__all__"]["m"][k])
+            for k in ok["__all__"]["m"]}
+    err = {"loss": abs(lk.item() - lp.item()) / abs(lp.item()),
+           "grad": max(grad.values())}
+    print(f"LM step parity at --numHeads 1 (D 256), bf16: loss "
+          f"{lk.item():.6g} vs {lp.item():.6g} (rel {err['loss']:.3g}); "
+          f"gradient rel L2 per leaf max {err['grad']:.3g}; {launches1} "
+          "launches", flush=True)
+    if launches1 != LM["num_layers"] or not math.isfinite(lk.item()) or \
+            any(err[k] > t for k, t in LM_BF16_TOL.items()):
+        fail(f"LM step at --numHeads 1: {launches1} launches, errors {err} "
+             f"(limits {LM_BF16_TOL})")
+    del m1, r1, ok, op_
+    fa.reset_launches()
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    res1 = transformer_train.main(["--numHeads", "1", "--maxEpoch", "1"])
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_main = {"seconds": wide_s, "result": res1,
+                 "launches": fa.LAUNCHES["flash_attention"],
+                 "graphs": dict(graphs.COUNTS), "parity": err}
+    print(f"transformer_train.main(['--numHeads', '1', '--maxEpoch', '1']):"
+          f" {wide_s:.1f} s, {res1}; flash launches "
+          f"{wide_main['launches']} in {wide_main['graphs']['captures']} "
+          f"captures, {wide_main['graphs']['replays']} replays", flush=True)
+    if wide_main["launches"] != want or \
+            wide_main["graphs"]["captures"] != 2 or \
+            wide_main["graphs"]["replays"] != n_train + 2 * n_val or \
+            not math.isfinite(res1["val_loss"]):
+        fail(f"transformer_train --numHeads 1: {wide_main}, expected "
+             f"{want} launches in 2 captures and {n_train + 2 * n_val} "
+             "replays")
     return {"parity": parity, "speed": speed, "breakdown": breakdown,
             "step_top_kernels": top, "main": {
                 "seconds": main_s, "result": res, "launches": launches,
                 "graphs": counts,
-                "train_losses": train_losses, "validation": val_lines}}
+                "train_losses": train_losses, "validation": val_lines},
+            "num_heads_1": wide_main}
 
 
 # ------------------------------------------------------------ quant slice
@@ -1772,7 +1860,397 @@ def decode_phase(args, card):
     del models, full
 
     res["ticks"] = tick_checks(m32, rs)
-    res["int8"] = int8_kv_checks(lm(INT8_HEADS), rs)
+    m2 = lm(INT8_HEADS)
+    res["int8"] = int8_kv_checks(m2, rs)
+    res["engine"] = engine_checks(m32, m2, rs, args.seed)
+    return res
+
+
+# the decode engine (serving/decode.py DecodeEngine) on the full-width LM
+ENGINE_SLOTS, ENGINE_LEN = 8, 512
+ENGINE_BUCKETS, ENGINE_BATCH = (64, 256), (1, 4)
+ENGINE_REQUESTS = 32
+# rounds of the traffic on one engine in the arms whose tokens/s are
+# compared (continuous, static, paged): the median and the spread
+ENGINE_ROUNDS = 7
+ENGINE_BUDGETS = (16, 32, 64, 96)  # bench.py decode_ab's budgets
+ENGINE_PAGE = 16
+ENGINE_CHUNK = 64  # chunked prefill of prompts past the largest bucket
+ENGINE_LONG = (300, 420)  # prompts past 256
+ENGINE_INT8_REQUESTS = 8
+# bench.py decode_ab leg 1: tools/kernel_shapes.py DECODE_MODEL, beam 1,
+# one stream, T 128, the median of 7 compiled searches
+DECODE_MODEL = dict(vocab_size=32, hidden_size=48, num_heads=4,
+                    filter_size=96, num_layers=2)
+AB_LEN, AB_REPS = 128, 7
+
+
+def engine_checks(model, model2, rs, seed, dev="cuda"):
+    """The decode engine as its users run it, on the f32 LM at full
+    width (``model``; ``model2`` has 2 heads of 128): continuous against
+    static batching on mixed traffic, greedy tokens against direct
+    decode_step rollouts, sampling per seed, paged at twice the slots on
+    the dense grid's bytes, chunked prefill against the bucketed path,
+    the int8 pool against the f32 pool, and bench.py decode_ab's leg 1.
+    Token streams of two arms must be equal or part where the uncached
+    forward's top two logits are within NEAR_TIE of each other.  The
+    arms whose tokens/s are compared serve their traffic ENGINE_ROUNDS
+    times on one engine and give the median and the spread."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import int8_matmul as im
+    from bigdl_tpu_torch.serving import (DecodeEngine, ServingMetrics,
+                                         default_num_pages)
+    from bigdl_tpu_torch.utils import graphs, load_jax_variables
+
+    dev = torch.device(dev)
+    vocab = LM["vocab_size"]
+    lens = np.linspace(TICK_PROMPT[0], TICK_PROMPT[1],
+                       ENGINE_REQUESTS).astype(int)
+    rs.shuffle(lens)
+    traffic = [(rs.randint(0, vocab, int(t)), ENGINE_BUDGETS[i % 4], {})
+               for i, t in enumerate(lens)]
+    res = {"traffic": {"requests": ENGINE_REQUESTS,
+                       "prompt_tokens": [int(lens.min()), int(lens.max())],
+                       "budgets": list(ENGINE_BUDGETS)},
+           "near_tie_partings": []}
+
+    class Peaks(ServingMetrics):
+        """ServingMetrics keeping the most slots active at once and the
+        most pages held."""
+        active = 0.0
+        pages = 0
+
+        def record_slot_occupancy(self, frac):
+            self.active = max(self.active, frac)
+            super().record_slot_occupancy(frac)
+
+        def record_pages(self, in_use):
+            self.pages = max(self.pages, int(in_use))
+            super().record_pages(in_use)
+
+    def serve(what, m, reqs, learned=0, profiled=False, rounds=1, **kw):
+        """Serve ``reqs`` ``rounds`` times on a fresh engine; the first
+        round's tokens and the numbers (tokens/s: the median of the
+        rounds and its spread; with ``profiled``, also the hand-written
+        kernels the serving ran, by torch.profiler).  Fails unless
+        warmup captured exactly the declared programs and serving
+        captured ``learned`` (a learned bucket's prefill and write)
+        more."""
+        kw = {"slots": ENGINE_SLOTS, "max_len": ENGINE_LEN,
+              "prompt_buckets": ENGINE_BUCKETS,
+              "prefill_batch_sizes": ENGINE_BATCH, **kw}
+        metrics = Peaks()
+        eng = DecodeEngine(m, metrics=metrics, device=dev, **kw)
+        try:
+            declared, warm = eng.declared_programs(), eng.recompiles
+            captures = graphs.COUNTS["captures"]
+            outs, walls, kernels = [], [], None
+
+            def run():
+                futs = [eng.submit(p, n, **sk) for p, n, sk in reqs]
+                got = [[int(t) for t in f.result(300)] for f in futs]
+                if not outs:
+                    outs.extend(got)
+
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                if profiled:
+                    kernels = replay_kernels(run)[0]
+                else:
+                    run()
+                walls.append(time.perf_counter() - t0)
+            tokens = sum(len(o) for o in outs)  # each round: no EOS
+            rates = [tokens / w for w in walls]
+            snap = metrics.snapshot()
+            rec = {"slots": eng.slots, "layout": eng.kv_layout,
+                   "kv_dtype": eng.kv_dtype, "rounds": rounds,
+                   "wall_s": walls, "tokens": tokens,
+                   "declared_programs": declared,
+                   "steady_state_captures": eng.recompiles - warm,
+                   "graph_captures_while_serving":
+                       graphs.COUNTS["captures"] - captures,
+                   "tokens_per_s": statistics.median(rates),
+                   "tokens_per_s_rounds": rates,
+                   "tokens_per_s_spread": [min(rates), max(rates)],
+                   "p50_tick_ms": snap["p50_tick_ms"],
+                   "p95_tick_ms": snap["p95_tick_ms"],
+                   "slot_occupancy": snap["slot_occupancy"],
+                   "peak_active_slots": round(metrics.active * eng.slots),
+                   "prefill_chunks": snap["prefill_chunks"],
+                   "page_evictions": snap["page_evictions"],
+                   "peak_pages": metrics.pages,
+                   "cache_bytes": eng._cache_bytes_total(),
+                   "page_bytes": eng._page_bytes_total() if eng.paged
+                   else None,
+                   "kernels": kernels,
+                   "log_line": eng.log_line()}
+        finally:
+            eng.close(timeout=120)
+        if warm != declared or rec["steady_state_captures"] != learned \
+                or rec["graph_captures_while_serving"] != learned:
+            fail(f"engine {what}: {warm} captures at warmup for "
+                 f"{declared} declared programs, "
+                 f"{rec['steady_state_captures']} while serving "
+                 f"({rec['graph_captures_while_serving']} graphs), "
+                 f"expected {learned}")
+        print(f"engine {what}: {tokens} tokens a round, {rounds} "
+              f"round(s) of {min(walls):.3f}-{max(walls):.3f} s, "
+              f"{rec['tokens_per_s']:.1f} tokens/s (median; spread "
+              f"{min(rates):.1f}-{max(rates):.1f}); tick p50 "
+              f"{rec['p50_tick_ms']:.3f} ms, p95 {rec['p95_tick_ms']:.3f} "
+              f"ms; slot occupancy {rec['slot_occupancy']:.3f}, peak "
+              f"{rec['peak_active_slots']} of {eng.slots} slots; "
+              f"{declared} programs captured at warmup, "
+              f"{rec['steady_state_captures']} while serving; "
+              f"{rec['log_line']}", flush=True)
+        return outs, rec
+
+    def agree(what, m, prompt, a, b):
+        """True where ``a == b``; False where they part at a near-tie of
+        ``m``'s uncached forward over the common prefix; fails
+        otherwise."""
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if n is None:
+            if len(a) != len(b):
+                fail(f"engine {what}: {len(a)} tokens against {len(b)}")
+            return True
+        seq = torch.tensor([list(prompt) + a[:n]], device=dev)
+        with torch.no_grad():
+            logits = m(seq)[0, -1].float()
+        top2 = logits.topk(2).values
+        gap = ((top2[0] - top2[1]) / logits.abs().max()).item()
+        if gap >= NEAR_TIE:
+            fail(f"engine {what}: tokens part at step {n} ({a[n]} against "
+                 f"{b[n]}) where the top two logits are {gap:.3g} of the "
+                 f"largest apart (a near-tie is below {NEAR_TIE})")
+        res["near_tie_partings"].append({"arm": what, "step": n,
+                                         "gap": gap})
+        return False
+
+    def same_tokens(what, m, reqs, outs, ref):
+        return sum(agree(what, m, p, a, b)
+                   for (p, _, _), a, b in zip(reqs, outs, ref))
+
+    # continuous against static batching
+    cont_out, res["continuous"] = serve("continuous", model, traffic,
+                                        rounds=ENGINE_ROUNDS)
+    stat_out, res["static"] = serve("static", model, traffic,
+                                    rounds=ENGINE_ROUNDS, continuous=False)
+    res["continuous_equal_static"] = same_tokens(
+        "static vs continuous", model, traffic, stat_out, cont_out)
+    ratio = res["continuous"]["tokens_per_s"] / res["static"][
+        "tokens_per_s"]
+    res["continuous_vs_static"] = ratio
+    # the slowest continuous round against the fastest static one
+    worst = res["continuous"]["tokens_per_s_spread"][0] / res["static"][
+        "tokens_per_s_spread"][1]
+    res["continuous_vs_static_worst"] = worst
+    print(f"engine: continuous {res['continuous']['tokens_per_s']:.1f} "
+          f"against static {res['static']['tokens_per_s']:.1f} tokens/s "
+          f"(medians of {ENGINE_ROUNDS} rounds, {ratio:.3f}x; slowest "
+          f"continuous round against fastest static {worst:.3f}x); slot "
+          "occupancy "
+          f"{res['continuous']['slot_occupancy']:.3f} against "
+          f"{res['static']['slot_occupancy']:.3f}; "
+          f"{res['continuous_equal_static']} of {ENGINE_REQUESTS} streams "
+          "equal", flush=True)
+    if ratio <= 1.0:
+        fail(f"engine: continuous batching ({ratio:.3f}x static) is not "
+             "faster than static batching")
+
+    # greedy tokens against direct decode_step rollouts (batch 1, exact
+    # prompt length), up to the rollout's first near-tie
+    direct = []
+    for i in range(4):
+        prompt, n, _ = traffic[i]
+        with torch.no_grad():
+            logits, cache = model.prefill(
+                torch.tensor(prompt[None], device=dev),
+                model.init_cache(1, ENGINE_LEN, torch.float32))
+            toks, gaps = [], []
+            for j in range(n):
+                top2 = logits[0].topk(2).values
+                gaps.append(((top2[0] - top2[1])
+                             / logits[0].abs().max()).item())
+                toks.append(int(logits[0].argmax()))
+                if j + 1 < n:
+                    logits, cache = model.decode_step(cache, torch.tensor(
+                        [toks[-1]], dtype=torch.int32, device=dev))
+        first = next((j for j, g in enumerate(gaps) if g < NEAR_TIE), n)
+        ok = cont_out[i][:first] == toks[:first]
+        direct.append({"tokens": n, "first_near_tie": first,
+                       "equal_before_it": ok,
+                       "all_equal": cont_out[i] == toks})
+        if not ok:
+            fail(f"engine: request {i}'s tokens differ from its direct "
+                 f"decode_step rollout before step {first}")
+    res["direct_rollouts"] = direct
+    print(f"engine: greedy tokens against direct decode_step rollouts: "
+          f"{direct}", flush=True)
+
+    # sampling: the same seed twice gives the same tokens, another seed
+    # other tokens, and the greedy rows of the same grid stay exact
+    prompt = traffic[0][0]
+    sk = dict(temperature=0.8, top_k=50, top_p=0.95)
+    samp = [(prompt, 48, dict(sk, seed=7)), (prompt, 48, dict(sk, seed=7)),
+            (prompt, 48, dict(sk, seed=8)), (prompt, traffic[0][1], {})]
+    s_out, res["sampling"] = serve("sampling", model, samp)
+    res["sampling"].update(same_seed_equal=s_out[0] == s_out[1],
+                           other_seed_differs=s_out[0] != s_out[2])
+    if s_out[0] != s_out[1] or s_out[0] == s_out[2]:
+        fail("engine sampling: seed 7 twice gave different tokens or seed "
+             "8 the same ones")
+    agree("sampled grid's greedy row", model, prompt, s_out[3], cont_out[0])
+
+    # paged: twice the slots on the dense grid's bytes
+    dense_bytes = res["continuous"]["cache_bytes"]
+    # the dense grid's tokens in pages, and the trash page
+    pages = default_num_pages(ENGINE_SLOTS, ENGINE_LEN, ENGINE_PAGE)
+    p_out, res["paged"] = serve("paged", model, traffic,
+                                rounds=ENGINE_ROUNDS,
+                                slots=2 * ENGINE_SLOTS, kv_layout="paged",
+                                page_size=ENGINE_PAGE, num_pages=pages)
+    res["paged_equal_dense"] = same_tokens("paged vs dense", model,
+                                           traffic, p_out, cont_out)
+    print(f"engine paged: {2 * ENGINE_SLOTS} slots on {pages} pages of "
+          f"{res['paged']['page_bytes']} bytes ({res['paged']['cache_bytes']}"
+          f" bytes; the dense grid {dense_bytes}), peak "
+          f"{res['paged']['peak_active_slots']} active slots and "
+          f"{res['paged']['peak_pages']} pages, "
+          f"{res['paged']['page_evictions']} evictions; "
+          f"{res['paged_equal_dense']} of {ENGINE_REQUESTS} streams equal "
+          "to dense", flush=True)
+    if res["paged"]["cache_bytes"] > dense_bytes + res["paged"][
+            "page_bytes"] + 4 * (2 * ENGINE_SLOTS) * LM["num_layers"] or \
+            res["paged"]["peak_active_slots"] <= ENGINE_SLOTS:
+        fail(f"engine paged: {res['paged']['cache_bytes']} bytes (dense "
+             f"{dense_bytes}), peak {res['paged']['peak_active_slots']} "
+             f"active slots (dense {ENGINE_SLOTS})")
+
+    # the same pool with page zeroing on (BIGDL_TPU_PAGE_ZERO): the page
+    # reset is one more declared program, run at every retirement
+    zreqs = traffic[:ENGINE_SLOTS]
+    before = os.environ.get("BIGDL_TPU_PAGE_ZERO")
+    os.environ["BIGDL_TPU_PAGE_ZERO"] = "1"
+    try:
+        z_out, res["paged_zeroing"] = serve(
+            "paged, pages zeroed", model, zreqs, slots=2 * ENGINE_SLOTS,
+            kv_layout="paged", page_size=ENGINE_PAGE, num_pages=pages)
+    finally:
+        if before is None:
+            del os.environ["BIGDL_TPU_PAGE_ZERO"]
+        else:
+            os.environ["BIGDL_TPU_PAGE_ZERO"] = before
+    res["paged_zeroing_equal_dense"] = same_tokens(
+        "paged with page zeroing vs dense", model, zreqs, z_out,
+        cont_out[:ENGINE_SLOTS])
+    print(f"engine paged with page zeroing: "
+          f"{res['paged_zeroing']['declared_programs']} programs declared "
+          f"(the paged arm {res['paged']['declared_programs']}); "
+          f"{res['paged_zeroing_equal_dense']} of {len(zreqs)} streams "
+          "equal to dense", flush=True)
+    if res["paged_zeroing"]["declared_programs"] != \
+            res["paged"]["declared_programs"] + 1:
+        fail("engine paged with page zeroing: the page reset is not one "
+             "more declared program")
+
+    # chunked prefill of prompts past the largest bucket against the
+    # bucketed path (one learned bucket per length)
+    longs = [(rs.randint(0, vocab, t), 32, {}) for t in ENGINE_LONG]
+    longs += traffic[:2]
+    c_out, res["chunked"] = serve("chunked", model, longs,
+                                  prefill_chunk=ENGINE_CHUNK)
+    b_out, res["bucketed"] = serve("bucketed (learned buckets)", model,
+                                   longs, learned=2 * len(ENGINE_LONG))
+    res["chunked_equal_bucketed"] = same_tokens(
+        "chunked vs bucketed", model, longs, c_out, b_out)
+    want_chunks = sum(-(-t // ENGINE_CHUNK) for t in ENGINE_LONG)
+    if res["chunked"]["prefill_chunks"] != want_chunks:
+        fail(f"engine chunked: {res['chunked']['prefill_chunks']} chunks, "
+             f"expected {want_chunks}")
+    print(f"engine chunked prefill: prompts of {ENGINE_LONG} tokens in "
+          f"{want_chunks} chunks of {ENGINE_CHUNK}; "
+          f"{res['chunked_equal_bucketed']} of {len(longs)} streams equal "
+          "to the bucketed path", flush=True)
+
+    # the int8 pool (the LM with 2 heads of 128) against the f32 pool
+    reqs8 = traffic[:ENGINE_INT8_REQUESTS]
+    f_out, res["int8_f32_pool"] = serve(
+        "f32 pool, 2 heads", model2, reqs8, slots=INT8_SLOTS,
+        kv_layout="paged", page_size=ENGINE_PAGE)
+    im.reset_launches()
+    int8_kw = dict(slots=INT8_SLOTS, kv_layout="paged",
+                   page_size=ENGINE_PAGE, kv_dtype="int8")
+    q_out, res["int8"] = serve("int8 pool, 2 heads", model2, reqs8,
+                               **int8_kw)
+    # the kernels two requests run, by torch.profiler (apart: it slows
+    # the host's loop many times over)
+    _, profiled = serve("int8 pool, 2 heads, profiled", model2, reqs8[:2],
+                        profiled=True, **int8_kw)
+    host7 = im.LAUNCHES["int8_matmul"]
+    counts = profiled["kernels"]
+    agree8 = sum(int(a == b) for fo, qo in zip(f_out, q_out)
+                 for a, b in zip(fo, qo)) / sum(len(fo) for fo in f_out)
+    res["int8"].update(kernel7_host_launches=host7,
+                       kernel7_profiler_launches=counts.get("int8_matmul", 0),
+                       token_agreement=agree8,
+                       f32_page_bytes=res["int8_f32_pool"]["page_bytes"])
+    print(f"engine int8 pool: {res['int8']['page_bytes']} bytes per page "
+          f"against {res['int8_f32_pool']['page_bytes']} in f32 (cache "
+          f"{res['int8']['cache_bytes']} against "
+          f"{res['int8_f32_pool']['cache_bytes']} bytes); tokens "
+          f"{100 * agree8:.1f}% equal to the f32 pool's; kernel 7 launched "
+          f"{host7} times (host) and {counts.get('int8_matmul', 0)} "
+          "(profiler): the engine's ticks are single tokens and its "
+          "prefill chunks go to a dense staging cache, as in JAX",
+          flush=True)
+    if 2 * res["int8"]["page_bytes"] > res["int8_f32_pool"]["page_bytes"] \
+            or agree8 < 0.9 or host7 or counts.get("int8_matmul", 0):
+        fail(f"engine int8 pool: {res['int8']['page_bytes']} bytes per page"
+             f" (f32 {res['int8_f32_pool']['page_bytes']}), tokens "
+             f"{agree8:.3f} equal (limit 0.9), kernel 7 {host7} launches")
+
+    # bench.py decode_ab leg 1 at its own configuration
+    small = nn.Transformer(**DECODE_MODEL, dropout=0.0).to(dev)
+    load_jax_variables(small, lm_variables(small, seed))
+    small.eval()
+    ids0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    seqs, reps = {}, {}
+    for cached in (True, False):
+        seqs[cached] = small.generate(ids0, AB_LEN, beam_size=1,
+                                      use_cache=cached)[0][0, 0].tolist()
+    for _ in range(AB_REPS):  # the two in turns
+        for cached in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            small.generate(ids0, AB_LEN, beam_size=1, use_cache=cached)
+            torch.cuda.synchronize()
+            reps.setdefault(cached, []).append(time.perf_counter() - t0)
+    times = {c: statistics.median(r) for c, r in reps.items()}
+    equal = agree("decode_ab leg 1, cached vs re-forward", small, [0],
+                  seqs[True][1:], seqs[False][1:])
+    ratio = times[False] / times[True]
+    res["decode_ab_leg1"] = {"t_decode": AB_LEN, "cached_s": times[True],
+                             "reforward_s": times[False], "ratio": ratio,
+                             "cached_s_reps": reps[True],
+                             "reforward_s_reps": reps[False],
+                             "gate": REFORWARD_GATE, "equal": equal}
+    spread = {c: f"{1e3 * min(r):.3f}-{1e3 * max(r):.3f}"
+              for c, r in reps.items()}
+    print(f"bench.py decode_ab leg 1 (DECODE_MODEL, beam 1, one stream, T "
+          f"{AB_LEN}, median of {AB_REPS} compiled searches each, in "
+          f"turns): cached {1e3 * times[True]:.3f} ms (spread "
+          f"{spread[True]}), re-forward {1e3 * times[False]:.3f} ms (spread "
+          f"{spread[False]}), ratio {ratio:.2f} (the JAX gate "
+          f"{REFORWARD_GATE}x {'met' if ratio >= REFORWARD_GATE else 'not met'}"
+          f"; reported, not enforced); sequences equal: {equal}",
+          flush=True)
+    if ratio <= 1.0:
+        fail(f"decode_ab leg 1: cached generate ({times[True]:.4f} s) is "
+             f"not faster than re-forward ({times[False]:.4f} s)")
     return res
 
 
@@ -2353,6 +2831,32 @@ def main():
     print(f"kernel checks passed: {len(extra) + len(main_shapes)} cases, "
           f"max |kernel - plain| {dict(max_err)}", flush=True)
 
+    # kernels 1-5 at width 12: the channels zero-padded to 16, one launch
+    # and one operand copy each, held against the plain version
+    width12 = []
+    for op, shape in WIDTH12_CASES:
+        name, kern, plain, _ = kernels[op]
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            o = operands(op, shape, True, dtype)
+            fm.reset_launches()
+            got = call(kern, op, o)
+            torch.cuda.synchronize()
+            launches = fm.LAUNCHES[name]
+            copies = fm.COPIES["fused_channel_pad"]
+            if launches != 1 or copies != 1 or sum(fm.LAUNCHES.values()) != 1:
+                fail(f"{name}{shape} {dt}: launches {fm.LAUNCHES}, channel "
+                     f"pads {copies}; expected one of each")
+            m = math.prod(shape[:-2]) if op.startswith("cv") else shape[0]
+            err = check(f"{name}{shape} {dt} (width 12, padded)", op, got,
+                        call(plain, op, o), dt, m)
+            width12.append({"kernel": name, "shape": list(shape),
+                            "dtype": dt, "launches": launches,
+                            "copies": copies, "max_abs_err": err})
+            del o, got
+    print(f"width-12 checks passed: {len(width12)} cases (kernels 1-5, "
+          f"bf16 and f32, channels padded to 16), max |kernel - plain| "
+          f"{max(r['max_abs_err'] for r in width12):.4g}", flush=True)
+
     # a NaN in row 37 of x, through the prologue (relu): it must reach
     # the outputs exactly where it reaches the plain version's.  The
     # dgrads' mask zeroes g at the NaN (dx is 0 there, d_pb finite) and
@@ -2518,6 +3022,8 @@ def main():
         t.join()
     wall = time.perf_counter() - t0
     serve_launches = dict(fm.LAUNCHES)
+    if fm.COPIES["fused_channel_pad"]:
+        fail(f"serving padded channels: {fm.COPIES}")
     batches = engine.metrics.batches
     check_steady("serve", engine, batches, graphs.COUNTS["replays"])
     log_line = engine.log_line()
@@ -2608,9 +3114,11 @@ def main():
         kern_out = step(*fresh(tmodel), 1, None, xt, tt, [0.1])
         torch.cuda.synchronize()
         step_launches[remat] = dict(fm.LAUNCHES)
-        if step_launches[remat] != STEP_LAUNCHES[remat]:
+        if step_launches[remat] != STEP_LAUNCHES[remat] or \
+                fm.COPIES["fused_channel_pad"]:
             fail(f"train step launches with remat={remat}: "
-                 f"{step_launches[remat]}, expected {STEP_LAUNCHES[remat]}")
+                 f"{step_launches[remat]}, expected {STEP_LAUNCHES[remat]}, "
+                 f"and channel pads {fm.COPIES} (expected none)")
     print(f"train step launches: remat on {step_launches[True]}, "
           f"remat off {step_launches[False]}", flush=True)
 
@@ -2803,6 +3311,7 @@ def main():
     opt.optimize()
     opt_s = time.perf_counter() - t0
     opt_launches = dict(fm.LAUNCHES)
+    opt_copies = fm.COPIES["fused_channel_pad"]
     final_loss = opt._loop_state["loss"]
     print(opt.train_log_line(), flush=True)
     if not math.isfinite(final_loss):
@@ -2815,10 +3324,12 @@ def main():
              f"{compiled.replays} replays over {OPT_ITERS} iterations")
     want = host_launches(STEP_LAUNCHES[True], 1)
     step_graph = next(iter(compiled.graphs.values()))
-    if opt_launches != want or step_graph.launches != STEP_LAUNCHES[True]:
+    if opt_launches != want or step_graph.launches != STEP_LAUNCHES[True] \
+            or opt_copies:
         fail(f"Optimizer.optimize() launches {opt_launches} (the capture "
              f"{step_graph.launches}), expected {want} "
-             f"({STEP_LAUNCHES[True]} per capture, none per replay)")
+             f"({STEP_LAUNCHES[True]} per capture, none per replay); "
+             f"channel pads {opt_copies} (expected none)")
     print(f"optimize: {OPT_ITERS} iterations at batch 32 (f32 features, "
           f"bf16 parameters: the f32 kernels) in {opt_s:.1f} s, final loss "
           f"{final_loss:.4f}; one capture ({step_graph.capture_seconds:.2f}"
@@ -2856,7 +3367,7 @@ def main():
                    "losses_one_batch": losses,
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
-         "graphs": graph_res, "decode": decode},
+         "graphs": graph_res, "decode": decode, "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -2880,6 +3391,9 @@ def main():
                 "train_step_remat_on": step_launches[True][name],
                 "train_step_remat_off": step_launches[False][name],
                 "optimize": opt_launches[name]},
+            "width_12": [{k: r[k] for k in ("shape", "dtype", "launches",
+                                            "copies", "max_abs_err")}
+                         for r in width12 if r["kernel"] == name],
             "shapes": f"one ResNet-50 {'backward' if 'grad' in op else 'forward'}"
                       f" at batch {BATCH}: {calls} calls, times summed",
             "batch_256": {key: sum(
@@ -2902,7 +3416,12 @@ def main():
             "lm_eval_forward": LM["num_layers"],
             "transformer_train_main": lm["main"]["launches"],
             "generate_reforward_per_step": decode["greedy"]["flash_per_step"],
-            "generate_reforward": decode["launches_6"]},
+            "generate_reforward": decode["launches_6"],
+            "transformer_train_num_heads_1": lm["num_heads_1"]["launches"]},
+        "head_dim_256": [{k: r[k] for k in (
+            "shape", "causal", "dtype", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "library_ms")} for r in flash_rows
+            if r["shape"][-1] > 128],
         "shapes": f"{tuple(lm_row['shape'])} causal bf16 as "
                   "MultiHeadAttention gives it, per call; "
                   f"{LM['num_layers']} calls per LM forward"})
@@ -2929,7 +3448,9 @@ def main():
             "mlp_forward": quant["launches"]["mlp_forward"],
             "int8_kv_extend_paged_per_chunk":
                 decode["int8"]["launches_per_chunk"],
-            "int8_kv_extend_paged": decode["int8"]["launches"]},
+            "int8_kv_extend_paged": decode["int8"]["launches"],
+            "decode_engine_int8_pool":
+                decode["engine"]["int8"]["kernel7_host_launches"]},
         "int8_kv_scores": {key: decode["int8"][key] for key in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
             "chunk_ms", "ms_per_chunk")},

@@ -224,6 +224,18 @@ def test_shared_metrics_and_periodic_log_line(model, caplog):
     assert not engine._logger.is_alive()
 
 
+def test_periodic_log_line_reads_the_environment(model, monkeypatch):
+    # with no cadence given the engine reads BIGDL_TPU_METRICS_EVERY_S,
+    # as the JAX engines do
+    monkeypatch.setenv("BIGDL_TPU_METRICS_EVERY_S", "0.01")
+    with _engine(model) as engine:
+        assert engine._logger.is_alive()
+    assert not engine._logger.is_alive()
+    monkeypatch.delenv("BIGDL_TPU_METRICS_EVERY_S")
+    with _engine(model) as engine:
+        assert engine._logger is None
+
+
 def test_engine_defaults_to_the_card(model):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is valid here")
