@@ -1,13 +1,17 @@
 """Shared plumbing of the port's training drivers (counterpart of
 bigdl_tpu/models/train_utils.py:19-58): the common options, logging and
 the option block applied to an Optimizer.  ``--device`` chooses where to
-train (the card unless ``--device cpu``).  Checkpoints and summaries are
-not ported yet: ``--checkpoint``, ``--resume`` and ``--summary`` raise
+train (the card unless ``--device cpu``).  ``--checkpoint DIR`` writes a
+checkpoint at every epoch's end (in a timestamped subdirectory unless
+``--overwrite``), ``--resume PATH`` starts from one (either package's);
+summaries are not ported yet: ``--summary`` raises
 ``NotImplementedError``."""
 from __future__ import annotations
 
 import argparse
 import logging
+
+from bigdl_tpu_torch.optim.triggers import Trigger
 
 
 def base_parser(name: str, batch_size: int, max_epoch: int,
@@ -20,11 +24,11 @@ def base_parser(name: str, batch_size: int, max_epoch: int,
     p.add_argument("--maxEpoch", type=int, default=max_epoch)
     p.add_argument("--learningRate", type=float, default=lr)
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint dir (not ported yet)")
+                   help="checkpoint dir (local), written every epoch")
     p.add_argument("--overwrite", action="store_true",
                    help="overwrite checkpoint instead of timestamped dirs")
     p.add_argument("--resume", default=None,
-                   help="checkpoint to resume from (not ported yet)")
+                   help="checkpoint to resume from")
     p.add_argument("--summary", default=None,
                    help="TensorBoard log dir (not ported yet)")
     p.add_argument("--syntheticSize", type=int, default=None,
@@ -36,11 +40,14 @@ def base_parser(name: str, batch_size: int, max_epoch: int,
 
 def configure(opt, args):
     """Apply the common option block to a configured Optimizer."""
-    for flag in ("checkpoint", "resume", "summary"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: it comes with the port's "
-                "checkpoint slice")
+    if args.summary:
+        raise NotImplementedError(
+            "--summary is not ported yet: it needs visualization/")
+    if args.checkpoint:
+        opt.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+        opt.over_write_checkpoint(args.overwrite)
+    if args.resume:
+        opt.resume_from(args.resume)
     return opt
 
 

@@ -1,5 +1,5 @@
 """Training (counterpart of bigdl_tpu/optim/optimizer.py:69-249, 266-373,
-381-527, 683-693, 774-987, 1110-1137).
+381-581, 630-693, 774-1050, 1110-1137).
 
 :func:`make_train_step` builds the train step the JAX package jits,
 
@@ -35,19 +35,36 @@ compiled step with the seed ``split_rng(7, neval)`` (as
 ``fold_in(PRNGKey(7), neval)``) and reads the loss back (``compute``),
 moves the epoch/iteration bookkeeping, logs the reference line ``[Epoch e
 n/N][Iteration i][Wall Clock t] Throughput is X records/second. Loss is
-Y`` every 10 iterations and at each epoch's end, and validates when the
-validation trigger fires (``Loss is Loss(v, n records)``).
+Y`` every 10 iterations and at each epoch's end, validates when the
+validation trigger fires (``Loss is Loss(v, n records)``) and writes a
+checkpoint when the checkpoint trigger fires.
+
+Checkpoints are the JAX package's blob, ``{"params", "model_state",
+"opt_states", "driver_state"}`` with each tree in JAX's nesting
+(``export_variables``/``export_opt_state``) and the loop's int and float
+bookkeeping, written by ``save_pytree`` on the loop thread (the JAX
+loop's synchronous branch), so either package resumes from the other's.
+A loss that is not finite, or a ``RuntimeError`` or ``ValueError`` of
+an iteration, restores the latest checkpoint into the compiled step's
+trees and goes on, at most ``max_retry`` times in ``retry_window_sec``;
+with no checkpoint it is raised again.  ``resume_from`` starts from a
+checkpoint: trees, bookkeeping, the optimization methods' counters and
+the dataset's cursor, so the run goes on with the batches, seeds and
+learning rates of the uninterrupted one.  ``request_stop`` ends the loop
+at the next iteration with a final checkpoint.
 :func:`evaluate` runs validation methods over one pass of a dataset,
 through one compiled forward per model and input shape (JAX's
-``_jit_forward``, optimizer.py:1098-1107).  The async engine,
-checkpoints and retry, accumulation, numerics and telemetry are not
-ported yet.
+``_jit_forward``, optimizer.py:1098-1107).  The async engine and its
+background checkpoint writer, accumulation, numerics and telemetry are
+not ported yet.
 """
 from __future__ import annotations
 
 import inspect
 import logging
 import math
+import os
+import re
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -65,7 +82,11 @@ from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
 from bigdl_tpu_torch.utils import graphs
-from bigdl_tpu_torch.utils.convert import load_jax_variables
+from bigdl_tpu_torch.utils.convert import (export_opt_state,
+                                           export_variables, flatten,
+                                           load_jax_variables)
+from bigdl_tpu_torch.utils.serialization import (_local, load_pytree,
+                                                 save_pytree)
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -268,7 +289,20 @@ class Optimizer:
         self.val_trigger: Optional[Trigger] = None
         self.val_dataset: Optional[AbstractDataSet] = None
         self.val_methods: List[ValidationMethod] = []
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.overwrite_checkpoint = True
+        self.max_retry = 5
+        self.retry_window_sec = 600.0
+        self._resume_from: Optional[str] = None
         self._initial_variables: Optional[Dict[str, Any]] = None
+        self._stop_requested = False
+
+    def request_stop(self) -> None:
+        """Ask the loop to stop at the next iteration boundary; it writes
+        a final checkpoint first (when checkpoints are set).  Safe from
+        another thread or a signal handler."""
+        self._stop_requested = True
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_methods = {"__all__": method}
@@ -294,6 +328,26 @@ class Optimizer:
         self.val_trigger = trigger
         self.val_dataset = dataset
         self.val_methods = list(methods)
+        return self
+
+    def set_checkpoint(self, path: str, trigger: Trigger) -> "Optimizer":
+        """Write a checkpoint under the local directory ``path`` whenever
+        ``trigger`` fires after an iteration."""
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        return self
+
+    def over_write_checkpoint(self, overwrite: bool = True) -> "Optimizer":
+        """``True``: one ``model.npz`` in ``path``, rewritten each time;
+        ``False``: a timestamped directory per run holding
+        ``model.<iteration>.npz``."""
+        self.overwrite_checkpoint = overwrite
+        return self
+
+    def resume_from(self, checkpoint: str) -> "Optimizer":
+        """Start from ``checkpoint`` (a path as written, ``.npz`` optional),
+        which either package's loop wrote."""
+        self._resume_from = checkpoint
         return self
 
     def set_constant_gradient_clipping(self, min_v: float, max_v: float
@@ -360,20 +414,36 @@ class LocalOptimizer(Optimizer):
             "score": float("-inf"), "records_processed": 0,
             "batch_in_epoch": 0, "epoch_finished": False}
         self._loop_state = loop_state  # train_log_line reads it
+        # the step's trees: the compiled step updates these very tensors,
+        # and a restore copies a checkpoint into them
+        trees = (params, model_state, opt_states)
+        if self._resume_from:
+            self._load_resume(trees, loop_state)
         self.metrics = Metrics()
         batches_per_epoch = max(1, self.dataset.batches_per_epoch())
         data_iter = self.dataset.data(train=True)
         wall_start = time.time()
-        trees = (params, model_state, opt_states)
-        while not self.end_trigger(loop_state):
-            trees = self._one_iteration(step_fn, trees, loop_state,
-                                        data_iter, batches_per_epoch,
-                                        wall_start)
-            if loop_state["epoch_finished"]:
-                for m in self.optim_methods.values():
-                    m.state["epoch"] = loop_state["epoch"]
-            self._maybe_validate(model, trees[0], trees[1], loop_state)
+        self._retries = 0
+        self._last_failure = 0.0
+        ckpt_dir = self._prepare_ckpt_dir()
+        while not self._stop_requested and not self.end_trigger(loop_state):
+            try:
+                trees = self._one_iteration(step_fn, trees, loop_state,
+                                            data_iter, batches_per_epoch,
+                                            wall_start)
+                if loop_state["epoch_finished"]:
+                    for m in self.optim_methods.values():
+                        m.state["epoch"] = loop_state["epoch"]
+                self._maybe_validate(model, trees[0], trees[1], loop_state)
+                self._maybe_checkpoint(ckpt_dir, model, trees, loop_state)
+            except (FloatingPointError, RuntimeError, ValueError) as e:
+                self._recover_or_reraise(e, ckpt_dir, trees, loop_state)
+                continue
             loop_state["epoch_finished"] = False
+        if self._stop_requested:
+            # the iteration it stopped at, so that a resume goes on there
+            self._maybe_checkpoint(ckpt_dir, model, trees, loop_state,
+                                   force=True)
         params, model_state, _ = trees
         with torch.no_grad():
             for k, p in model.named_parameters():
@@ -382,6 +452,142 @@ class LocalOptimizer(Optimizer):
                 b.copy_(model_state[k])
         self.final_params, self.final_state = params, model_state
         return model
+
+    # -- checkpoints (bigdl_tpu/optim/optimizer.py:529-581, 630-676,
+    # 989-1050) --------------------------------------------------------
+    def _prepare_ckpt_dir(self) -> Optional[str]:
+        """The run's checkpoint directory, made: ``checkpoint_path``
+        itself when overwriting, else a timestamped subdirectory."""
+        if not self.checkpoint_path:
+            return None
+        d = _local(self.checkpoint_path)
+        if not self.overwrite_checkpoint:
+            d = os.path.join(d, time.strftime("%Y%m%d_%H%M%S"))
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def _ckpt_file(self, d: str, it: int) -> str:
+        return os.path.join(d, "model" if self.overwrite_checkpoint
+                            else f"model.{it}")
+
+    @staticmethod
+    def _latest_ckpt(d: str) -> Optional[str]:
+        """The newest checkpoint in ``d`` (without ``.npz``), or ``None``:
+        only ``model.npz`` and ``model.<iteration>.npz`` count, so a
+        temporary file left by a killed write is ignored."""
+        names = [f for f in os.listdir(d)
+                 if re.fullmatch(r"model(\.\d+)?\.npz", f)]
+        if not names:
+            return None
+        latest = max(names, key=lambda f: int(f.split(".")[1])
+                     if f.count(".") > 1 else 1 << 60)
+        return os.path.join(d, latest[:-len(".npz")])
+
+    def _maybe_checkpoint(self, ckpt_dir, model, trees, loop_state,
+                          force: bool = False):
+        """Write the blob when the trigger fires (or ``force``): each tree
+        copied to host numpy in JAX's nesting, then saved on the loop
+        thread, before the next step runs."""
+        if not ckpt_dir or not (force or (
+                self.checkpoint_trigger is not None
+                and self.checkpoint_trigger(loop_state))):
+            return
+        params, model_state, opt_states = trees
+        variables = export_variables(model, params, model_state)
+        blob = {
+            "params": variables["params"],
+            "model_state": variables["state"],
+            "opt_states": {name: export_opt_state(model, st)
+                           for name, st in opt_states.items()},
+            # no bools: a saved epoch_finished would fire the epoch
+            # triggers again right after a resume
+            "driver_state": {k: v for k, v in loop_state.items()
+                             if isinstance(v, (int, float))
+                             and not isinstance(v, bool)},
+        }
+        path = self._ckpt_file(ckpt_dir, loop_state["neval"])
+        save_pytree(path, blob)
+        logger.info("Checkpoint saved to %s (iteration %d)", path,
+                    loop_state["neval"])
+
+    def _restore(self, blob: dict, trees, loop_state):
+        """Copy a checkpoint blob into the step's trees in place (so the
+        compiled step replays on them with no new capture) and into the
+        loop's bookkeeping and the methods' counters."""
+        params, model_state, opt_states = trees
+        plan = [(params, blob["params"], "params"),
+                (model_state, blob["model_state"], "model_state")]
+        for name, st in opt_states.items():
+            for slot, flat in st.items():
+                plan.append((flat, blob["opt_states"][name][slot],
+                             f"opt_states/{name}/{slot}"))
+        for flat, tree, what in plan:  # check all before copying any
+            got = flatten(tree)
+            missing, extra = set(flat) - set(got), set(got) - set(flat)
+            if missing or extra:
+                raise KeyError(f"checkpoint {what}: keys differ: missing "
+                               f"{sorted(missing)[:8]}, unexpected "
+                               f"{sorted(extra)[:8]}")
+            for k, t in flat.items():
+                if tuple(np.shape(got[k])) != tuple(t.shape):
+                    raise ValueError(f"checkpoint {what} {k}: shape "
+                                     f"{np.shape(got[k])} != "
+                                     f"{tuple(t.shape)}")
+        with torch.no_grad():
+            for flat, tree, _ in plan:
+                got = flatten(tree)
+                for k, t in flat.items():
+                    t.copy_(torch.from_numpy(np.asarray(got[k])))
+        loop_state.update({k: v.item() if hasattr(v, "item") else v
+                           for k, v in blob["driver_state"].items()})
+        loop_state["epoch_finished"] = False
+        for m in self.optim_methods.values():
+            m.state["neval"] = loop_state["neval"]
+            m.state["epoch"] = loop_state["epoch"]
+
+    def _load_latest(self, ckpt_dir: str, trees, loop_state) -> bool:
+        """Restore the newest checkpoint in ``ckpt_dir``; False when there
+        is none."""
+        latest = self._latest_ckpt(ckpt_dir)
+        if latest is None:
+            return False
+        self._restore(load_pytree(latest), trees, loop_state)
+        return True
+
+    def _load_resume(self, trees, loop_state):
+        """Start from ``resume_from``: the trees, the bookkeeping and the
+        dataset's cursor."""
+        self._restore(load_pytree(self._resume_from), trees, loop_state)
+        self._restore_data_cursor(loop_state)
+        logger.info("Resumed from %s at iteration %d", self._resume_from,
+                    loop_state["neval"])
+
+    def _restore_data_cursor(self, loop_state):
+        """Rewind a dataset that has ``restore_cursor`` to the checkpoint's
+        epoch and batch, so the next batches are the ones the
+        uninterrupted run read."""
+        rc = getattr(self.dataset, "restore_cursor", None)
+        if rc is not None:
+            rc(loop_state.get("epoch", 0), loop_state.get("batch_in_epoch",
+                                                          0))
+
+    def _recover_or_reraise(self, e: BaseException, ckpt_dir, trees,
+                            loop_state):
+        """Retry from the latest checkpoint (rate-limited: at most
+        ``max_retry`` failures within ``retry_window_sec`` of each
+        other); ``e`` is raised again when retries are used up or there
+        is no checkpoint to go back to."""
+        now = time.time()
+        if now - self._last_failure > self.retry_window_sec:
+            self._retries = 0
+        self._retries += 1
+        self._last_failure = now
+        if self._retries > self.max_retry or not ckpt_dir \
+                or not self._load_latest(ckpt_dir, trees, loop_state):
+            raise e
+        logger.warning("Training failure (%s); retry %d from checkpoint "
+                       "at iteration %d", e, self._retries,
+                       loop_state["neval"])
 
     def train_log_line(self) -> str:
         """One-line training status (bigdl_tpu/optim/optimizer.py:683)."""

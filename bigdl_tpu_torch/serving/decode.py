@@ -28,14 +28,21 @@ per-slot int64 key and the vocabulary index), so the key is data to a
 captured tick; it cannot reproduce the JAX package's threefry streams.
 Greedy rows (``temp <= 0``) take the exact argmax.
 
+Speculative decoding (bigdl_tpu/serving/decode.py:377-468) is two more
+programs: a draft model proposes k tokens per slot (``build_draft_propose``)
+and one pass of the big model over them accepts the longest prefix
+equal to its own argmaxes (``build_spec_verify``).
+:func:`decode_program_check` builds every program an engine would run
+at example shapes (bigdl_tpu/serving/decode.py:470-600).
+
 :class:`DecodeEngine` (bigdl_tpu/serving/decode.py:601-1860) drives
 these programs: a request queue, admission into free slots through a
 bucketed prefill (or a chunked one for long prompts), continuous
 batching at token granularity, deadlines, page budgeting with eviction
-of younger requests, and per-request sampling.  Speculative decoding
-(the draft's programs and the verify pass) is not ported yet, nor are
-the JAX engine's telemetry hooks (tracer, request X-ray, exemplars,
-program registry, HBM ledger), as ``ServingEngine`` leaves them out.
+of younger requests, per-request sampling and speculative rounds.  The
+JAX engine's telemetry hooks (tracer, request X-ray, exemplars, program
+registry, HBM ledger, cost stamps) are not ported, as ``ServingEngine``
+leaves them out.
 """
 from __future__ import annotations
 
@@ -70,7 +77,9 @@ __all__ = ["DecodeEngine", "decode_tick_fn", "build_decode_tick", "prefill_fn",
            "sample_logits", "sampling_tick_fn", "build_sampling_tick",
            "paged_tick_fn", "build_paged_tick", "paged_write_slot_fn",
            "build_paged_write_slot", "page_reset_fn", "build_page_reset",
-           "prefill_chunk_fn", "build_prefill_chunk"]
+           "prefill_chunk_fn", "build_prefill_chunk", "draft_propose_fn",
+           "build_draft_propose", "spec_verify_fn", "build_spec_verify",
+           "decode_program_check"]
 
 Tensor = torch.Tensor
 
@@ -357,6 +366,194 @@ def build_prefill_chunk(model, cache, ids, advance) -> Callable:
                     out_at=1)
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding
+# ---------------------------------------------------------------------------
+def draft_propose_fn(draft_model, k: int) -> Callable:
+    """``propose(dcache, tokens, lengths, active) -> (dcache, proposals
+    (S, k))``: k greedy draft steps in one program (the JAX package's
+    ``lax.scan``, here a Python loop that one CUDA graph captures).  The
+    draft cache's lengths are first set to the host's ``lengths``: a
+    verify rolls the big model's cache back, and the draft follows it
+    (what lies above is stale).  The loop runs k + 1 steps, so that the
+    cache also takes in the last proposal (the verify may accept every
+    one); the extra step's token is dropped.  Inactive rows keep their
+    token and end at the host's length."""
+    @torch.no_grad()
+    def propose(dcache, tokens, lengths, active):
+        dcache = {lk: dict(c, length=lengths) for lk, c in dcache.items()}
+        tok, outs = tokens, []
+        for _ in range(k + 1):
+            logits, dcache = draft_model.decode_step(dcache, tok)
+            tok = torch.where(active, logits.argmax(-1).to(torch.int32), tok)
+            outs.append(tok)
+        return (_freeze_lengths(dcache, {lk: lengths for lk in dcache},
+                                active), torch.stack(outs[:k], 1))
+
+    return propose
+
+
+def build_draft_propose(draft_model, k: int, dcache, tokens, lengths,
+                        active) -> Callable:
+    """:func:`draft_propose_fn` compiled, the draft's dense ``dcache``
+    donated."""
+    return _compile(draft_propose_fn(draft_model, k),
+                    (dcache, tokens, lengths, active))
+
+
+def spec_verify_fn(model, k: int, paged: bool = False) -> Callable:
+    """One big-model pass over ``[t_last, d_0..d_{k-1}]`` (S, k + 1):
+    ``verify(cache, tokens, draft, active) -> (cache, emitted (S, k + 1),
+    n_emit (S,))``, or ``verify(cache, table, tokens, draft, active)``
+    over paged pools (``extend_paged``).  A row emits ``emitted[:n_emit]``,
+    the big model's own argmaxes, so speculative decoding gives the greedy
+    tokens whatever the draft proposes.  Lengths roll back in the program
+    to ``old + n_emit``; the rejected drafts' K/V stay above the length,
+    where the next round overwrites them before anything reads them."""
+    def finish(cache, old, logits, tokens, draft, active):
+        # b: the argmax at every position; the accepted prefix is the run
+        # of drafts equal to b, and an active row emits it and one more
+        b = logits.argmax(-1).to(torch.int32)
+        acc = torch.cumprod((b[:, :k] == draft).to(torch.int32), 1)
+        n_emit = torch.where(active, acc.sum(1) + 1, 0).to(torch.int32)
+        return ({lk: dict(c, length=old[lk] + n_emit)
+                 for lk, c in cache.items()},
+                torch.where(active[:, None], b, tokens[:, None]), n_emit)
+
+    @torch.no_grad()
+    def verify(cache, tokens, draft, active):
+        old = {lk: c["length"] for lk, c in cache.items()}
+        logits, cache = model.extend(cache, torch.cat([tokens[:, None],
+                                                       draft], 1))
+        return finish(cache, old, logits, tokens, draft, active)
+
+    @torch.no_grad()
+    def verify_paged(cache, table, tokens, draft, active):
+        old = {lk: c["length"] for lk, c in cache.items()}
+        logits, cache = model.extend_paged(
+            cache, table, torch.cat([tokens[:, None], draft], 1), active)
+        return finish(cache, old, logits, tokens, draft, active)
+
+    return verify_paged if paged else verify
+
+
+def build_spec_verify(model, k: int, cache, *args, paged: bool = False
+                      ) -> Callable:
+    """:func:`spec_verify_fn` compiled at the shapes of ``(cache, *args)``
+    (``args``: ``tokens, draft, active``, the block table first when
+    ``paged``), the grid ``cache`` donated; the ``draft`` tensor is read
+    in place when a call passes the one given here (the propose
+    program's output)."""
+    at = 3 if paged else 2  # the draft's position
+    return _compile(spec_verify_fn(model, k, paged), (cache,) + args,
+                    in_place=(at,))
+
+
+def decode_program_check(model, *, slots: int = 8, max_len: int = 160,
+                         prompt_buckets: Sequence[int] = (8, 16, 32),
+                         prefill_batch_sizes: Sequence[int] = (1, 4, 8),
+                         dtype=None, log: Optional[Callable] = None,
+                         page_size: Optional[int] = None,
+                         num_pages: Optional[int] = None,
+                         kv_dtype=None,
+                         prefill_chunk: Optional[int] = None,
+                         draft_model=None, draft_k: int = 3,
+                         device: DeviceLike = None) -> int:
+    """Build every program the decode engine dispatches at its example
+    shapes, and run each once: the greedy and the sampling tick, each
+    declared prefill bucket and the slot writes; with ``page_size``, the
+    paged tick, paged writes and page reset (``kv_dtype="int8"`` adds the
+    quantized pool's); with ``prefill_chunk``, the chunk program; with
+    ``draft_model``, the propose and verify pair (and the paged verify).
+    The counterpart of the JAX package's ``deviceless_decode_check``,
+    which compiles against a deviceless TPU topology; there is no such
+    CUDA target, so on the card each program is captured (a CUDA graph)
+    and replayed once, and on the CPU run once eagerly.  ``model`` (and
+    ``draft_model``) move to ``device`` (default: the card).  Returns the
+    failure count; ``log`` receives one line per program."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    dtype = dtype or model.embed.weight.dtype
+    log = log or (lambda line: None)
+    failures = 0
+
+    def ints(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    def check(tag, build, *args):
+        nonlocal failures
+        try:
+            build(*args)(*args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            log(f"{tag}: OK")
+        except Exception as e:  # counted and logged: the check's result
+            failures += 1
+            log(f"{tag}: FAIL {str(e)[:200]}")
+
+    def cache(b=slots):
+        return model.init_cache(b, max_len, dtype)
+
+    tok, act = ints(slots), torch.zeros(slots, dtype=torch.bool, device=dev)
+    samp = (torch.zeros(slots, dtype=torch.int64, device=dev),
+            torch.zeros(slots, device=dev), ints(slots),
+            torch.ones(slots, device=dev))
+    row = (ints(1), ints(1))
+    check("decode tick", lambda *a: build_decode_tick(model, *a), cache(),
+          tok, act)
+    check("sampling tick", lambda *a: build_sampling_tick(model, *a),
+          cache(), tok, act, *samp)
+    grid = BucketGrid([(int(t),) for t in prompt_buckets],
+                      prefill_batch_sizes, pad_value=0)
+    for bucket in grid.declared_buckets():
+        check(f"prefill {bucket.batch}x{bucket.dims[0]}",
+              lambda *a: build_prefill(model, max_len, *a, dtype=dtype),
+              ints(bucket.batch, *bucket.dims), ints(bucket.batch) + 1)
+    for b in grid.batch_sizes:
+        check(f"write_slot batch={b}", build_write_slot, cache(), cache(b),
+              *row)
+    if page_size:
+        n_pages = num_pages or paging.default_num_pages(slots, max_len,
+                                                        page_size)
+        m = -(-max_len // page_size)
+        table = ints(slots, m)
+        variants = [("fp", None)] + ([(str(kv_dtype), kv_dtype)]
+                                     if kv_dtype else [])
+        for tag, kvd in variants:
+            def pool(kvd=kvd):
+                return model.init_paged_cache(n_pages, page_size, slots,
+                                              dtype, kv_dtype=kvd)
+
+            check(f"paged tick [{tag}]",
+                  lambda *a: build_paged_tick(model, *a), pool(), table,
+                  tok, act, *samp)
+            for b in grid.batch_sizes:
+                check(f"paged write_slot batch={b} [{tag}]",
+                      build_paged_write_slot, pool(), ints(m), cache(b),
+                      *row)
+            check(f"page reset [{tag}]", build_page_reset, pool(), ints(m))
+            if draft_model is not None:
+                check(f"spec verify paged k={draft_k} [{tag}]",
+                      lambda *a: build_spec_verify(model, draft_k, *a,
+                                                   paged=True),
+                      pool(), table, tok, ints(slots, draft_k), act)
+    if prefill_chunk:
+        check(f"prefill chunk C={prefill_chunk}",
+              lambda *a: build_prefill_chunk(model, *a), cache(1),
+              ints(1, prefill_chunk), ints(1) + 1)
+    if draft_model is not None:
+        draft_model = draft_model.to(dev).eval()
+        dcache = draft_model.init_cache(slots, max_len,
+                                        draft_model.embed.weight.dtype)
+        check(f"draft propose k={draft_k}",
+              lambda *a: build_draft_propose(draft_model, draft_k, *a),
+              dcache, tok, ints(slots), act)
+        check(f"spec verify k={draft_k}",
+              lambda *a: build_spec_verify(model, draft_k, *a), cache(),
+              tok, ints(slots, draft_k), act)
+    return failures
+
+
 
 # ---------------------------------------------------------------------------
 # the engine
@@ -435,17 +632,18 @@ class DecodeEngine:
     batching, the baseline).  ``kv_layout="paged"`` keeps the cache in
     a page pool (``page_size``, ``num_pages``; pages return to the
     allocator at retirement) and ``kv_dtype="int8"`` quantizes it.
+    ``draft=(draft_model, draft_variables)`` turns on speculative
+    decoding (greedy only): each round the draft proposes ``draft_k``
+    tokens (default ``BIGDL_TPU_DRAFT_K``, 3) and one verify pass of the
+    big model emits the accepted prefix and its own next token, so the
+    tokens are the greedy ones whatever the draft proposes.  The draft
+    (its variables loaded as ``variables`` are, when given) keeps a
+    dense cache of its own in its embedding's type.
 
     Every program is one of this module's ``build_*``: on the card a
     CUDA graph captured at its first sight, which ``metrics.recompiles``
     counts; ``warmup()`` captures :meth:`declared_programs` of them.
-    Speculative decoding (``draft``, ``draft_k``) raises
-    ``NotImplementedError``.
     """
-
-    #: tokens a slot may write past its valid length in one round (the
-    #: next tick's token), which page budgeting funds ahead
-    _PAGE_SLACK = 1
 
     def __init__(self, model, variables: Optional[dict] = None, *,
                  slots: int = 8,
@@ -468,20 +666,20 @@ class DecodeEngine:
                  draft: Optional[tuple] = None,
                  draft_k: Optional[int] = None,
                  device: DeviceLike = None):
-        if draft is not None or draft_k is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft=, draft_k=) is not ported "
-                "yet: it comes with the port's speculative-decoding slice")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', "
                              f"got {kv_layout!r}")
         if kv_dtype is not None and kv_layout != "paged":
             raise ValueError("kv_dtype requires kv_layout='paged'")
+        self._spec = draft is not None
+        self.draft_k = 0
+        if self._spec:
+            self.draft_k = int(draft_k if draft_k is not None
+                               else paging.draft_k_default())
+            if self.draft_k < 1:
+                raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
-        if variables is not None:
-            from bigdl_tpu_torch.utils.convert import load_jax_variables
-            load_jax_variables(self.model, variables)
+        self.model = self._place(model, variables)
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.eos_id = eos_id
@@ -518,6 +716,13 @@ class DecodeEngine:
             self._cache = self.model.init_cache(self.slots, self.max_len,
                                                 self._dtype)
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        if self._spec:
+            self._draft_model = self._place(*draft)
+            self._ddtype = self._draft_model.embed.weight.dtype
+            # dense: the draft is small, and its lengths follow the
+            # host's each round
+            self._dcache = self._draft_model.init_cache(
+                self.slots, self.max_len, self._ddtype)
         self._programs: dict = {}  # key -> compiled program
 
         # the host's grid state, copied into each tick
@@ -576,68 +781,93 @@ class DecodeEngine:
             self._programs[key] = prog
         return prog
 
+    def _place(self, model, variables: Optional[dict]):
+        """``model`` on the engine's device in evaluation mode, with a JAX
+        ``{"params", "state"}`` tree loaded into it when one is given."""
+        model = model.to(self.device).eval()
+        if variables is not None:
+            from bigdl_tpu_torch.utils.convert import load_jax_variables
+            load_jax_variables(model, variables)
+        return model
+
     def _dev(self, a: np.ndarray) -> Tensor:
         """A host array on the engine's device: a program's example
         argument (calls pass ``torch.from_numpy`` views, which a captured
         program copies into its inputs)."""
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _sides(self) -> tuple:
+        """The models whose caches admission fills: the big model
+        (``False``) and, speculating, the draft (``True``)."""
+        return (False, True) if self._spec else (False,)
+
     def declared_programs(self) -> int:
         """How many programs a full warmup captures: the tick, and a
         prefill and its slot write per declared (batch, prompt) bucket;
         chunked prefill adds the chunk program and its write, and a
-        paged engine that zeroes pages the page reset.  A write is keyed
-        by the program whose cache it reads, so it always reads that
-        cache in place (the JAX engine keys it by batch size: one
-        compiled program serves any input buffer there, while a graph
-        reads fixed addresses)."""
-        n = 2 * len(self.grid.declared_buckets()) + 1
+        paged engine that zeroes pages the page reset.  Speculating, the
+        propose and verify pair replaces the tick and the draft has its
+        own prefill and write per bucket (and chunk and write): ``4 *
+        buckets + 2``, plus 4 with chunking and 1 with page zeroing.  A
+        write is keyed by the program whose cache it reads, so it always
+        reads that cache in place (the JAX engine keys it by batch size:
+        one compiled program serves any input buffer there, while a
+        graph reads fixed addresses)."""
+        sides = len(self._sides())
+        n = 2 * sides * len(self.grid.declared_buckets()) + sides
         if self.prefill_chunk:
-            n += 2
+            n += 2 * sides
         if self.paged and self._page_zero:
             n += 1
         return n
 
     def warmup(self) -> int:
         """Capture every declared program not captured yet, each run
-        once (an all-idle tick, zero prompts prefilled and written into a
-        slot that holds no request, a chunk into a fresh staging cache,
-        an empty page reset), so that no request waits on a capture;
-        returns how many ran (0 on a re-warm).  Writes need a slot with
-        no request, and the chunk program a moment when no chunked
-        prefill holds its staging cache; otherwise they are captured at
-        their first use."""
+        once (an all-idle tick or propose and verify, zero prompts
+        prefilled and written into a slot that holds no request, a chunk
+        into a fresh staging cache, an empty page reset), so that no
+        request waits on a capture; returns how many ran (0 on a
+        re-warm).  Writes need a slot with no request, and the chunk
+        programs a moment when no chunked prefill holds a staging cache;
+        otherwise they are captured at their first use."""
         before = self.metrics.recompiles
         with self._lock:
-            if ("tick",) not in self._programs:
+            if self._spec:
+                if ("propose",) not in self._programs or \
+                        ("verify",) not in self._programs:
+                    self._run_verify(self._run_propose())
+            elif ("tick",) not in self._programs:
                 self._run_tick()
             idle = next((s for s in range(self.slots)
                          if self._slot_state[s] is None
                          and not self._active[s]
                          and (self._chunking is None
                               or self._chunking["slot"] != s)), None)
-            for bucket in self.grid.declared_buckets():
+            for bucket, draft in itertools.product(
+                    self.grid.declared_buckets(), self._sides()):
                 ids = np.zeros((bucket.batch,) + bucket.dims, np.int32)
-                src = ("prefill", ids.shape)
+                src = ("dprefill" if draft else "prefill", ids.shape)
                 write = ("write",) + src not in self._programs \
                     and idle is not None
                 if src in self._programs and not write:
                     continue
                 _, pcache = self._run_prefill(
-                    ids, np.ones((bucket.batch,), np.int32))
+                    ids, np.ones((bucket.batch,), np.int32), draft)
                 if write:
-                    self._run_write(pcache, 0, idle, src)
-            write = ("write", "chunk") not in self._programs \
-                and idle is not None
-            if self.prefill_chunk and self._chunking is None and (
-                    ("chunk",) not in self._programs or write):
-                staging = self.model.init_cache(1, self.max_len,
-                                                self._dtype)
+                    self._run_write(pcache, 0, idle, src, draft)
+            for draft in self._sides() if self.prefill_chunk \
+                    and self._chunking is None else ():
+                src = ("dchunk" if draft else "chunk",)
+                write = ("write",) + src not in self._programs \
+                    and idle is not None
+                if src in self._programs and not write:
+                    continue
                 _, staging = self._run_chunk(
-                    staging, np.zeros((1, self.prefill_chunk), np.int32),
-                    np.ones((1,), np.int32))
+                    self._staging(draft),
+                    np.zeros((1, self.prefill_chunk), np.int32),
+                    np.ones((1,), np.int32), draft)
                 if write:
-                    self._run_write(staging, 0, idle, ("chunk",))
+                    self._run_write(staging, 0, idle, src, draft)
             if self._page_zero and ("page_reset",) not in self._programs:
                 self._run_page_reset([])
         return self.metrics.recompiles - before
@@ -659,20 +889,57 @@ class DecodeEngine:
         self._keys = keys.cpu().numpy().copy()
         return nxt.cpu().numpy().copy()
 
-    def _run_prefill(self, ids: np.ndarray, lengths: np.ndarray):
-        prog = self._tracked(("prefill", ids.shape), lambda: build_prefill(
-            self.model, self.max_len, self._dev(ids), self._dev(lengths),
-            self._dtype))
+    def _run_propose(self) -> Tensor:
+        """The draft's k proposals per slot (S, k), left on the device
+        for the verify; the draft cache follows the host's lengths."""
+        host = (self._tokens, self._host_len, self._active)
+        prog = self._tracked(("propose",), lambda: build_draft_propose(
+            self._draft_model, self.draft_k, self._dcache,
+            *map(self._dev, host)))
+        self._dcache, props = prog(self._dcache,
+                                   *map(torch.from_numpy, host))
+        return props
+
+    def _run_verify(self, props: Tensor):
+        """The big model's pass over each slot's token and proposals:
+        the emitted tokens (S, k + 1) and their counts (S,) on the host
+        (the round's one synchronisation)."""
+        def args(place):
+            table = (place(self._alloc.table),) if self.paged else ()
+            return (self._cache,) + table + (place(self._tokens), props,
+                                             place(self._active))
+
+        prog = self._tracked(("verify",), lambda: build_spec_verify(
+            self.model, self.draft_k, *args(self._dev), paged=self.paged))
+        self._cache, emitted, n_emit = prog(*args(torch.from_numpy))
+        return emitted.cpu().numpy().copy(), n_emit.cpu().numpy().copy()
+
+    def _run_prefill(self, ids: np.ndarray, lengths: np.ndarray,
+                     draft: bool = False):
+        """A prompt bucket prefilled by the big model or, with ``draft``,
+        by the draft (JAX's ``_run_draft_prefill``)."""
+        model, dtype = (self._draft_model, self._ddtype) if draft \
+            else (self.model, self._dtype)
+        key = ("dprefill" if draft else "prefill", ids.shape)
+        prog = self._tracked(key, lambda: build_prefill(
+            model, self.max_len, self._dev(ids), self._dev(lengths), dtype))
         return prog(torch.from_numpy(ids), torch.from_numpy(lengths))
 
-    def _run_write(self, pcache, row: int, slot: int, src: tuple):
-        """Row ``row`` of ``pcache`` into grid slot ``slot``: one write
-        program per program ``src`` that makes such caches (a prefill
-        bucket, or the chunk program's staging cache), built on that
-        program's output, which each call then reads in place."""
+    def _run_write(self, pcache, row: int, slot: int, src: tuple,
+                   draft: bool = False):
+        """Row ``row`` of ``pcache`` into grid slot ``slot`` (with
+        ``draft``, of the draft's dense cache: JAX's ``_run_draft_write``):
+        one write program per program ``src`` that makes such caches (a
+        prefill bucket, or a chunk program's staging cache), built on
+        that program's output, which each call then reads in place."""
         rs = (np.array([row], np.int32), np.array([slot], np.int32))
         key = ("write",) + src
-        if self.paged:
+        if draft:
+            prog = self._tracked(key, lambda: build_write_slot(
+                self._dcache, pcache, *map(self._dev, rs)))
+            self._dcache = prog(self._dcache, pcache,
+                                *map(torch.from_numpy, rs))
+        elif self.paged:
             table_row = self._alloc.table[slot]
             prog = self._tracked(key, lambda: build_paged_write_slot(
                 self._cache, self._dev(table_row), pcache,
@@ -695,11 +962,24 @@ class DecodeEngine:
             self._cache, self._dev(arr)))
         self._cache = prog(self._cache, torch.from_numpy(arr))
 
-    def _run_chunk(self, staging, ids: np.ndarray, adv: np.ndarray):
-        """One prompt chunk into the batch-1 ``staging`` cache: the last
-        valid position's logits on the host, and the staging cache."""
-        prog = self._tracked(("chunk",), lambda: build_prefill_chunk(
-            self.model, staging, self._dev(ids), self._dev(adv)))
+    def _staging(self, draft: bool = False):
+        """A fresh batch-1 staging cache for a chunked prefill."""
+        if draft:
+            return self._draft_model.init_cache(1, self.max_len,
+                                                self._ddtype)
+        return self.model.init_cache(1, self.max_len, self._dtype)
+
+    def _run_chunk(self, staging, ids: np.ndarray, adv: np.ndarray,
+                   draft: bool = False):
+        """One prompt chunk into the batch-1 ``staging`` cache of the big
+        model or, with ``draft``, of the draft (JAX's
+        ``_run_draft_chunk``): the last valid position's logits on the
+        host, and the staging cache."""
+        model = self._draft_model if draft else self.model
+        prog = self._tracked(("dchunk" if draft else "chunk",),
+                             lambda: build_prefill_chunk(
+                                 model, staging, self._dev(ids),
+                                 self._dev(adv)))
         last, staging = prog(staging, torch.from_numpy(ids),
                              torch.from_numpy(adv))
         return last.float().cpu(), staging
@@ -717,9 +997,11 @@ class DecodeEngine:
         included when hit).  ``temperature > 0`` samples inside the tick
         (``top_k``/``top_p`` filter; ``seed``, by default the request's
         id, makes the stream reproducible); ``temperature == 0`` is exact
-        greedy.  Raises :class:`QueueFullError` when the bounded queue is
-        full, :class:`EngineClosedError` after ``close()``,
-        ``ValueError`` when the request cannot fit the cache and
+        greedy (and the only mode of a speculating engine).  Raises
+        :class:`QueueFullError` when the bounded queue is full,
+        :class:`EngineClosedError` after ``close()``, ``ValueError``
+        when the request samples on a speculating engine or cannot fit
+        the cache (with ``draft_k`` slack when speculating) and
         ``OutOfPagesError`` when it cannot fit an empty page pool."""
         if self._closed:
             raise EngineClosedError("submit on a closed decode engine")
@@ -733,14 +1015,23 @@ class DecodeEngine:
                              f"{max_new_tokens}")
         temperature, top_k, top_p = float(temperature), int(top_k), \
             float(top_p)
+        if temperature > 0.0 and self._spec:
+            raise ValueError(
+                "speculative decoding is greedy-only: the verify pass "
+                "accepts draft tokens by argmax match, which sampling "
+                "would break")
         if temperature > 0.0 and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-        worst = int(prompt.size) + max_new_tokens - 1
+        # a speculative round writes up to draft_k tokens past the last
+        # emitted position before it rolls back: reserve them
+        slack = self.draft_k
+        worst = int(prompt.size) + max_new_tokens - 1 + slack
         if worst > self.max_len:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new_tokens "
-                f"({max_new_tokens}) - 1 exceeds the cache max_len "
-                f"({self.max_len})")
+                f"({max_new_tokens}) - 1"
+                + (f" + draft_k ({slack})" if slack else "")
+                + f" exceeds the cache max_len ({self.max_len})")
         if self.paged:
             pages = min(-(-worst // self.page_size),
                         self._alloc.pages_per_slot)
@@ -877,14 +1168,21 @@ class DecodeEngine:
                         return
                     continue
                 t0 = time.perf_counter()
-                nxt = self._run_tick()
+                if self._spec:
+                    emitted, n_emit = self._run_verify(self._run_propose())
+                else:
+                    emitted = self._run_tick()[:, None]
+                    n_emit = self._active.astype(np.int32)
                 self.metrics.record_tick(time.perf_counter() - t0)
-                self._tokens = nxt
                 n_active = int(self._active.sum())
-                self.metrics.record_decode_tokens(n_active)
                 self.metrics.record_slot_occupancy(n_active / self.slots)
-                self._host_len[self._active] += 1
-                self._retire(nxt)
+                if self._spec:
+                    # the bonus token is the big model's own, not a draft's
+                    self.metrics.record_spec(
+                        self.draft_k * n_active,
+                        int(n_emit[self._active].sum()) - n_active)
+                self.metrics.record_decode_tokens(
+                    self._retire(emitted, n_emit))
 
     def _drain_queue(self, block: bool, stopping: bool) -> bool:
         """Move queued requests into the admission deque; ``block`` waits
@@ -946,7 +1244,7 @@ class DecodeEngine:
             fits: List[_DecodeRequest] = []
             free_pages = self._alloc.pages_free
             for i, req in enumerate(taken):
-                need = min(-(-(int(req.prompt.size) + self._PAGE_SLACK)
+                need = min(-(-(int(req.prompt.size) + self._page_slack())
                              // self.page_size),
                            self._alloc.pages_per_slot)
                 if need > free_pages:
@@ -981,20 +1279,25 @@ class DecodeEngine:
         lengths[:len(chunk)] = [r.prompt.size for r in chunk]
         logits, pcache = self._run_prefill(ids, lengths)
         logits = logits.float().cpu()
+        caches = {False: pcache}
+        if self._spec:
+            caches[True] = self._run_prefill(ids, lengths, draft=True)[1]
         for i, r in enumerate(chunk):
             tok0 = _host_sample(logits[i], r)
             if self._done_at_first(r, tok0):
                 continue
             slot = next(free_iter)
             if self.paged and not self._alloc.ensure(
-                    slot, int(r.prompt.size) + self._PAGE_SLACK):
+                    slot, int(r.prompt.size) + self._page_slack()):
                 # admission reserved these pages; losing them is
                 # unexpected but recoverable: wait, do not evict
                 self._pending.appendleft(r)
                 continue
             if self.paged:
                 self.metrics.record_pages(self._alloc.pages_in_use)
-            self._run_write(pcache, i, slot, ("prefill", ids.shape))
+            for draft, pcache in caches.items():
+                self._run_write(pcache, i, slot, (
+                    "dprefill" if draft else "prefill", ids.shape), draft)
             self._activate(slot, r, tok0)
 
     def _done_at_first(self, req: _DecodeRequest, tok0: int) -> bool:
@@ -1033,8 +1336,7 @@ class DecodeEngine:
                     return
                 self._chunking = {
                     "req": req, "slot": free[0], "offset": 0,
-                    "staging": self.model.init_cache(1, self.max_len,
-                                                     self._dtype)}
+                    "staging": {d: self._staging(d) for d in self._sides()}}
         c = self._chunking
         if c is None:
             return
@@ -1053,8 +1355,12 @@ class DecodeEngine:
         hi = min(lo + size, int(req.prompt.size))
         ids = np.zeros((1, size), np.int32)
         ids[0, :hi - lo] = req.prompt[lo:hi]
-        last, c["staging"] = self._run_chunk(
-            c["staging"], ids, np.array([hi - lo], np.int32))
+        adv = np.array([hi - lo], np.int32)
+        staging = c["staging"]
+        last, staging[False] = self._run_chunk(staging[False], ids, adv)
+        if self._spec:
+            staging[True] = self._run_chunk(staging[True], ids, adv,
+                                            draft=True)[1]
         self.metrics.inc_prefill_chunks()
         self.metrics.record_prefill(time.perf_counter() - now)
         c["offset"] = hi
@@ -1073,16 +1379,24 @@ class DecodeEngine:
         req, slot = c["req"], c["slot"]
         if self.paged:
             if not self._alloc.ensure(
-                    slot, int(req.prompt.size) + self._PAGE_SLACK):
+                    slot, int(req.prompt.size) + self._page_slack()):
                 return  # retry next loop iteration
             self.metrics.record_pages(self._alloc.pages_in_use)
         self._chunking = None
-        self._run_write(c["staging"], 0, slot, ("chunk",))
+        for draft, staging in c["staging"].items():
+            self._run_write(staging, 0, slot,
+                            ("dchunk" if draft else "chunk",), draft)
         self._activate(slot, req, c["tok0"])
 
     # ------------------------------------------------------------------
     # page budgeting
     # ------------------------------------------------------------------
+    def _page_slack(self) -> int:
+        """Tokens a slot may write past its valid length in one round,
+        which page budgeting funds ahead: the tick's token, and a
+        speculative round's draft_k more."""
+        return 1 + self.draft_k
+
     def _budget_pages(self):
         """Before each tick, fund every occupied slot with pages for the
         tokens this tick writes, oldest request first.  A slot the free
@@ -1097,7 +1411,7 @@ class DecodeEngine:
         for s in order:
             if self._slot_state[s] is None:
                 continue  # evicted by an older slot this round
-            need = int(self._host_len[s]) + self._PAGE_SLACK
+            need = int(self._host_len[s]) + self._page_slack()
             self._active[s] = self._ensure_pages(s, need)
 
     def _ensure_pages(self, slot: int, tokens: int) -> bool:
@@ -1141,24 +1455,42 @@ class DecodeEngine:
         return sum(leaf.numel() * leaf.element_size()
                    for leaf in graphs.leaves(self._cache))
 
-    def _retire(self, nxt: np.ndarray):
+    def _retire(self, emitted: np.ndarray, n_emit: np.ndarray) -> int:
+        """Take each active slot's ``n_emit[s]`` tokens of ``emitted``
+        (S, n) (a tick emits one, a speculative round up to draft_k + 1):
+        the slot's next input is the last, its valid length grows by as
+        many, and its request retires at an EOS, at its budget (the
+        tokens past either are dropped) or past its deadline.  Returns
+        the tokens delivered."""
         now = time.perf_counter()
+        delivered = 0
         for s in range(self.slots):
             if not self._active[s]:
                 continue
+            n = int(n_emit[s])
+            self._host_len[s] += n
+            self._tokens[s] = emitted[s, n - 1]
             st = self._slot_state[s]
-            st.generated.append(int(nxt[s]))
             req = st.req
-            if self.eos_id is not None and int(nxt[s]) == self.eos_id:
-                self._finish(req, st.generated, "eos")
-            elif len(st.generated) >= req.max_new:
-                self._finish(req, st.generated, "length")
-            elif req.deadline is not None and now > req.deadline:
+            reason = None
+            for tok in emitted[s, :n]:
+                st.generated.append(int(tok))
+                delivered += 1
+                if self.eos_id is not None and int(tok) == self.eos_id:
+                    reason = "eos"
+                elif len(st.generated) >= req.max_new:
+                    reason = "length"
+                if reason:
+                    break
+            if reason is None and req.deadline is not None \
+                    and now > req.deadline:
                 # decoding has started: truncate, do not fail
-                self._finish(req, st.generated, "deadline")
-            else:
+                reason = "deadline"
+            if reason is None:
                 continue
+            self._finish(req, st.generated, reason)
             self._free(s)
+        return delivered
 
     def _finish(self, req: _DecodeRequest, tokens: List[int], reason: str):
         self.metrics.inc_finished(reason)

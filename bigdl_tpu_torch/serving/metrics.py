@@ -4,13 +4,15 @@ occupancy, queue depth, rejected and expired requests, the compile
 counter ``recompiles`` (bigdl_tpu/serving/metrics.py:27) with its
 seconds; the decode engine's counters (prefill and tick times, decoded
 tokens, slot occupancy, retirements by reason, pages in use, page
-evictions, prefill chunks); the canonical ``log_line()``; and
+evictions, prefill chunks, speculative draft tokens proposed and
+accepted); the canonical ``log_line()``; and
 :class:`PeriodicMetricsLogger`, which logs an engine's line on a
 cadence.
 
-The JAX engine's cost/MFU columns read XLA's ``cost_analysis`` and its
-speculative counters belong to speculative decoding; neither has a
-counterpart here yet.
+The JAX engine's cost/MFU columns read XLA's ``cost_analysis``; they
+have no counterpart here yet, nor has ``write_summary`` (it writes
+through ``visualization/``); :attr:`ServingMetrics.SUMMARY_TAGS` names
+the tag it gives the speculative acceptance rate.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ class ServingMetrics:
         self._ticks = deque(maxlen=window)
         self._counts = {"completed": 0, "rejected": 0, "expired": 0,
                         "batches": 0, "recompiles": 0, "decoded_tokens": 0,
-                        "page_evictions": 0, "prefill_chunks": 0}
+                        "page_evictions": 0, "prefill_chunks": 0,
+                        "spec_proposed": 0, "spec_accepted": 0}
         # decode phases: (sum, count) since the start, for their means
         self._means = {"prefill": [0.0, 0], "tick": [0.0, 0],
                        "slot_occupancy": [0.0, 0]}
@@ -116,6 +119,13 @@ class ServingMetrics:
 
     def inc_prefill_chunks(self, n: int = 1):
         self._inc("prefill_chunks", n)
+
+    def record_spec(self, proposed: int, accepted: int):
+        """Speculative rounds: ``proposed`` draft tokens scored by the
+        verify pass, ``accepted`` of them taken."""
+        with self._lock:
+            self._counts["spec_proposed"] += proposed
+            self._counts["spec_accepted"] += accepted
 
     def inc_completed(self, n: int = 1):
         self._inc("completed", n)
@@ -229,6 +239,22 @@ class ServingMetrics:
     def prefill_chunks(self) -> int:
         return self._counts["prefill_chunks"]
 
+    @property
+    def spec_proposed(self) -> int:
+        """Draft tokens the verify passes scored."""
+        return self._counts["spec_proposed"]
+
+    @property
+    def spec_accepted(self) -> int:
+        return self._counts["spec_accepted"]
+
+    def spec_acceptance_rate(self) -> float:
+        """Accepted / proposed draft tokens over every speculative round
+        (0 when the engine ran none)."""
+        with self._lock:
+            p = self._counts["spec_proposed"]
+            return self._counts["spec_accepted"] / p if p else 0.0
+
     def snapshot(self) -> dict:
         return {
             "completed": self.completed,
@@ -252,8 +278,13 @@ class ServingMetrics:
             "decode_ms": 1e3 * self._mean("tick"),
             "pages_in_use": self.pages_in_use,
             "page_evictions": self.page_evictions,
+            "spec_acceptance_rate": self.spec_acceptance_rate(),
             "prefill_chunks": self.prefill_chunks,
         }
+
+    #: the JAX package's summary tag (its ``write_summary``) of the
+    #: speculative snapshot key
+    SUMMARY_TAGS = {"spec_acceptance_rate": "Serving/SpecAcceptanceRate"}
 
     def log_line(self) -> str:
         s = self.snapshot()
@@ -274,6 +305,8 @@ class ServingMetrics:
                      f"evict={s['page_evictions']}")
         if s["prefill_chunks"]:
             line += f" | chunks={s['prefill_chunks']}"
+        if s["spec_acceptance_rate"]:
+            line += f" | spec acc={100 * s['spec_acceptance_rate']:.0f}%"
         return line
 
 

@@ -14,7 +14,8 @@ package reads them:
   model's compute type);
 * ``BIGDL_TPU_PAGE_ZERO``: ``1`` zeroes freed pages through the
   ``page_reset`` program (hygiene only: the length mask hides stale
-  bytes).
+  bytes);
+* ``BIGDL_TPU_DRAFT_K``: draft tokens per speculative round (default 3).
 """
 from __future__ import annotations
 
@@ -32,6 +33,10 @@ def page_size_default() -> int:
 def kv_dtype_default() -> Optional[str]:
     v = os.environ.get("BIGDL_TPU_KV_DTYPE", "").strip().lower()
     return v or None
+
+
+def draft_k_default() -> int:
+    return int(os.environ.get("BIGDL_TPU_DRAFT_K", "3"))
 
 
 def page_zero_enabled() -> bool:

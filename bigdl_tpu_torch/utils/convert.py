@@ -20,7 +20,7 @@ each of which becomes a flat dict keyed by parameter name
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -88,33 +88,44 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> dict:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    """A leaf as a C-ordered numpy array, whatever the tensor's strides
+    """A leaf as a C-ordered numpy copy, whatever the tensor's strides
     (a quantized layer's ``weight_q`` is a transposed view): floating
     types as f32, integer types (the int8 ``weight_q``) as they are."""
     t = t.detach()
-    return np.ascontiguousarray(
-        (t.float() if t.is_floating_point() else t).cpu().numpy())
+    return np.array((t.float() if t.is_floating_point() else t).cpu(),
+                    order="C", copy=True)
 
 
-def _nest(module: torch.nn.Module, kind: str) -> dict:
+def _nest(module: torch.nn.Module, kind: str,
+          values: Optional[Mapping[str, torch.Tensor]] = None,
+          prefix: str = "") -> dict:
     """The JAX tree shape: a container lists every child key (``{}``
     for a child without leaves), any other module only children that
-    have leaves."""
+    have leaves.  ``values`` (keyed by dotted name) replaces the
+    module's own tensors."""
     leaves = (module.named_parameters(recurse=False) if kind == "params"
               else module.named_buffers(recurse=False))
-    out = {k: _numpy(v) for k, v in leaves}
+    out = {k: _numpy(v if values is None else values[prefix + k])
+           for k, v in leaves}
     for key, child in module.named_children():
-        sub = _nest(child, kind)
+        sub = _nest(child, kind, values, f"{prefix}{key}.")
         if sub or isinstance(module, Container):
             out[key] = sub
     return out
 
 
-def export_variables(model: torch.nn.Module) -> dict:
+def export_variables(model: torch.nn.Module,
+                     params: Optional[Mapping[str, torch.Tensor]] = None,
+                     state: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> dict:
     """The port's weights as a JAX-shaped ``{"params", "state"}`` tree of
-    numpy arrays, f32 for floating leaves and integer leaves in their own
-    type (the inverse of :func:`load_jax_variables`)."""
-    return {"params": _nest(model, "params"), "state": _nest(model, "state")}
+    numpy arrays (copies), f32 for floating leaves and integer leaves in
+    their own type (the inverse of :func:`load_jax_variables`).
+    ``params``/``state``, flat dicts keyed as ``named_parameters``/
+    ``named_buffers`` (a train step's trees), are exported in the
+    model's nesting in place of its own tensors."""
+    return {"params": _nest(model, "params", params),
+            "state": _nest(model, "state", state)}
 
 
 def random_variables(template: Mapping, seed: int) -> dict:
@@ -187,6 +198,6 @@ def export_opt_state(model: torch.nn.Module, opt_state: Mapping) -> dict:
     f32 numpy arrays nested as ``export_variables(model)["params"]``
     (empty subtrees included)."""
     template = _nest(model, "params")
-    return {slot: _fill(template, {k: v.detach().float().cpu().numpy()
+    return {slot: _fill(template, {k: _numpy(v)
                                    for k, v in flat.items()})
             for slot, flat in opt_state.items()}

@@ -147,8 +147,32 @@ Phases:
    f32 pool (bytes per page, token agreement, kernel 7's launches by
    host and profiler), and bench.py decode_ab's leg 1 (DECODE_MODEL,
    beam 1, one stream, T 128, the median of 7 searches each: cached
-   must beat re-forward; the JAX 3x gate reported).  Two arms' tokens must be equal or part at a
-   near-tie of the uncached forward.
+   must beat re-forward; the JAX 3x gate reported).  Then speculative
+   decoding (greedy only; tokens/s, acceptance and the ratio to the
+   greedy arm printed, not gated): a 1-layer draft of the LM and a
+   self-draft (acceptance >= 0.95) at draft_k 3 on the dense engine
+   (7 rounds each), bench.py decode_production_arms' speculative arm at
+   its constants (DECODE_MODEL, DECODE_DRAFT_MODEL, draft_k 3, 4 slots
+   of 160, its 12 requests) on a paged pool with chunks of 16 against
+   its dense greedy arm, and the 2-head LM's int8 pool at draft_k 7,
+   whose verify runs kernel 7 layers x slots x heads (32) times a round
+   (one replay profiled; kernel 7's device ms beside the verify's;
+   tokens >= 90% equal to the f32 pool's); no arm captures while
+   serving; and decode_program_check captures and replays every program
+   of the dense, paged, int8, chunked and speculative engines.  Two
+   arms' tokens must be equal or part at a near-tie of the uncached
+   forward;
+9. checkpoint: the LM (T 512, dropout 0.1, Adam, bf16; kernel 6) for 8
+   iterations and the fused ResNet-50 at batch 32 (kernels 1-5) for 4,
+   each stopped at a checkpoint and resumed in a new LocalOptimizer:
+   the restored trees equal the saved ones bit for bit and the first
+   resumed loss equals the stopped run's loss of that step bit for bit,
+   later losses within 5e-2 of the uninterrupted run's; a NaN step (a
+   NaN learning rate in the LM, a NaN image in a ResNet-50 batch) is
+   retried from the last checkpoint with the step still one capture and
+   the run ends finite; transformer_train.main with --checkpoint
+   --overwrite for one epoch, then --resume to two; the checkpoints'
+   bytes and write ms (device trees to the file) printed.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -540,11 +564,11 @@ def flash_phase(gen, timing: bool):
     return rows, max_err
 
 
-def lm_variables(model, seed):
+def lm_variables(model, seed, embed_scale=1.0):
     """Random LM weights made with numpy from ``seed``, shaped as the
     model's JAX tree: the embedding N(0, d^-1/2) as the LM initialises
-    it, (in, out) weights N(0, 1/in), LayerNorm weights 1 + N(0, 0.1^2),
-    biases N(0, 0.1^2)."""
+    it (times ``embed_scale``), (in, out) weights N(0, 1/in), LayerNorm
+    weights 1 + N(0, 0.1^2), biases N(0, 0.1^2)."""
     import numpy as np
 
     from bigdl_tpu_torch.utils import export_variables
@@ -559,7 +583,7 @@ def lm_variables(model, seed):
                 continue
             shape = np.shape(v)
             if k == "weight" and len(shape) == 2:  # embedding
-                a = rs.randn(*shape) * shape[1] ** -0.5
+                a = embed_scale * rs.randn(*shape) * shape[1] ** -0.5
             elif len(shape) == 2:
                 a = rs.randn(*shape) / math.sqrt(shape[0])
             elif k == "weight":
@@ -1883,6 +1907,24 @@ ENGINE_INT8_REQUESTS = 8
 DECODE_MODEL = dict(vocab_size=32, hidden_size=48, num_heads=4,
                     filter_size=96, num_layers=2)
 AB_LEN, AB_REPS = 128, 7
+# speculative decoding: draft tokens per round on the full-width LM, and
+# at the int8 pool (Tq 8: kernel 7's row tile); the self-draft's least
+# acceptance (its draft and verify differ only by f32 sum order)
+SPEC_K, INT8_SPEC_K, SELF_DRAFT_ACCEPT = 3, 7, 0.95
+# the rollback arms: a self-draft wrong where the row's length is a
+# multiple of ROLL_EVERY; its acceptance is fixed by the lengths alone,
+# up to flips at near-ties of the Tq-1 draft step and the verify (the
+# least fault seen on the CPU, a draft cache that does not follow the
+# host's lengths, moves it from 0.63 to 0.14)
+ROLL_EVERY, ROLL_ACCEPT_SLACK = 3, 0.02
+# bench.py decode_production_arms' constants (tools/kernel_shapes.py:
+# DECODE_SLOTS, DECODE_MAX_LEN, DECODE_PROMPT_BUCKETS,
+# DECODE_PREFILL_BATCH, DECODE_PAGE, DECODE_CHUNK, DECODE_DRAFT_K,
+# DECODE_DRAFT_MODEL) and its 12 requests
+BENCH_SLOTS, BENCH_LEN, BENCH_BUCKETS, BENCH_BATCH = 4, 160, (8, 16), \
+    (1, 2, 4)
+BENCH_PAGE, BENCH_CHUNK, BENCH_DRAFT_K, BENCH_REQUESTS = 16, 16, 3, 12
+DECODE_DRAFT_MODEL = dict(DECODE_MODEL, num_layers=1)
 
 
 def engine_checks(model, model2, rs, seed, dev="cuda"):
@@ -1902,6 +1944,7 @@ def engine_checks(model, model2, rs, seed, dev="cuda"):
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.ops import int8_matmul as im
     from bigdl_tpu_torch.serving import (DecodeEngine, ServingMetrics,
+                                         decode_program_check,
                                          default_num_pages)
     from bigdl_tpu_torch.utils import graphs, load_jax_variables
 
@@ -1931,14 +1974,15 @@ def engine_checks(model, model2, rs, seed, dev="cuda"):
             self.pages = max(self.pages, int(in_use))
             super().record_pages(in_use)
 
-    def serve(what, m, reqs, learned=0, profiled=False, rounds=1, **kw):
+    def serve(what, m, reqs, learned=0, profiled=False, rounds=1,
+              probe=None, **kw):
         """Serve ``reqs`` ``rounds`` times on a fresh engine; the first
         round's tokens and the numbers (tokens/s: the median of the
         rounds and its spread; with ``profiled``, also the hand-written
-        kernels the serving ran, by torch.profiler).  Fails unless
-        warmup captured exactly the declared programs and serving
-        captured ``learned`` (a learned bucket's prefill and write)
-        more."""
+        kernels the serving ran, by torch.profiler; ``probe(engine)``,
+        a dict, runs before the engine closes).  Fails unless warmup
+        captured exactly the declared programs and serving captured
+        ``learned`` (a learned bucket's prefill and write) more."""
         kw = {"slots": ENGINE_SLOTS, "max_len": ENGINE_LEN,
               "prompt_buckets": ENGINE_BUCKETS,
               "prefill_batch_sizes": ENGINE_BATCH, **kw}
@@ -1986,7 +2030,14 @@ def engine_checks(model, model2, rs, seed, dev="cuda"):
                    "page_bytes": eng._page_bytes_total() if eng.paged
                    else None,
                    "kernels": kernels,
+                   "draft_k": eng.draft_k,
+                   "spec_acceptance_rate": snap["spec_acceptance_rate"],
+                   "spec_proposed": metrics.spec_proposed,
+                   "spec_rejected": metrics.spec_proposed
+                   - metrics.spec_accepted,
                    "log_line": eng.log_line()}
+            if probe is not None:
+                rec.update(probe(eng))
         finally:
             eng.close(timeout=120)
         if warm != declared or rec["steady_state_captures"] != learned \
@@ -2213,6 +2264,202 @@ def engine_checks(model, model2, rs, seed, dev="cuda"):
              f" (f32 {res['int8_f32_pool']['page_bytes']}), tokens "
              f"{agree8:.3f} equal (limit 0.9), kernel 7 {host7} launches")
 
+    # speculative decoding (greedy only): tokens must be the greedy
+    # arms' (or part at a near-tie); no trained draft exists, so
+    # acceptance and tokens/s are reported, not gated, but for the
+    # self-draft's acceptance
+    def draft_of(cfg, seed_off):
+        d = nn.Transformer(**cfg, dropout=0.0).to(dev)
+        load_jax_variables(d, lm_variables(d, seed + seed_off))
+        return d.eval()
+
+    def spec_line(what, rec, base, base_what):
+        rec["vs_greedy"] = rec["tokens_per_s"] / base["tokens_per_s"]
+        print(f"engine speculative, {what}: {rec['tokens_per_s']:.1f} "
+              f"tokens/s ({rec['vs_greedy']:.3f}x {base_what}'s "
+              f"{base['tokens_per_s']:.1f}); draft_k {rec['draft_k']}, "
+              f"acceptance {rec['spec_acceptance_rate']:.4f} "
+              f"({rec['spec_rejected']} of {rec['spec_proposed']} draft "
+              f"tokens rejected); round p50 {rec['p50_tick_ms']:.3f} ms, "
+              f"p95 {rec['p95_tick_ms']:.3f} ms; "
+              f"{rec['declared_programs']} programs captured at warmup, "
+              f"{rec['steady_state_captures']} while serving", flush=True)
+
+    draft1 = draft_of(dict(LM, num_layers=1), 5)
+    sp_out, res["spec"] = serve("speculative, 1-layer draft", model,
+                                traffic, rounds=ENGINE_ROUNDS,
+                                draft=(draft1, None), draft_k=SPEC_K)
+    res["spec"]["equal_streams"] = same_tokens(
+        "speculative (1-layer draft) vs continuous", model, traffic,
+        sp_out, cont_out)
+    spec_line("1-layer draft of the LM", res["spec"], res["continuous"],
+              "continuous")
+    ss_out, res["spec_self"] = serve("speculative, self-draft", model,
+                                     traffic, rounds=ENGINE_ROUNDS,
+                                     draft=(model, None), draft_k=SPEC_K)
+    res["spec_self"]["equal_streams"] = same_tokens(
+        "speculative (self-draft) vs continuous", model, traffic, ss_out,
+        cont_out)
+    spec_line("self-draft", res["spec_self"], res["continuous"],
+              "continuous")
+    if res["spec_self"]["spec_acceptance_rate"] < SELF_DRAFT_ACCEPT:
+        fail(f"engine speculative self-draft: acceptance "
+             f"{res['spec_self']['spec_acceptance_rate']:.4f} (limit "
+             f"{SELF_DRAFT_ACCEPT})")
+
+    # rollback: rejected drafts' K/V left above the length, paged windows
+    # across a page, the draft cache following the host's lengths.  The
+    # LM's embedding is drawn 10x smaller: at full scale a random
+    # weight-tied LM repeats each row's last token whatever its cache
+    # holds, so its tokens cannot show a faulty rollback.  The draft is
+    # that LM itself, wrong at every position (acceptance 0) or at every
+    # ROLL_EVERY-th (accepted in part); tokens must be the LM's greedy
+    # ones on the dense and the paged engine
+    class Rolled(torch.nn.Module):
+        """``model`` as its own draft, its logits rolled by one (so its
+        proposal is its argmax + 1) where the row's cache length is a
+        multiple of ``every``."""
+
+        def __init__(self, model, every):
+            super().__init__()
+            self.m, self.every, self.embed = model, every, model.embed
+
+        def init_cache(self, *a, **kw):
+            return self.m.init_cache(*a, **kw)
+
+        def prefill(self, *a, **kw):
+            return self.m.prefill(*a, **kw)
+
+        def extend(self, *a, **kw):
+            return self.m.extend(*a, **kw)
+
+        def decode_step(self, cache, tokens):
+            at = next(iter(cache.values()))["length"]
+            logits, cache = self.m.decode_step(cache, tokens)
+            wrong = (at % self.every == 0)[:, None]
+            return torch.where(wrong, logits.roll(1, -1), logits), cache
+
+    def rolled_acceptance(reqs, every, k):
+        """The acceptance the lengths give: a round from host length L
+        accepts the drafts before the first position L + i that is a
+        multiple of ``every``; the prefill gave the first token."""
+        proposed = accepted = 0
+        for p, n, _ in reqs:
+            at, got = len(p), 1
+            while got < n:
+                a = next((i for i in range(k) if (at + i) % every == 0), k)
+                proposed, accepted = proposed + k, accepted + a
+                at, got = at + a + 1, got + a + 1
+        return accepted / proposed
+
+    lm01 = nn.Transformer(**LM, dropout=0.0).to(dev)
+    load_jax_variables(lm01, lm_variables(lm01, seed + 8, embed_scale=0.1))
+    lm01.eval()
+    g01, res["greedy_embed01"] = serve("greedy, the LM with its embedding "
+                                       "x0.1", lm01, traffic)
+    for every in (1, ROLL_EVERY):
+        want = rolled_acceptance(traffic, every, SPEC_K)
+        for layout in ("dense", "paged"):
+            lkw = {"kv_layout": "paged", "page_size": ENGINE_PAGE} \
+                if layout == "paged" else {}
+            what = f"rollback, {layout}, draft wrong at every {every}"
+            o, rec = serve(what, lm01, traffic, draft=(Rolled(lm01, every),
+                                                       None),
+                           draft_k=SPEC_K, **lkw)
+            rec.update(predicted_acceptance=want, equal_streams=same_tokens(
+                f"{what} vs greedy", lm01, traffic, o, g01))
+            res[f"rollback_{layout}_every_{every}"] = rec
+            spec_line(f"{what} (predicted acceptance {want:.4f})", rec,
+                      res["greedy_embed01"], "greedy")
+            acc = rec["spec_acceptance_rate"]
+            if abs(acc - want) > ROLL_ACCEPT_SLACK or (
+                    acc != 0 if every == 1 else not 0 < acc < 1):
+                fail(f"engine {what}: acceptance {acc:.4f}, predicted "
+                     f"{want:.4f} (slack {ROLL_ACCEPT_SLACK})")
+
+    # bench.py decode_production_arms' speculative arm at its constants
+    # (DECODE_MODEL, DECODE_DRAFT_MODEL, draft_k 3, 4 slots of 160,
+    # chunks of 16, its traffic), on a paged pool of pages of 16,
+    # against the dense greedy arm of the same configuration
+    bsmall = draft_of(DECODE_MODEL, 0)
+    bdraft = draft_of(DECODE_DRAFT_MODEL, 7)
+    brs = np.random.RandomState(1)
+    breqs = [(brs.randint(1, 8, ((15, 12, 40, 7)[i % 4],)),
+              (24, 48, 32, 40)[i % 4], {}) for i in range(BENCH_REQUESTS)]
+    bkw = dict(slots=BENCH_SLOTS, max_len=BENCH_LEN,
+               prompt_buckets=BENCH_BUCKETS,
+               prefill_batch_sizes=BENCH_BATCH, prefill_chunk=BENCH_CHUNK)
+    bd_out, res["bench_dense"] = serve(
+        "bench.py arms' dense greedy (DECODE_MODEL)", bsmall, breqs,
+        rounds=ENGINE_ROUNDS, **bkw)
+    bs_out, res["spec_paged_chunked"] = serve(
+        "speculative, paged, chunked (DECODE_MODEL, DECODE_DRAFT_MODEL)",
+        bsmall, breqs, rounds=ENGINE_ROUNDS, draft=(bdraft, None),
+        draft_k=BENCH_DRAFT_K, kv_layout="paged", page_size=BENCH_PAGE,
+        **bkw)
+    res["spec_paged_chunked"]["equal_streams"] = same_tokens(
+        "speculative paged chunked vs dense greedy", bsmall, breqs, bs_out,
+        bd_out)
+    spec_line("bench.py's arm (DECODE_MODEL, paged, chunked)",
+              res["spec_paged_chunked"], res["bench_dense"], "dense greedy")
+    if not res["spec_paged_chunked"]["prefill_chunks"]:
+        fail("engine speculative paged chunked: no prompt was chunked")
+
+    # the 2-head LM on an int8 pool of 512 at draft_k 7: the verify's
+    # QK^T (Tq 8, D 128) goes to kernel 7, one launch per (layer, slot,
+    # head) and round; one verify replay profiled
+    def verify_probe(eng):
+        prog = eng._programs[("verify",)]
+        replay = getattr(prog, "graph", None)
+        with eng._lock:
+            ran, device, by_k = replay_kernels(
+                replay.replay if replay is not None else lambda: None,
+                by_kernel=True)
+        return {"verify_kernels": ran, "verify_device_ms": device,
+                "kernel7_ms_per_round": by_k.get("int8_matmul", 0.0),
+                "kernel7_per_capture": getattr(prog, "launches", {}).get(
+                    "int8_matmul", 0)}
+
+    draft2 = draft_of(dict(LM, num_heads=INT8_HEADS, num_layers=1), 6)
+    want7 = LM["num_layers"] * INT8_SLOTS * INT8_HEADS
+    qs_out, res["int8_spec"] = serve(
+        f"int8 pool, 2 heads, draft_k {INT8_SPEC_K}", model2, reqs8,
+        probe=verify_probe, draft=(draft2, None), draft_k=INT8_SPEC_K,
+        **int8_kw)
+    q = res["int8_spec"]
+    q["token_agreement"] = sum(
+        int(a == b) for fo, qo in zip(f_out, qs_out)
+        for a, b in zip(fo, qo)) / sum(len(fo) for fo in f_out)
+    spec_line(f"int8 pool of the 2-head LM, draft_k {INT8_SPEC_K}", q,
+              res["int8"], "the int8 greedy arm")
+    print(f"engine speculative int8: one verify replay runs kernel 7 "
+          f"{q['verify_kernels'].get('int8_matmul', 0)} times (capture "
+          f"{q['kernel7_per_capture']}; layers x slots x heads = {want7}), "
+          f"kernel 7 {q['kernel7_ms_per_round']:.4f} device ms of the "
+          f"verify's {q['verify_device_ms']:.4f} per round; tokens "
+          f"{100 * q['token_agreement']:.1f}% equal to the f32 pool's",
+          flush=True)
+    if q["verify_kernels"].get("int8_matmul", 0) != want7 or \
+            q["kernel7_per_capture"] != want7 or q["token_agreement"] < 0.9:
+        fail(f"engine speculative int8: kernel 7 "
+             f"{q['verify_kernels'].get('int8_matmul', 0)} launches per "
+             f"verify replay, {q['kernel7_per_capture']} in its capture "
+             f"(expected {want7}), tokens {q['token_agreement']:.3f} equal "
+             "(limit 0.9)")
+
+    # every program an engine dispatches, captured and replayed once
+    lines = []
+    fails = decode_program_check(
+        model, slots=ENGINE_SLOTS, max_len=ENGINE_LEN,
+        prompt_buckets=ENGINE_BUCKETS, prefill_batch_sizes=ENGINE_BATCH,
+        page_size=ENGINE_PAGE, kv_dtype="int8", prefill_chunk=ENGINE_CHUNK,
+        draft_model=draft1, draft_k=SPEC_K, device=dev, log=lines.append)
+    res["program_check"] = {"failures": fails, "lines": lines}
+    print(f"decode_program_check: {len(lines)} programs (dense, paged, "
+          f"int8, chunk, draft), {fails} failures", flush=True)
+    if fails:
+        fail(f"decode_program_check: {[x for x in lines if 'FAIL' in x]}")
+
     # bench.py decode_ab leg 1 at its own configuration
     small = nn.Transformer(**DECODE_MODEL, dropout=0.0).to(dev)
     load_jax_variables(small, lm_variables(small, seed))
@@ -2251,6 +2498,260 @@ def engine_checks(model, model2, rs, seed, dev="cuda"):
     if ratio <= 1.0:
         fail(f"decode_ab leg 1: cached generate ({times[True]:.4f} s) is "
              f"not faster than re-forward ({times[False]:.4f} s)")
+    return res
+
+
+# checkpoints, retry and resume (optim/optimizer.py LocalOptimizer)
+CKPT_STEPS, CKPT_AT = 8, 4  # the LM's uninterrupted steps; the checkpoint
+CKPT_LM_SAMPLES = 48        # 6 batches of 8 an epoch: the resume crosses one
+CKPT_NAN_AT = 4             # the LM's lr is NaN in step 5: step 6's loss
+CKPT_RN_STEPS, CKPT_RN_AT, CKPT_RN_SAMPLES = 4, 2, 128  # ResNet-50, batch 32
+
+
+class _NanOnce:
+    """A learning-rate schedule whose rate is NaN once, at ``neval`` ``at``:
+    that step's update makes every parameter NaN, so the next loss is."""
+
+    def __init__(self, at):
+        self.at, self.fired = at, False
+
+    def rate(self, step, epoch=0):
+        if step == self.at and not self.fired:
+            self.fired = True
+            return float("nan")
+        return 1.0
+
+
+def checkpoint_phase(args, card):
+    """Phase 9, checkpoints in the training loop on the card: the LM at
+    T 512 (kernel 6) and the fused ResNet-50 at batch 32 (kernels 1-5),
+    each stopped at a checkpoint and resumed in a new LocalOptimizer: the
+    restored trees are the saved ones bit for bit (a resumed run stopped
+    before its first step writes the blob again) and the first resumed
+    loss equals the stopped run's loss of that step bit for bit (same
+    trees, batch and seed through one forward); so do the later losses
+    the uninterrupted run's (the phase runs with cuDNN deterministic, and
+    a later loss reads the restored optimizer counters and schedule
+    position through the updates).  A NaN step (the LM: a NaN
+    learning rate; ResNet-50: a NaN image in a batch) restores the last
+    checkpoint into the compiled step's trees and the run ends finite,
+    with one capture.  Then the LM driver's --checkpoint and --resume.
+    Returns the results."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import ResNet50, transformer_train
+    from bigdl_tpu_torch.optim import (SGD, Adam, Optimizer, Trigger,
+                                       optimizer as optmod)
+    from bigdl_tpu_torch.utils import (export_variables, flatten,
+                                       load_jax_variables, load_pytree,
+                                       random_variables)
+
+    print(f"checkpoint phase on {card}", flush=True)
+    # the checkpoints (ResNet-50's are 205 MB each) stay in the checkout's
+    # git-ignored build/ and are removed at the end
+    root = ROOT / "build" / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    writes = []  # every checkpoint written: path, bytes, ms
+    real_save, real_ckpt = optmod.save_pytree, \
+        optmod.LocalOptimizer._maybe_checkpoint
+
+    def timed_save(path, blob):
+        real_save(path, blob)
+        writes.append({"path": path, "bytes": os.path.getsize(
+            path if path.endswith(".npz") else path + ".npz")})
+
+    def timed_ckpt(self, *a, **kw):
+        n, t0 = len(writes), time.perf_counter()
+        real_ckpt(self, *a, **kw)
+        if len(writes) > n:  # the device-to-host copy, encoding, write
+            writes[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+
+    optmod.save_pytree = timed_save
+    optmod.LocalOptimizer._maybe_checkpoint = timed_ckpt
+    res = {}
+    try:
+        rs = np.random.RandomState(args.seed + 20)
+        xs = rs.randint(0, LM["vocab_size"], (CKPT_LM_SAMPLES, LM_SEQ))
+        ys = rs.randint(0, LM["vocab_size"], (CKPT_LM_SAMPLES, LM_SEQ))
+        lm_v = None
+
+        def lm_opt(end, d, trigger=None, resume=None, schedule=None):
+            nonlocal lm_v
+            m = nn.Transformer(**LM)  # dropout 0.1, as the driver
+            if lm_v is None:
+                lm_v = lm_variables(m, args.seed)
+            load_jax_variables(m, lm_v)
+            return (Optimizer.apply(
+                m, DataSet.from_arrays(xs, ys, batch_size=LM_BATCH),
+                nn.TimeDistributedCriterion(
+                    nn.ClassNLLCriterion(logits=True)),
+                end_trigger=Trigger.max_iteration(end))
+                .set_optim_method(Adam(1e-3, schedule=schedule))
+                .set_gradient_clipping_by_l2_norm(1.0)
+                .set_compute_dtype(torch.bfloat16))
+
+        def rn_opt(end, d, images=None):
+            m = ResNet50(1000, stem="space_to_depth", fused=True)
+            load_jax_variables(m, rn_v)
+            return (Optimizer.apply(
+                m, DataSet.from_arrays(rn_x if images is None else images,
+                                       rn_y, batch_size=BATCH),
+                nn.ClassNLLCriterion(logits=True),
+                end_trigger=Trigger.max_iteration(end))
+                .set_optim_method(SGD(0.1, momentum=0.9))
+                .set_compute_dtype(torch.bfloat16))
+
+        def run(make, name, end, every=None, at=None, resume=None,
+                stop=False, **kw):
+            """One LocalOptimizer run in its own directory: its loss per
+            iteration (read by the checkpoint trigger, which fires every
+            ``every`` iterations or at iteration ``at``)."""
+            d = root / name
+            opt = make(end, d, **kw)
+            losses = []
+
+            def trig(state):
+                losses.append(state["loss"])
+                n = state["neval"]
+                return (every is not None and n % every == 0) or n == at
+
+            opt.set_checkpoint(str(d), Trigger(trig))
+            if resume is not None:
+                opt.resume_from(str(resume))
+            if stop:
+                opt.request_stop()
+            opt.optimize()
+            torch.cuda.synchronize()
+            return opt, losses, d
+
+        def same_blob(a, b):
+            for key in ("params", "model_state", "opt_states"):
+                fa, fb = flatten(a[key]), flatten(b[key])
+                if fa.keys() != fb.keys() or any(
+                        not np.array_equal(fa[k], fb[k]) for k in fa):
+                    return False
+            return dict(a["driver_state"]) == dict(b["driver_state"])
+
+        def resume_check(what, make, steps, at, **kw):
+            """Uninterrupted to ``steps``; stopped after ``at + 1`` with a
+            checkpoint at ``at``; restored and written again with no step;
+            resumed to ``steps``."""
+            full, full_l, _ = run(make, f"{what}_full", steps, **kw)
+            part, part_l, pd = run(make, f"{what}_part", at + 1, at=at,
+                                   **kw)
+            saved = load_pytree(str(pd / "model"))
+            _, _, rd = run(make, f"{what}_restored", steps,
+                           resume=pd / "model", stop=True, **kw)
+            restored = same_blob(load_pytree(str(rd / "model")), saved)
+            resumed, res_l, _ = run(make, f"{what}_resumed", steps,
+                                    resume=pd / "model", **kw)
+            first = res_l[0] == part_l[at]
+            later = res_l[1:] == full_l[at + 1:]
+            caps = [o.train_step.captures for o in (full, part, resumed)]
+            r = {"steps": steps, "checkpoint_at": at,
+                 "uninterrupted_losses": full_l, "stopped_losses": part_l,
+                 "resumed_losses": res_l, "restored_bit_equal": restored,
+                 "first_resumed_loss_bit_equal": first,
+                 "later_losses_bit_equal": later, "captures": caps,
+                 "resumed_replays": resumed.train_step.replays}
+            print(f"{what} resume: checkpoint at iteration {at}, restored "
+                  f"trees bit-equal {restored}; first resumed loss "
+                  f"{res_l[0]!r} against the stopped run's {part_l[at]!r} "
+                  f"(bit-equal {first}); later losses bit-equal to the "
+                  f"uninterrupted run's {later}; captures "
+                  f"{caps}, {r['resumed_replays']} replays resumed",
+                  flush=True)
+            if not restored or not first or not later or caps != \
+                    [1, 1, 1] or len(res_l) != steps - at:
+                fail(f"{what} resume: {r}")
+            del full, part, resumed
+            torch.cuda.empty_cache()
+            return r
+
+        def nan_check(what, make, steps, every, **kw):
+            opt, losses, _ = run(make, f"{what}_nan", steps, every=every,
+                                 **kw)
+            st = opt._loop_state
+            r = {"retries": opt._retries, "neval": st["neval"],
+                 "final_loss": st["loss"], "losses": losses,
+                 "captures": opt.train_step.captures,
+                 "replays": opt.train_step.replays}
+            print(f"{what} NaN step: {opt._retries} retry from the last "
+                  f"checkpoint, ended at iteration {st['neval']} with loss "
+                  f"{st['loss']:.4f}; {r['captures']} capture, "
+                  f"{r['replays']} replays", flush=True)
+            if opt._retries != 1 or st["neval"] != steps or not \
+                    math.isfinite(st["loss"]) or r["captures"] != 1:
+                fail(f"{what} NaN retry: {r}")
+            del opt
+            torch.cuda.empty_cache()
+            return r
+
+        from bigdl_tpu_torch.ops import flash_attention as fa
+        fa.reset_launches()
+        res["lm"] = resume_check("LM", lm_opt, CKPT_STEPS, CKPT_AT)
+        res["lm"]["flash_launches"] = fa.LAUNCHES["flash_attention"]
+        res["lm_nan"] = nan_check("LM", lm_opt, CKPT_STEPS, 2,
+                                  schedule=_NanOnce(CKPT_NAN_AT))
+
+        rs = np.random.RandomState(args.seed + 21)
+        rn_x = rs.rand(CKPT_RN_SAMPLES, 224, 224, 3).astype(np.float32)
+        rn_y = rs.randint(0, 1000, CKPT_RN_SAMPLES)
+        rn_v = random_variables(export_variables(
+            ResNet50(1000, stem="space_to_depth", fused=True)), args.seed)
+        res["resnet50"] = resume_check("ResNet-50", rn_opt, CKPT_RN_STEPS,
+                                       CKPT_RN_AT)
+        # a NaN image in batch 3 of epoch 0 (the identity order), one that
+        # the batch the run goes on to after the retry (epoch 1's first,
+        # RandomState(seed 0 + 1)'s permutation) does not hold
+        again = set(np.random.RandomState(1).permutation(
+            CKPT_RN_SAMPLES)[:BATCH])
+        bad = rn_x.copy()
+        bad[next(i for i in range(2 * BATCH, 3 * BATCH)
+                 if i not in again), 7, 7, 1] = np.nan
+        res["resnet50_nan"] = nan_check("ResNet-50", rn_opt, CKPT_RN_STEPS,
+                                        1, images=bad)
+        del rn_x, bad
+
+        # the LM driver: one epoch with a checkpoint, then resumed to two
+        d = root / "driver"
+        first = transformer_train.main(["--checkpoint", str(d),
+                                        "--overwrite", "--maxEpoch", "1"])
+        blob = load_pytree(str(d / "model"))
+        second = transformer_train.main(["--resume", str(d / "model"),
+                                         "--maxEpoch", "2"])
+        res["driver"] = {"epoch_1": first, "epoch_2": second,
+                         "checkpoint_neval":
+                             int(blob["driver_state"]["neval"])}
+        print(f"transformer_train.main: --checkpoint ... --maxEpoch 1 "
+              f"{first}, checkpoint at iteration "
+              f"{res['driver']['checkpoint_neval']}; --resume ... "
+              f"--maxEpoch 2 {second}", flush=True)
+        if not all(math.isfinite(r["val_loss"]) for r in (first, second)):
+            fail(f"transformer_train --checkpoint/--resume: {res['driver']}")
+    finally:
+        optmod.save_pytree = real_save
+        optmod.LocalOptimizer._maybe_checkpoint = real_ckpt
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    res["writes"] = [dict(w, path=str(Path(w["path"]).relative_to(root)))
+                     for w in writes]
+    by = {}
+    for w in res["writes"]:
+        by.setdefault(w["path"].split("_")[0], []).append(w)
+    res["write_summary"] = {k: {"bytes": v[-1]["bytes"],
+                                "ms_median": statistics.median(
+                                    x["ms"] for x in v), "writes": len(v)}
+                            for k, v in by.items()}
+    print(f"checkpoint writes (bytes, median ms from the device trees to "
+          f"the file): {res['write_summary']}", flush=True)
     return res
 
 
@@ -2466,10 +2967,11 @@ def tick_checks(model, rs):
 
 def int8_kv_checks(model, rs):
     """The LM with D 128 over an int8 paged pool: each extend_paged chunk
-    of DECODE_CHUNK tokens runs kernel 7 layers x slots x heads times
-    (no operand copy) and gives logits bit-equal to the same call with
-    the scores on the kernel's plain version; a decode step (Tq 1) runs
-    it not at all.  Kernel 7's device ms per chunk is the profiler's
+    of DECODE_CHUNK tokens, and then a speculative verify's window of
+    INT8_SPEC_K + 1, runs kernel 7 layers x slots x heads times (no
+    operand copy) and gives logits and a pool bit-equal to the same call
+    with the scores on the kernel's plain version; a decode step (Tq 1)
+    runs it not at all.  Kernel 7's device ms per chunk is the profiler's
     sum over the chunk's kernel-7 launches; the bare call is timed at
     the chunk's product beside its plain version and _int_mm."""
     import torch
@@ -2491,12 +2993,17 @@ def int8_kv_checks(model, rs):
         s_, INT8_CHUNKS * DECODE_CHUNK))).to(dev)
     d = LM["hidden_size"] // INT8_HEADS
     want = LM["num_layers"] * s_ * INT8_HEADS
-    if not paged_kv._int8_eligible(DECODE_CHUNK, INT8_EXTENT, d, dev):
-        fail(f"int8 KV: ({DECODE_CHUNK}, {d}, {INT8_EXTENT}) is not "
-             "eligible for kernel 7")
-    per_chunk, chunk_ms = [], []
-    for c in range(INT8_CHUNKS):
-        chunk = ids[:, c * DECODE_CHUNK:(c + 1) * DECODE_CHUNK]
+    window = INT8_SPEC_K + 1  # a speculative verify's Tq
+    for tq in (DECODE_CHUNK, window):
+        if not paged_kv._int8_eligible(tq, INT8_EXTENT, d, dev):
+            fail(f"int8 KV: ({tq}, {d}, {INT8_EXTENT}) is not eligible "
+                 "for kernel 7")
+
+    def checked(what, chunk, pool):
+        """``extend_paged`` over ``chunk`` through kernel 7 and again with
+        the scores on its plain version: both must give the same logits
+        and pool, with want launches and no operand copy.  Returns the
+        logits, the new pool and kernel 7's device ms (profiler sum)."""
         im.reset_launches()
         out = []
         ran, _, by_kernel = replay_kernels(lambda: out.append(
@@ -2512,7 +3019,7 @@ def int8_kv_checks(model, rs):
         if got != {"int8_matmul": want, "int8_matmul_w_relayout": 0,
                    "int8_matmul_pad": 0} or \
                 ran.get("int8_matmul") != want:
-            fail(f"int8 KV chunk {c}: launches {got}, on the card "
+            fail(f"int8 KV {what}: launches {got}, on the card "
                  f"{ran.get('int8_matmul')}, expected {want} kernel 7 "
                  "launches and no operand copy")
         # the pools alike outside the trash page 0 (several writes may
@@ -2520,11 +3027,23 @@ def int8_kv_checks(model, rs):
         if not torch.equal(logits, plain) or any(
                 not torch.equal(new[lk][n][1:], pnew[lk][n][1:])
                 for lk in new for n in new[lk] if n != "length"):
-            fail(f"int8 KV chunk {c}: the kernel route's logits or pool "
+            fail(f"int8 KV {what}: the kernel route's logits or pool "
                  "differ from the plain route's")
-        per_chunk.append(got["int8_matmul"])
-        chunk_ms.append(by_kernel["int8_matmul"])
-        pool = new
+        return logits, new, by_kernel["int8_matmul"]
+
+    per_chunk, chunk_ms = [], []
+    for c in range(INT8_CHUNKS):
+        logits, pool, ms = checked(f"chunk {c}", ids[:, c * DECODE_CHUNK:
+                                                     (c + 1) * DECODE_CHUNK],
+                                   pool)
+        per_chunk.append(want)
+        chunk_ms.append(ms)
+    # the speculative verify's window at draft_k INT8_SPEC_K: the engine's
+    # QK^T of (Tq 8, D 128) against the pool of INT8_EXTENT
+    logits, pool, ms = checked(f"verify window of {window}",
+                               ids[:, :window], pool)
+    verify = {"shape": [window, d, INT8_EXTENT], "launches": want,
+              "kernel7_ms": ms, "bit_equal_to_plain": True}
     im.reset_launches()
     step, pool = model.decode_step_paged(pool, table, logits[:, -1].argmax(
         -1).to(torch.int32), active)
@@ -2561,7 +3080,8 @@ def int8_kv_checks(model, rs):
          "library_ms": device_ms(library), "bytes_ms": bytes_ms,
          "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
          "launches_per_chunk": per_chunk, "launches": sum(per_chunk),
-         "chunk_ms": chunk_ms, "ms_per_chunk": statistics.median(chunk_ms)}
+         "chunk_ms": chunk_ms, "ms_per_chunk": statistics.median(chunk_ms),
+         "verify_window": verify}
     print(f"int8 KV (LM with {INT8_HEADS} heads of {d}, {s_} slots of "
           f"{INT8_EXTENT}): {INT8_CHUNKS} extend_paged chunks of "
           f"{DECODE_CHUNK}, kernel 7 launches per chunk {per_chunk} (host "
@@ -2572,7 +3092,10 @@ def int8_kv_checks(model, rs):
           f").  Kernel 7 alone at {tuple(r['shape'])}: {r['ms']:.4f} ms "
           f"(plain {r['plain_ms']:.4f}, _int_mm at (24, {d}, {INT8_EXTENT}) "
           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by bytes, "
-          f"max |d| {err})", flush=True)
+          f"max |d| {err}).  A verify window of {window} tokens: {want} "
+          f"kernel 7 launches (host and profiler) in "
+          f"{verify['kernel7_ms']:.4f} device ms, "
+          "logits and pool bit-equal to the plain route", flush=True)
     if err != 0:
         fail(f"int8 KV: kernel 7 differs from its plain version at "
              f"{tuple(r['shape'])}: {err}")
@@ -3352,6 +3875,10 @@ def main():
 
     # ---------------------------------------------------------- 8. decode
     decode = decode_phase(args, card)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 9. checkpoint
+    ckpt = checkpoint_phase(args, card)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -3367,7 +3894,8 @@ def main():
                    "losses_one_batch": losses,
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
-         "graphs": graph_res, "decode": decode, "width12": width12},
+         "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
+         "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -3450,7 +3978,10 @@ def main():
                 decode["int8"]["launches_per_chunk"],
             "int8_kv_extend_paged": decode["int8"]["launches"],
             "decode_engine_int8_pool":
-                decode["engine"]["int8"]["kernel7_host_launches"]},
+                decode["engine"]["int8"]["kernel7_host_launches"],
+            "int8_spec_verify_per_round":
+                decode["engine"]["int8_spec"]["verify_kernels"][
+                    "int8_matmul"]},
         "int8_kv_scores": {key: decode["int8"][key] for key in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
             "chunk_ms", "ms_per_chunk")},

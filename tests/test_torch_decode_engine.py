@@ -236,13 +236,6 @@ def test_admission_and_validation(lm):
                      start=False)
 
 
-def test_speculative_decoding_raises_for_now(lm):
-    _, _, tm = lm
-    for kw in (dict(draft=(tm, None)), dict(draft_k=3)):
-        with pytest.raises(NotImplementedError, match="speculative"):
-            DecodeEngine(tm, device="cpu", warmup=False, start=False, **kw)
-
-
 def test_oversized_prompt_becomes_one_learned_bucket(lm):
     _, _, tm = lm
     rs = np.random.RandomState(7)
