@@ -1,10 +1,11 @@
-"""ResNet for ImageNet (counterpart of bigdl_tpu/models/resnet.py:82-202).
+"""ResNet for ImageNet and CIFAR-10 (counterpart of
+bigdl_tpu/models/resnet.py:82-202).
 
 The graph is built node for node as the JAX builder builds it, so the
 child keys, and with them the ``state_dict`` keys, equal the JAX pytree's
-paths.  ``fused=True`` builds each bottleneck as one
+paths.  ``fused=True`` builds each ImageNet bottleneck as one
 :class:`~bigdl_tpu_torch.nn.FusedBottleneck`, which runs on the port's
-two Hopper kernels.
+Hopper kernels 1-5.
 """
 from __future__ import annotations
 
@@ -79,8 +80,14 @@ def ResNet(class_num: int = 1000, depth: int = 50,
            fused: bool = False, device: DeviceLike = None,
            generator: Optional[torch.Generator] = None,
            remat: bool = True) -> nn.Graph:
-    """Build ResNet-``depth`` for ImageNet in eval mode on ``device``
-    (default: the card; ``device="cpu"`` for the CPU).
+    """Build ResNet-``depth`` in eval mode on ``device`` (default: the
+    card; ``device="cpu"`` for the CPU).
+
+    ``dataset="imagenet"``: depth 18/34/50/101/152 on 224x224 inputs.
+    ``dataset="cifar10"``: depth ``6n + 2`` (20/32/44/56/110), a 3x3 stem
+    and three stages of n basic blocks of 16/32/64 channels on 32x32
+    inputs, the classifier named ``fc``; its fused form
+    (``FusedBasicBlock``) is not ported yet, so ``fused=True`` raises.
 
     ``stem="space_to_depth"`` is the 2x2 space-to-depth + 4x4/s1 conv
     with ``(1, 2)`` pads, the same function as the 7x7/s2 stem
@@ -92,43 +99,65 @@ def ResNet(class_num: int = 1000, depth: int = 50,
     weights with :func:`bigdl_tpu_torch.utils.load_jax_variables`.
     """
     device = resolve_device(device)
-    if dataset != "imagenet":
-        raise NotImplementedError(
-            f"dataset={dataset!r} is not ported yet (imagenet only)")
     if stem not in ("conv7", "space_to_depth"):
         raise ValueError(f"unknown stem {stem!r}; "
                          "expected 'conv7' or 'space_to_depth'")
-    kind, counts = _IMAGENET_CFG[depth]
+    if dataset == "imagenet":
+        kind, counts = _IMAGENET_CFG[depth]
+    elif dataset == "cifar10":
+        if stem != "conv7":
+            raise ValueError("stem='space_to_depth' applies to the "
+                             "imagenet 7x7 stem only")
+        if (depth - 2) % 6:
+            raise ValueError(f"cifar ResNet depth must be 6n+2; got {depth}")
+        kind = "basic"
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
     if fused and kind != "bottleneck":
         raise NotImplementedError("FusedBasicBlock is not ported yet")
-    block = basic_block if kind == "basic" else bottleneck_block
-    expansion = 1 if kind == "basic" else 4
 
     inp = nn.Input()
-    if stem == "space_to_depth":
-        x = nn.SpaceToDepth(2).inputs(inp)
-        x = nn.SpatialConvolution(
-            12, 64, 4, 1, padding=((1, 2), (1, 2)), with_bias=False,
-            weight_init=MsraFiller(), name="conv1").inputs(x)
+    if dataset == "cifar10":
+        n = (depth - 2) // 6
+        x = _conv(3, 16, 3, 1).inputs(inp)
+        x = _bn(16).inputs(x)
+        x = nn.ReLU().inputs(x)
+        n_in = 16
+        for stage in range(3):
+            planes = 16 * (2 ** stage)
+            for b in range(n):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                x = basic_block(x, n_in, planes, stride)
+                n_in = planes
+        x = nn.GlobalAveragePooling2D().inputs(x)
+        x = nn.Linear(n_in, class_num, name="fc").inputs(x)
     else:
-        x = _conv(3, 64, 7, 2, name="conv1").inputs(inp)
-    x = _bn(64).inputs(x)
-    x = nn.ReLU().inputs(x)
-    x = nn.SpatialMaxPooling(3, 2, padding="SAME").inputs(x)
-    n_in = 64
-    for stage, n_blocks in enumerate(counts):
-        planes = 64 * (2 ** stage)
-        for b in range(n_blocks):
-            stride = 2 if (stage > 0 and b == 0) else 1
-            if fused:
-                x = nn.FusedBottleneck(n_in, planes, stride,
-                                       name=f"fused_s{stage}b{b}",
-                                       remat=remat).inputs(x)
-            else:
-                x = block(x, n_in, planes, stride)
-            n_in = planes * expansion
-    x = nn.GlobalAveragePooling2D().inputs(x)
-    x = nn.Linear(n_in, class_num, name="fc1000").inputs(x)
+        block = basic_block if kind == "basic" else bottleneck_block
+        expansion = 1 if kind == "basic" else 4
+        if stem == "space_to_depth":
+            x = nn.SpaceToDepth(2).inputs(inp)
+            x = nn.SpatialConvolution(
+                12, 64, 4, 1, padding=((1, 2), (1, 2)), with_bias=False,
+                weight_init=MsraFiller(), name="conv1").inputs(x)
+        else:
+            x = _conv(3, 64, 7, 2, name="conv1").inputs(inp)
+        x = _bn(64).inputs(x)
+        x = nn.ReLU().inputs(x)
+        x = nn.SpatialMaxPooling(3, 2, padding="SAME").inputs(x)
+        n_in = 64
+        for stage, n_blocks in enumerate(counts):
+            planes = 64 * (2 ** stage)
+            for b in range(n_blocks):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                if fused:
+                    x = nn.FusedBottleneck(n_in, planes, stride,
+                                           name=f"fused_s{stage}b{b}",
+                                           remat=remat).inputs(x)
+                else:
+                    x = block(x, n_in, planes, stride)
+                n_in = planes * expansion
+        x = nn.GlobalAveragePooling2D().inputs(x)
+        x = nn.Linear(n_in, class_num, name="fc1000").inputs(x)
     model = nn.Graph([inp], [x], name=f"resnet{depth}")
     if generator is not None:
         model.initialize(generator)

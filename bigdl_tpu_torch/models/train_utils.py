@@ -1,6 +1,7 @@
 """Shared plumbing of the port's training drivers (counterpart of
-bigdl_tpu/models/train_utils.py:19-58): the common options, logging and
-the option block applied to an Optimizer.  ``--device`` chooses where to
+bigdl_tpu/models/train_utils.py:19-92): the common options, logging, the
+option block applied to an Optimizer, the final validation pass and the
+synthetic ImageNet stand-in.  ``--device`` chooses where to
 train (the card unless ``--device cpu``).  ``--checkpoint DIR`` writes a
 checkpoint at every epoch's end (in a timestamped subdirectory unless
 ``--overwrite``), ``--resume PATH`` starts from one (either package's);
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import argparse
 import logging
+
+import numpy as np
 
 from bigdl_tpu_torch.optim.triggers import Trigger
 
@@ -56,3 +59,33 @@ def init_logging():
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s - %(message)s",
     )
+
+
+def report_validation(opt, model, dataset, methods) -> dict:
+    """The final evaluation pass over ``dataset`` with the trained
+    weights (``opt.final_params``/``final_state``); returns ``{method
+    name: value}``, leaving out a method that saw no batch."""
+    from bigdl_tpu_torch.optim.optimizer import evaluate
+
+    log = logging.getLogger("bigdl_tpu_torch.train")
+    out = {}
+    for method, res in evaluate(model, opt.final_params, opt.final_state,
+                                dataset, methods):
+        if res is None:  # the set is smaller than one batch
+            log.warning("%s: no validation batches (val set < batch size)",
+                        method.name)
+            continue
+        log.info("%s: %s", method.name, res)
+        out[method.name] = res.result()[0]
+    return out
+
+
+def synthetic_imagenet(n: int, res: int, classes: int, seed: int = 0):
+    """A synthetic ImageNet stand-in, NHWC f32 images with a per-class
+    mean shift so that small runs can learn, made with ``RandomState(seed)``
+    (the JAX drivers' data, value for value)."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, res, res, 3).astype(np.float32)
+    y = rs.randint(0, classes, (n,))
+    x += y[:, None, None, None] / (4.0 * classes)
+    return x, y

@@ -1,5 +1,5 @@
-"""Training (counterpart of bigdl_tpu/optim/optimizer.py:69-249, 266-373,
-381-581, 630-693, 774-1050, 1110-1137).
+"""Training (counterpart of bigdl_tpu/optim/optimizer.py:69-373,
+381-1144).
 
 :func:`make_train_step` builds the train step the JAX package jits,
 
@@ -16,8 +16,16 @@ criterion's, in the output's type, then f32.  ``rng`` is the step's
 random seed (an int, a 0-dim int64 tensor, or ``None``); a model whose
 ``forward`` takes ``rng`` gets it, and its dropout layers draw from
 streams split off it.  ``step`` and each of ``lrs`` are Python numbers or
-0-dim tensors.  The gradients are clipped (a constant range, then the
-global f32 L2 norm) before the update.
+0-dim tensors.  With ``accum_steps = k`` the batch is cut into k
+micro-batches run one after the other (the BatchNorm state chained from
+each to the next, micro-batch i seeded ``split_rng(rng, i)``), their f32
+gradients summed, scaled by 1/k and cast to the parameters' dtype, and
+the loss is their mean.  The gradients are clipped (a constant range,
+then the global f32 L2 norm) before the update.  Each optimization
+method updates the parameters it owns: ``"__all__"`` all of them, a
+method named ``name`` the keys ``name`` and ``name.*`` (the JAX tree's
+top-level subtree ``name``); the methods run in sorted order, each with
+its rate from ``lrs`` in that order.
 
 :class:`CompiledTrainStep` is that step as the JAX optimizer runs it,
 ``jax.jit(make_train_step(...), donate_argnums=(0, 1, 2))``
@@ -25,38 +33,61 @@ global f32 L2 norm) before the update.
 (``utils/graphs.py``), with ``step``, the learning rates and ``rng`` in
 device scalars filled before each replay and the three trees donated:
 they are the graph's static inputs, and the captured step writes the new
-trees into them at its end.  On the CPU the same donated step runs
-eagerly.
+trees into them at its end.  With accumulation all k micro-batches are
+in the one capture.  On the CPU the same donated step runs eagerly.
 
-:class:`Optimizer` is the fluent configuration and :class:`LocalOptimizer` the
-synchronous loop of the JAX package (its ``BIGDL_TPU_SYNC_LOOP=1``
-path): each iteration places a batch on the device (``data``), runs the
-compiled step with the seed ``split_rng(7, neval)`` (as
-``fold_in(PRNGKey(7), neval)``) and reads the loss back (``compute``),
-moves the epoch/iteration bookkeeping, logs the reference line ``[Epoch e
-n/N][Iteration i][Wall Clock t] Throughput is X records/second. Loss is
-Y`` every 10 iterations and at each epoch's end, validates when the
-validation trigger fires (``Loss is Loss(v, n records)``) and writes a
-checkpoint when the checkpoint trigger fires.
+:class:`Optimizer` is the fluent configuration and :class:`LocalOptimizer`
+the single-device loop.  Each iteration runs the compiled step with the
+seed ``split_rng(7, neval)`` (as ``fold_in(PRNGKey(7), neval)``) and the
+methods' rates, moves the epoch/iteration bookkeeping, logs the
+reference line ``[Epoch e n/N][Iteration i][Wall Clock t] Throughput is
+X records/second. Loss is Y`` every 10 iterations and at each epoch's
+end, validates when the validation trigger fires and writes a checkpoint
+when the checkpoint trigger fires.  The loop is the JAX package's async
+engine by default (docs/async_engine.md):
+
+- batches are placed on the device by a prefetch thread
+  (``dataset/prefetch.py``; ``data`` is its time per batch,
+  ``data_stall`` the loop's wait for it);
+- the step is only enqueued (``dispatch``); its loss goes into a slot of
+  a ring of ``BIGDL_TPU_SYNC_WINDOW + 1`` pinned host scalars (default
+  window 10) by a copy on the stream, behind an event, and is read
+  (``sync``) when more than a window of losses is pending, at each log
+  line, before validation and before a checkpoint: a divergence shows
+  up at most one window late and goes into retry-from-checkpoint;
+  throughput comes from the wall clock between log lines;
+- a checkpoint waits for the previous write (``checkpoint_wait``, the
+  JAX loop's backpressure), then is copied into host buffers pinned
+  once per run (``checkpoint_pin``) by copies on the loop's stream
+  (``checkpoint_snapshot``); a writer thread waits for the copies, nests
+  the trees and writes the file (``checkpoint_write``).  The writer is
+  joined before any restore and on every exit, where its error is raised
+  unless another one is already on its way.
+
+``BIGDL_TPU_SYNC_LOOP=1`` gives the synchronous loop: the batch placed on
+the loop thread (``data``), the loss read after every step
+(``compute``) and the checkpoint written on the loop thread.  Both loops
+run the same steps on the same batches, seeds and rates, so they train
+bit-identically; only where the host waits differs.
 
 Checkpoints are the JAX package's blob, ``{"params", "model_state",
 "opt_states", "driver_state"}`` with each tree in JAX's nesting
-(``export_variables``/``export_opt_state``) and the loop's int and float
-bookkeeping, written by ``save_pytree`` on the loop thread (the JAX
-loop's synchronous branch), so either package resumes from the other's.
-A loss that is not finite, or a ``RuntimeError`` or ``ValueError`` of
-an iteration, restores the latest checkpoint into the compiled step's
-trees and goes on, at most ``max_retry`` times in ``retry_window_sec``;
-with no checkpoint it is raised again.  ``resume_from`` starts from a
-checkpoint: trees, bookkeeping, the optimization methods' counters and
-the dataset's cursor, so the run goes on with the batches, seeds and
-learning rates of the uninterrupted one.  ``request_stop`` ends the loop
-at the next iteration with a final checkpoint.
-:func:`evaluate` runs validation methods over one pass of a dataset,
-through one compiled forward per model and input shape (JAX's
-``_jit_forward``, optimizer.py:1098-1107).  The async engine and its
-background checkpoint writer, accumulation, numerics and telemetry are
-not ported yet.
+(``export_variables``/``export_opt_state``, a named method's state as
+``{name: subtree}``) and the loop's int and float bookkeeping, so either
+package resumes from the other's.  A loss that is not finite, or a
+``RuntimeError`` or ``ValueError`` of an iteration, restores the latest
+checkpoint into the compiled step's trees and goes on, at most
+``max_retry`` times in ``retry_window_sec``; with no checkpoint it is
+raised again.  ``resume_from`` starts from a checkpoint: trees,
+bookkeeping, the optimization methods' counters and the dataset's
+cursor, so the run goes on with the batches, seeds and learning rates of
+the uninterrupted one.  ``request_stop`` ends the loop at the next
+iteration with a final checkpoint.  After each validation a schedule
+with ``record`` (``Plateau``) gets the score.  :func:`evaluate` runs
+validation methods over one pass of a dataset and :func:`predict` yields
+the outputs batch by batch, through one compiled forward per model and
+input shape (JAX's ``_jit_forward``, optimizer.py:1098-1144).  Numerics,
+telemetry, summaries and remote checkpoint paths are not ported yet.
 """
 from __future__ import annotations
 
@@ -65,14 +96,18 @@ import logging
 import math
 import os
 import re
+import sys
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
+from bigdl_tpu_torch.dataset.prefetch import DevicePrefetcher, to_device
 from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.nn.criterion import Criterion
 from bigdl_tpu_torch.nn.module import _signed, split_rng
@@ -80,7 +115,7 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
-                                              ValidationResult)
+                                              ValidationResult, _numpy)
 from bigdl_tpu_torch.utils import graphs
 from bigdl_tpu_torch.utils.convert import (export_opt_state,
                                            export_variables, flatten,
@@ -91,7 +126,7 @@ from bigdl_tpu_torch.utils.serialization import (_local, load_pytree,
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 __all__ = ["CompiledTrainStep", "Optimizer", "LocalOptimizer", "evaluate",
-           "make_train_step"]
+           "make_train_step", "predict"]
 
 Tensors = Dict[str, torch.Tensor]
 _LOOP_SEED = 7  # the loop's root seed, as PRNGKey(7) in the JAX loop
@@ -114,52 +149,110 @@ def _clip_grads(grads: Tensors, clip_const: Optional[Tuple[float, float]],
     return grads
 
 
+def _owned(name: str, keys) -> List[str]:
+    """The parameter keys the method ``name`` updates: every key for
+    ``"__all__"``, else ``name`` and ``name.*`` (the JAX tree's top-level
+    subtree ``name``)."""
+    if name == "__all__":
+        return list(keys)
+    return [k for k in keys if k == name or k.startswith(name + ".")]
+
+
+def _subset(flat: Dict[str, Any], name: str) -> Dict[str, Any]:
+    return {k: flat[k] for k in _owned(name, flat)}
+
+
+def _micro(tree: Any, i: int, m: int) -> Any:
+    """Rows ``[i * m, (i + 1) * m)`` of every tensor of a batch tree."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_micro(v, i, m) for v in tree)
+    return tree[i * m:(i + 1) * m]
+
+
 def make_train_step(model: torch.nn.Module, criterion: Criterion,
                     optim_methods: Dict[str, OptimMethod],
                     grad_clip_const: Optional[Tuple[float, float]] = None,
                     grad_clip_norm: Optional[float] = None,
-                    compute_dtype: Optional[torch.dtype] = None
-                    ) -> Callable:
-    """The train step of bigdl_tpu/optim/optimizer.py:266-373 for one
-    micro-batch and the ``"__all__"`` method.
+                    compute_dtype: Optional[torch.dtype] = None,
+                    accum_steps: int = 1) -> Callable:
+    """The train step of bigdl_tpu/optim/optimizer.py:266-373.
 
     ``train_step(params, model_state, opt_states, step, rng, features,
     targets, lrs)`` runs ``model`` in training mode on ``features`` with
     ``params``/``model_state`` swapped in (``torch.func.functional_call``),
-    takes the gradients of the f32 loss with respect to ``params``, clips
-    them (``grad_clip_const`` then ``grad_clip_norm``), and applies each
-    method's update with its learning rate from ``lrs`` and the 1-based
-    ``step``.  ``rng`` (a seed or ``None``) goes to the model's
-    ``forward`` when it takes one, so dropout draws from it.  It returns
-    new dicts and the detached f32 loss; the inputs are not changed.
+    takes the gradients of the f32 loss with respect to ``params`` (with
+    ``accum_steps`` > 1: summed over that many micro-batches in f32, then
+    their mean), clips them (``grad_clip_const`` then ``grad_clip_norm``),
+    and applies each method of ``optim_methods`` (in sorted order, with
+    its rate from ``lrs`` in that order) to the parameters it owns, with
+    the 1-based ``step``.  ``rng`` (a seed or ``None``) goes to the
+    model's ``forward`` when it takes one, so dropout draws from it.  It
+    returns new dicts and the detached f32 loss; the inputs are not
+    changed.  A batch that ``accum_steps`` does not divide raises
+    ``ValueError``.
     """
-    if set(optim_methods) != {"__all__"}:
-        raise NotImplementedError(
-            "only the '__all__' optimization method is ported; got "
-            f"{sorted(optim_methods)}")
-    method = optim_methods["__all__"]
+    method_items = sorted(optim_methods.items())
     takes_rng = "rng" in inspect.signature(model.forward).parameters
+
+    def loss_and_grads(params, state, rng, features, targets):
+        """One forward and backward; ``state`` is updated in place."""
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        kwargs = {"rng": rng} if takes_rng else {}
+        with torch.enable_grad():
+            cast = ({k: v.to(compute_dtype) for k, v in leaves.items()}
+                    if compute_dtype is not None else leaves)
+            out = functional_call(model, {**cast, **state}, (features,),
+                                  kwargs)
+            loss = criterion.forward(out, targets).float()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
 
     def train_step(params, model_state, opt_states, step, rng, features,
                    targets, lrs):
         model.train()
-        leaves = {k: p.detach().requires_grad_(True)
-                  for k, p in params.items()}
-        cast = ({k: v.to(compute_dtype) for k, v in leaves.items()}
-                if compute_dtype is not None else leaves)
         # the modules update their running statistics in place: on copies
         new_state = {k: v.clone() for k, v in model_state.items()}
-        kwargs = {"rng": rng} if takes_rng else {}
-        with torch.enable_grad():
-            out = functional_call(model, {**cast, **new_state}, (features,),
-                                  kwargs)
-            loss = criterion.forward(out, targets).float()
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        grads = _clip_grads(dict(zip(leaves, grads)), grad_clip_const,
-                            grad_clip_norm)
-        new_params, opt_state = method.update(
-            grads, opt_states["__all__"], params, lrs[0], step)
-        return new_params, new_state, {"__all__": opt_state}, loss.detach()
+        if accum_steps <= 1:
+            loss, grads = loss_and_grads(params, new_state, rng, features,
+                                         targets)
+        else:
+            k = accum_steps
+            bsz = graphs.leaves(features)[0].shape[0]
+            if bsz % k:
+                raise ValueError(
+                    f"batch size {bsz} is not divisible by "
+                    f"gradient-accumulation steps {k}")
+            m = bsz // k
+            gsum = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+                    for n, p in params.items()}
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=next(iter(params.values())).device)
+            for i in range(k):
+                li, gi = loss_and_grads(params, new_state, split_rng(rng, i),
+                                        _micro(features, i, m),
+                                        _micro(targets, i, m))
+                with torch.no_grad():
+                    for n, g in gi.items():
+                        gsum[n].add_(g.float())
+                lsum = lsum + li
+                del gi  # freed before the next micro-batch runs
+            grads = {n: (g * (1.0 / k)).to(params[n].dtype)
+                     for n, g in gsum.items()}
+            loss = lsum * (1.0 / k)
+        grads = _clip_grads(grads, grad_clip_const, grad_clip_norm)
+        new_params = dict(params)
+        new_opt_states = {}
+        for (name, method), lr in zip(method_items, lrs):
+            upd, new_opt_states[name] = method.update(
+                _subset(grads, name), opt_states[name],
+                _subset(params, name), lr, step)
+            if name == "__all__":  # as JAX: "__all__" replaces the tree
+                new_params = upd
+            else:
+                new_params.update(upd)
+        return new_params, new_state, new_opt_states, loss
 
     return train_step
 
@@ -219,11 +312,6 @@ class CompiledTrainStep:
         return sum(getattr(g, "replays", 0) for g in self.graphs.values())
 
 
-def _place(a, device):
-    """A batch's numpy array (or list of them) as tensors on ``device``."""
-    if isinstance(a, (list, tuple)):
-        return [_place(v, device) for v in a]
-    return torch.as_tensor(np.asarray(a)).to(device)
 
 
 def _eval_forward(model: torch.nn.Module, params: Tensors,
@@ -261,11 +349,25 @@ def evaluate(model: torch.nn.Module, params: Tensors, model_state: Tensors,
     totals: List[Optional[ValidationResult]] = [None] * len(methods)
     for batch in dataset.data(train=False):
         out = _eval_forward(model, params, model_state,
-                            _place(batch.get_input(), device))
+                            to_device(batch.get_input(), device))
         for i, m in enumerate(methods):
             r = m(out, batch.get_target())
             totals[i] = r if totals[i] is None else totals[i] + r
     return list(zip(methods, totals))
+
+
+@torch.no_grad()
+def predict(model: torch.nn.Module, params: Tensors, model_state: Tensors,
+            dataset: AbstractDataSet) -> Iterator[Any]:
+    """Yield ``model``'s outputs batch by batch over one pass of
+    ``dataset``, as host numpy arrays (reference Predictor.scala:152;
+    optimizer.py:1140-1144), through the compiled evaluation forward of
+    :func:`evaluate`."""
+    device = next(iter(params.values())).device
+    model.eval()
+    for batch in dataset.data(train=False):
+        yield _numpy(_eval_forward(model, params, model_state,
+                                   to_device(batch.get_input(), device)))
 
 
 class Optimizer:
@@ -292,16 +394,21 @@ class Optimizer:
         self.checkpoint_path: Optional[str] = None
         self.checkpoint_trigger: Optional[Trigger] = None
         self.overwrite_checkpoint = True
+        self.accum_steps = 1
         self.max_retry = 5
         self.retry_window_sec = 600.0
         self._resume_from: Optional[str] = None
         self._initial_variables: Optional[Dict[str, Any]] = None
         self._stop_requested = False
+        # the background checkpoint writer (the async loop starts it)
+        self._ckpt_pool: Optional[ThreadPoolExecutor] = None
+        self._ckpt_future = None
 
     def request_stop(self) -> None:
-        """Ask the loop to stop at the next iteration boundary; it writes
-        a final checkpoint first (when checkpoints are set).  Safe from
-        another thread or a signal handler."""
+        """Ask the loop to stop at the next iteration boundary; it reads
+        the pending losses, writes a final checkpoint (when checkpoints
+        are set) and joins the writer.  Safe from another thread or a
+        signal handler."""
         self._stop_requested = True
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -310,11 +417,19 @@ class Optimizer:
 
     def set_optim_methods(self, methods: Dict[str, OptimMethod]
                           ) -> "Optimizer":
-        """Per-submodule methods; only ``{"__all__": method}`` is ported."""
-        if set(methods) != {"__all__"}:
-            raise NotImplementedError(
-                "only the '__all__' optimization method is ported")
+        """A method per top-level submodule (reference multi-optim): the
+        method keyed ``name`` updates the parameters ``name`` and
+        ``name.*``; ``"__all__"`` updates every parameter."""
         self.optim_methods = dict(methods)
+        return self
+
+    def set_gradient_accumulation(self, steps: int) -> "Optimizer":
+        """Split every batch into ``steps`` micro-batches run one after
+        the other, with f32 gradient accumulation (the batch size must
+        divide by it)."""
+        if steps < 1:
+            raise ValueError(f"gradient-accumulation steps {steps} < 1")
+        self.accum_steps = int(steps)
         return self
 
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
@@ -379,25 +494,82 @@ class Optimizer:
         """The compiled, donated train step (optimizer.py:706-715)."""
         return CompiledTrainStep(make_train_step(
             model, self.criterion, self.optim_methods, self.grad_clip_const,
-            self.grad_clip_norm, self.compute_dtype))
+            self.grad_clip_norm, self.compute_dtype,
+            accum_steps=self.accum_steps))
 
     @staticmethod
     def apply(model, dataset, criterion, end_trigger=None, batch_size=None,
               device: DeviceLike = None) -> "LocalOptimizer":
         """Factory matching the reference Optimizer.apply; the port has
-        the single-device loop only, so this is a :class:`LocalOptimizer`.
-        ``batch_size`` is accepted for the reference signature: the
-        dataset's batches are what the loop reads."""
+        the single-device loop only, so this is a :class:`LocalOptimizer`
+        (async unless ``BIGDL_TPU_SYNC_LOOP=1``).  ``batch_size`` is
+        accepted for the reference signature: the dataset's batches are
+        what the loop reads."""
         return LocalOptimizer(model, dataset, criterion, end_trigger,
                               batch_size, device)
 
 
+class _LossRing:
+    """The async loop's pending losses: iteration ``it``'s loss is copied
+    into slot ``it % size`` of a pinned host buffer by a copy on the
+    device's stream, with an event behind it, so neither the copy nor
+    the next step waits on the host; ``get`` waits for that event alone.
+    On the CPU the slot is filled at once.  The loop keeps at most
+    ``size - 1`` losses pending before it reads one, so a slot is never
+    overwritten before it was read."""
+
+    def __init__(self, size: int, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(size, dtype=torch.float32, pin_memory=cuda)
+        self.events: List[Optional[torch.cuda.Event]] = [None] * size
+        self.cuda = cuda
+
+    def put(self, it: int, loss: torch.Tensor) -> int:
+        slot = it % len(self.events)
+        with torch.no_grad():
+            self.host[slot].copy_(loss, non_blocking=self.cuda)
+        if self.cuda:
+            ev = self.events[slot] = self.events[slot] or torch.cuda.Event()
+            ev.record()
+        return slot
+
+    def get(self, slot: int) -> float:
+        if self.cuda:
+            self.events[slot].synchronize()
+        return float(self.host[slot])
+
+
+def _host_like(tree: Any) -> Any:
+    """Host buffers shaped as a tree's tensors: pinned for a CUDA device's
+    (allocated once per run: pinning is the slow part of a copy)."""
+    if isinstance(tree, dict):
+        return {k: _host_like(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_host_like(v) for v in tree)
+    return torch.empty(tree.shape, dtype=tree.dtype, pin_memory=tree.is_cuda)
+
+
+def _copy_to_host(host: Any, tree: Any):
+    """Copy a tree's tensors into its host buffers; from a CUDA device by
+    copies enqueued on the current stream (the caller waits on an event
+    before reading them)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _copy_to_host(host[k], v)
+    elif isinstance(tree, tuple):
+        for h, v in zip(host, tree):
+            _copy_to_host(h, v)
+    else:
+        host.copy_(tree.detach(), non_blocking=tree.is_cuda)
+
+
 class LocalOptimizer(Optimizer):
-    """Single-device synchronous training loop (reference
-    LocalOptimizer.scala; bigdl_tpu/optim/optimizer.py:381-527 with
-    ``BIGDL_TPU_SYNC_LOOP=1``).  After ``optimize()``, ``train_step`` is
-    the :class:`CompiledTrainStep` it ran: on the card its ``captures``
-    count the batch shapes and its ``replays`` the iterations."""
+    """Single-device training loop (reference LocalOptimizer.scala;
+    bigdl_tpu/optim/optimizer.py:381-1096): the async engine, or with
+    ``BIGDL_TPU_SYNC_LOOP=1`` the synchronous loop; see the module's
+    docstring.  After ``optimize()``, ``train_step`` is the
+    :class:`CompiledTrainStep` it ran: on the card its ``captures`` count
+    the batch shapes and its ``replays`` the iterations."""
 
     def optimize(self) -> torch.nn.Module:
         model = self.model.to(self.device)
@@ -406,7 +578,8 @@ class LocalOptimizer(Optimizer):
         params = {k: p.detach().clone() for k, p in model.named_parameters()}
         model_state = {k: b.detach().clone()
                        for k, b in model.named_buffers()}
-        opt_states = {name: m.init_state(params)
+        # each method's state starts from its subtree (optimizer.py:387-391)
+        opt_states = {name: m.init_state(_subset(params, name))
                       for name, m in self.optim_methods.items()}
         step_fn = self.train_step = self._build_step_fn(model)
         loop_state: Dict[str, Any] = {
@@ -419,31 +592,65 @@ class LocalOptimizer(Optimizer):
         trees = (params, model_state, opt_states)
         if self._resume_from:
             self._load_resume(trees, loop_state)
-        self.metrics = Metrics()
+        self.metrics = metrics = Metrics()
         batches_per_epoch = max(1, self.dataset.batches_per_epoch())
-        data_iter = self.dataset.data(train=True)
         wall_start = time.time()
+        self._sync_loop = os.environ.get("BIGDL_TPU_SYNC_LOOP") == "1"
+        self.sync_window = max(
+            1, int(os.environ.get("BIGDL_TPU_SYNC_WINDOW", "10")))
+        self._pending = deque()  # (iteration, ring slot, records)
+        self._ring = _LossRing(self.sync_window + 1, self.device)
+        self._host = None  # the checkpoints' host buffers
         self._retries = 0
         self._last_failure = 0.0
+        self._log_t0 = time.perf_counter()
+        self._log_records = 0
+        prefetcher = None
+        if self._sync_loop:
+            data_iter = self.dataset.data(train=True)
+        else:
+            # 'data' is the producer thread's time per batch; the loop
+            # only waits on an empty queue ('data_stall')
+            metrics.no_span("data")
+            prefetcher = data_iter = DevicePrefetcher(
+                self.dataset.data(train=True), place=self._prefetch_place,
+                timer=lambda dt: metrics.add("data", dt), device=self.device)
         ckpt_dir = self._prepare_ckpt_dir()
-        while not self._stop_requested and not self.end_trigger(loop_state):
+        try:
+            while not self._stop_requested \
+                    and not self.end_trigger(loop_state):
+                try:
+                    trees = self._one_iteration(step_fn, trees, loop_state,
+                                                data_iter, batches_per_epoch,
+                                                wall_start)
+                    if loop_state["epoch_finished"]:
+                        for m in self.optim_methods.values():
+                            m.state["epoch"] = loop_state["epoch"]
+                    self._maybe_validate(model, trees[0], trees[1],
+                                         loop_state)
+                    self._maybe_checkpoint(ckpt_dir, model, trees,
+                                           loop_state)
+                except (FloatingPointError, RuntimeError, ValueError) as e:
+                    self._recover_or_reraise(e, ckpt_dir, trees, loop_state)
+                    continue
+                loop_state["epoch_finished"] = False
+            # the last window: a divergence here still goes back to the
+            # latest checkpoint instead of being raised
             try:
-                trees = self._one_iteration(step_fn, trees, loop_state,
-                                            data_iter, batches_per_epoch,
-                                            wall_start)
-                if loop_state["epoch_finished"]:
-                    for m in self.optim_methods.values():
-                        m.state["epoch"] = loop_state["epoch"]
-                self._maybe_validate(model, trees[0], trees[1], loop_state)
-                self._maybe_checkpoint(ckpt_dir, model, trees, loop_state)
-            except (FloatingPointError, RuntimeError, ValueError) as e:
+                self._drain_losses(loop_state)
+                if self._stop_requested:
+                    # the iteration it stopped at, so that a resume goes
+                    # on there
+                    self._maybe_checkpoint(ckpt_dir, model, trees,
+                                           loop_state, force=True)
+            except FloatingPointError as e:
                 self._recover_or_reraise(e, ckpt_dir, trees, loop_state)
-                continue
-            loop_state["epoch_finished"] = False
-        if self._stop_requested:
-            # the iteration it stopped at, so that a resume goes on there
-            self._maybe_checkpoint(ckpt_dir, model, trees, loop_state,
-                                   force=True)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+            # an exception already on its way is not masked by the
+            # writer's
+            self._finish_checkpoints(raise_errors=sys.exc_info()[0] is None)
         params, model_state, _ = trees
         with torch.no_grad():
             for k, p in model.named_parameters():
@@ -453,8 +660,14 @@ class LocalOptimizer(Optimizer):
         self.final_params, self.final_state = params, model_state
         return model
 
-    # -- checkpoints (bigdl_tpu/optim/optimizer.py:529-581, 630-676,
-    # 989-1050) --------------------------------------------------------
+    def _prefetch_place(self, batch):
+        """The prefetch thread's placement of one batch on the device."""
+        return (to_device(batch.get_input(), self.device, non_blocking=True),
+                to_device(batch.get_target(), self.device, non_blocking=True),
+                batch.size)
+
+    # -- checkpoints (bigdl_tpu/optim/optimizer.py:529-581, 616-676,
+    # 989-1096) --------------------------------------------------------
     def _prepare_ckpt_dir(self) -> Optional[str]:
         """The run's checkpoint directory, made: ``checkpoint_path``
         itself when overwriting, else a timestamped subdirectory."""
@@ -483,32 +696,107 @@ class LocalOptimizer(Optimizer):
                      if f.count(".") > 1 else 1 << 60)
         return os.path.join(d, latest[:-len(".npz")])
 
+    def _blob(self, model, params, model_state, opt_states, driver_state):
+        """The checkpoint blob, each tree in JAX's nesting."""
+        variables = export_variables(model, params, model_state)
+        return {
+            "params": variables["params"],
+            "model_state": variables["state"],
+            "opt_states": {name: export_opt_state(model, st, name)
+                           for name, st in opt_states.items()},
+            "driver_state": driver_state,
+        }
+
     def _maybe_checkpoint(self, ckpt_dir, model, trees, loop_state,
                           force: bool = False):
-        """Write the blob when the trigger fires (or ``force``): each tree
-        copied to host numpy in JAX's nesting, then saved on the loop
-        thread, before the next step runs."""
+        """Write the blob when the trigger fires (or ``force``), after
+        the pending losses were read: a checkpoint the retry may restore
+        never holds a diverged step.  The synchronous loop writes it on
+        the loop thread; the async loop snapshots the trees to the host
+        and hands them to the writer thread."""
         if not ckpt_dir or not (force or (
                 self.checkpoint_trigger is not None
                 and self.checkpoint_trigger(loop_state))):
             return
-        params, model_state, opt_states = trees
-        variables = export_variables(model, params, model_state)
-        blob = {
-            "params": variables["params"],
-            "model_state": variables["state"],
-            "opt_states": {name: export_opt_state(model, st)
-                           for name, st in opt_states.items()},
-            # no bools: a saved epoch_finished would fire the epoch
-            # triggers again right after a resume
-            "driver_state": {k: v for k, v in loop_state.items()
-                             if isinstance(v, (int, float))
-                             and not isinstance(v, bool)},
-        }
-        path = self._ckpt_file(ckpt_dir, loop_state["neval"])
-        save_pytree(path, blob)
-        logger.info("Checkpoint saved to %s (iteration %d)", path,
-                    loop_state["neval"])
+        self._drain_losses(loop_state)
+        # no bools: a saved epoch_finished would fire the epoch triggers
+        # again right after a resume
+        driver_state = {k: v for k, v in loop_state.items()
+                        if isinstance(v, (int, float))
+                        and not isinstance(v, bool)}
+        it = loop_state["neval"]
+        path = self._ckpt_file(ckpt_dir, it)
+        if self._sync_loop:
+            save_pytree(path, self._blob(model, *trees, driver_state))
+            logger.info("Checkpoint saved to %s (iteration %d)", path, it)
+            return
+        self._submit_checkpoint(path, model, trees, driver_state, it)
+
+    def _submit_checkpoint(self, path, model, trees, driver_state,
+                           iteration):
+        """Hand one checkpoint to the writer thread: wait for the previous
+        write (backpressure; its error is raised here), copy the trees
+        into the run's host buffers (the loop's stall), and submit."""
+        if self._ckpt_pool is None:
+            self._ckpt_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="bigdl-ckpt")
+        with self.metrics.time("checkpoint_wait"):
+            if self._ckpt_future is not None:
+                fut, self._ckpt_future = self._ckpt_future, None
+                fut.result()
+        if self._host is None:
+            with self.metrics.time("checkpoint_pin"):
+                self._host = _host_like(trees)
+        # the copies are enqueued before the next step, which overwrites
+        # the trees in place, so they read this iteration's values
+        with self.metrics.time("checkpoint_snapshot"):
+            _copy_to_host(self._host, trees)
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record()
+        host = self._host
+
+        def write():
+            if ready is not None:
+                ready.synchronize()
+            with self.metrics.time("checkpoint_write"):
+                save_pytree(path, self._blob(model, *host, driver_state))
+            logger.info("Checkpoint saved to %s (iteration %d)", path,
+                        iteration)
+
+        self._ckpt_future = self._ckpt_pool.submit(write)
+
+    def _wait_writer(self):
+        """Join the write in flight; its error is logged, not raised, so
+        that a recovery goes back to the latest complete checkpoint."""
+        fut, self._ckpt_future = self._ckpt_future, None
+        if fut is None:
+            return
+        try:
+            fut.result()
+        except Exception:
+            logger.warning("in-flight checkpoint write failed during "
+                           "recovery; restoring an older checkpoint",
+                           exc_info=True)
+
+    def _finish_checkpoints(self, raise_errors: bool = True):
+        """Wait for the write in flight and stop the writer; called on
+        every exit of ``optimize``.  The write's error is raised when
+        ``raise_errors``, else logged."""
+        pool, fut = self._ckpt_pool, self._ckpt_future
+        self._ckpt_pool = self._ckpt_future = None
+        if pool is None:
+            return
+        pool.shutdown(wait=True)
+        if fut is not None:
+            try:
+                fut.result()
+            except Exception:
+                if raise_errors:
+                    raise
+                logger.warning("background checkpoint write failed",
+                               exc_info=True)
 
     def _restore(self, blob: dict, trees, loop_state):
         """Copy a checkpoint blob into the step's trees in place (so the
@@ -576,15 +864,19 @@ class LocalOptimizer(Optimizer):
         """Retry from the latest checkpoint (rate-limited: at most
         ``max_retry`` failures within ``retry_window_sec`` of each
         other); ``e`` is raised again when retries are used up or there
-        is no checkpoint to go back to."""
+        is no checkpoint to go back to.  The writer is joined first, and
+        the pending losses, of the diverged run, are dropped."""
         now = time.time()
         if now - self._last_failure > self.retry_window_sec:
             self._retries = 0
         self._retries += 1
         self._last_failure = now
-        if self._retries > self.max_retry or not ckpt_dir \
-                or not self._load_latest(ckpt_dir, trees, loop_state):
+        if self._retries > self.max_retry or not ckpt_dir:
             raise e
+        self._wait_writer()
+        if not self._load_latest(ckpt_dir, trees, loop_state):
+            raise e
+        self._pending.clear()
         logger.warning("Training failure (%s); retry %d from checkpoint "
                        "at iteration %d", e, self._retries,
                        loop_state["neval"])
@@ -600,12 +892,14 @@ class LocalOptimizer(Optimizer):
                 f"loss={ds.get('loss', float('nan')):.4f} | {m.summary()}")
 
     def _maybe_validate(self, model, params, model_state, loop_state):
-        """Validate when the trigger fires (optimizer.py:964-987): log
-        ``<method> is <result>`` per method and keep the first method's
-        value as ``loop_state["score"]``."""
+        """Validate when the trigger fires (optimizer.py:964-987), after
+        the pending losses were read: log ``<method> is <result>`` per
+        method, keep the first method's value as ``loop_state["score"]``
+        and hand it to every schedule with ``record`` (``Plateau``)."""
         if (self.val_trigger is None or self.val_dataset is None
                 or not self.val_methods or not self.val_trigger(loop_state)):
             return
+        self._drain_losses(loop_state)
         results = evaluate(model, params, model_state, self.val_dataset,
                            self.val_methods)
         if any(res is None for _, res in results):
@@ -615,38 +909,82 @@ class LocalOptimizer(Optimizer):
         for method, res in results:
             logger.info("%s is %s", method.name, res)
         loop_state["score"] = results[0][1].result()[0]
+        for m in self.optim_methods.values():
+            record = getattr(m.schedule, "record", None)
+            if record is not None:
+                record(loop_state["score"], m.learning_rate)
+
+    def _drain_losses(self, loop_state, keep: int = 0):
+        """Read pending losses, the oldest first, until at most ``keep``
+        remain (optimizer.py:735-772): the async loop's only waits on the
+        device.  A loss that is not finite raises ``FloatingPointError``
+        naming its iteration and the one it was read at."""
+        while len(self._pending) > keep:
+            it, slot, _ = self._pending.popleft()
+            with self.metrics.time("sync"):
+                loss = self._ring.get(slot)
+            if math.isnan(loss) or math.isinf(loss):
+                self._pending.clear()
+                raise FloatingPointError(
+                    f"loss diverged: {loss} (iteration {it}, detected at "
+                    f"iteration {loop_state['neval']})")
+            loop_state["loss"] = loss
 
     def _one_iteration(self, step_fn, trees, loop_state, data_iter,
                        batches_per_epoch, wall_start):
         metrics = self.metrics
-        with metrics.time("data"):
-            batch = next(data_iter)
-            features = _place(batch.get_input(), self.device)
-            targets = _place(batch.get_target(), self.device)
-            n_records = batch.size
+        if self._sync_loop:
+            with metrics.time("data"):
+                batch = next(data_iter)
+                features = to_device(batch.get_input(), self.device)
+                targets = to_device(batch.get_target(), self.device)
+                n_records = batch.size
+        else:  # placed on the prefetch thread; this is the wait for it
+            with metrics.time("data_stall"):
+                features, targets, n_records = next(data_iter)
         lrs = [m.current_rate() for _, m in sorted(self.optim_methods.items())]
-        with metrics.time("compute"):
+        it = loop_state["neval"] + 1
+        # async: 'dispatch' only enqueues the step; sync: 'compute' waits
+        # for its loss
+        with metrics.time("compute" if self._sync_loop else "dispatch"):
             params, model_state, opt_states, loss = step_fn(
-                *trees, loop_state["neval"] + 1,
-                split_rng(_LOOP_SEED, loop_state["neval"]), features,
-                targets, lrs)
-            loss = float(loss)  # sync point
-        if math.isnan(loss) or math.isinf(loss):
-            raise FloatingPointError(f"loss diverged: {loss}")
-        loop_state["loss"] = loss
-        loop_state["neval"] += 1
+                *trees, it, split_rng(_LOOP_SEED, loop_state["neval"]),
+                features, targets, lrs)
+            if self._sync_loop:
+                loss = float(loss)
+            else:  # a slot of its own before the next step overwrites it
+                slot = self._ring.put(it, loss)
+        if self._sync_loop:
+            if math.isnan(loss) or math.isinf(loss):
+                raise FloatingPointError(f"loss diverged: {loss}")
+            loop_state["loss"] = loss
+        else:
+            self._pending.append((it, slot, n_records))
+        loop_state["neval"] = it
         loop_state["records_processed"] += n_records
         loop_state["batch_in_epoch"] += 1
+        self._log_records += n_records
         for m in self.optim_methods.values():
-            m.state["neval"] = loop_state["neval"]
+            m.state["neval"] = it
         if loop_state["batch_in_epoch"] >= batches_per_epoch:
             loop_state["epoch"] += 1
             loop_state["records_processed"] = 0
             loop_state["batch_in_epoch"] = 0
             loop_state["epoch_finished"] = True
 
-        if loop_state["neval"] % 10 == 1 or loop_state["epoch_finished"]:
-            throughput = n_records / max(metrics.get("compute"), 1e-9)
+        log_due = it % 10 == 1 or loop_state["epoch_finished"]
+        if not self._sync_loop:  # the window, read in full at a log line
+            self._drain_losses(loop_state,
+                               keep=0 if log_due else self.sync_window)
+        if log_due:
+            if self._sync_loop:
+                throughput = n_records / max(metrics.get("compute"), 1e-9)
+            else:  # dispatch times nothing of the step: the wall clock
+                now = time.perf_counter()
+                throughput = self._log_records / max(now - self._log_t0,
+                                                     1e-9)
+                self._log_t0 = now
+            self._log_records = 0
             metrics.set_value("throughput", round(throughput, 1))
             logger.info(
                 "[Epoch %d %d/%d][Iteration %d][Wall Clock %.3fs] "
@@ -654,7 +992,7 @@ class LocalOptimizer(Optimizer):
                 loop_state["epoch"]
                 + (0 if loop_state["epoch_finished"] else 1),
                 loop_state["records_processed"],
-                batches_per_epoch * n_records, loop_state["neval"],
+                batches_per_epoch * n_records, it,
                 time.time() - wall_start, throughput, loop_state["loss"],
                 metrics.summary())
         return params, model_state, opt_states

@@ -193,11 +193,17 @@ def _fill(template: Mapping, flat: Mapping, prefix: str = "") -> dict:
                 else flat[f"{prefix}{k}"]) for k, v in template.items()}
 
 
-def export_opt_state(model: torch.nn.Module, opt_state: Mapping) -> dict:
+def export_opt_state(model: torch.nn.Module, opt_state: Mapping,
+                     name: str = "__all__") -> dict:
     """The inverse of :func:`load_jax_opt_state`: each slot as a tree of
     f32 numpy arrays nested as ``export_variables(model)["params"]``
-    (empty subtrees included)."""
+    (empty subtrees included).  The state of a method named ``name``
+    other than ``"__all__"`` holds the keys ``name`` and ``name.*`` only,
+    and nests as JAX's ``init_state({name: params[name]})``: ``{name:
+    subtree}``."""
     template = _nest(model, "params")
+    if name != "__all__":
+        template = {name: template[name]}
     return {slot: _fill(template, {k: _numpy(v)
                                    for k, v in flat.items()})
             for slot, flat in opt_state.items()}

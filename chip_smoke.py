@@ -172,7 +172,28 @@ Phases:
    retried from the last checkpoint with the step still one capture and
    the run ends finite; transformer_train.main with --checkpoint
    --overwrite for one epoch, then --resume to two; the checkpoints'
-   bytes and write ms (device trees to the file) printed.
+   bytes and write ms (device trees to the file) printed; all of it on
+   the synchronous loop (BIGDL_TPU_SYNC_LOOP=1), then the ResNet-50 run
+   on the async loop, its checkpoints written by the background writer
+   (the last file equal to the final trees bit for bit; the loop's stall,
+   the snapshot, and the writer's ms printed);
+10. recipe: resnet_train.main with --fused -b 256 --syntheticSize 1024
+   --maxEpoch 2 --optim lars --warmupEpoch 1 (fused ResNet-50, warmup
+   then poly, LARS, bf16, Top1/Top5 every epoch) on the async loop: one
+   capture of the train step launching kernels 1-5 72/36/36/26/13 times,
+   every read loss finite, each iteration's learning rate the recipe's
+   host schedule, ms per step and data_stall against one epoch of the
+   synchronous loop's data; the fused ResNet-50 step at batch 256 as 4 x
+   64 with gradient accumulation (f32, one capture, 4 x the launches)
+   against the same step through the plain versions within the train
+   phase's f32 limits, and the peak memory of 4 x 256 accumulated against
+   a direct batch 256 in bf16; the LM (T 512) for 20 steps on the async
+   and the synchronous loop, losses and final trees bit-equal (cuDNN
+   deterministic), a NaN step read at most a window later and retried
+   from the background-written checkpoint in the same capture (the
+   loop's stall per checkpoint printed), and bench.py loop_ab's A/B on
+   the LM with a sleep per batch equal to its step: the async loop at
+   least 1.3x the synchronous one.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -185,6 +206,8 @@ import json
 import logging
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2515,6 +2538,9 @@ class _NanOnce:
     def __init__(self, at):
         self.at, self.fired = at, False
 
+    def bind(self, base_lr):
+        pass
+
     def rate(self, step, epoch=0):
         if step == self.at and not self.fired:
             self.fired = True
@@ -2536,9 +2562,11 @@ def checkpoint_phase(args, card):
     learning rate; ResNet-50: a NaN image in a batch) restores the last
     checkpoint into the compiled step's trees and the run ends finite,
     with one capture.  Then the LM driver's --checkpoint and --resume.
-    Returns the results."""
-    import shutil
-
+    Under the async loop (the default) the same ResNet-50 run writes its
+    checkpoints on the background writer: the file equals the final
+    trees bit for bit and the loop's stall is the snapshot.  The rest
+    runs with BIGDL_TPU_SYNC_LOOP=1, whose writes are timed from the
+    device trees to the file.  Returns the results."""
     import numpy as np
     import torch
 
@@ -2570,11 +2598,14 @@ def checkpoint_phase(args, card):
     def timed_ckpt(self, *a, **kw):
         n, t0 = len(writes), time.perf_counter()
         real_ckpt(self, *a, **kw)
-        if len(writes) > n:  # the device-to-host copy, encoding, write
+        if len(writes) > n and self._sync_loop:  # the device-to-host
+            # copy, encoding, write
             writes[-1]["ms"] = (time.perf_counter() - t0) * 1e3
 
     optmod.save_pytree = timed_save
     optmod.LocalOptimizer._maybe_checkpoint = timed_ckpt
+    prev_loop = os.environ.get("BIGDL_TPU_SYNC_LOOP")
+    os.environ["BIGDL_TPU_SYNC_LOOP"] = "1"  # synchronous writes, timed
     res = {}
     try:
         rs = np.random.RandomState(args.seed + 20)
@@ -2718,7 +2749,50 @@ def checkpoint_phase(args, card):
                  if i not in again), 7, 7, 1] = np.nan
         res["resnet50_nan"] = nan_check("ResNet-50", rn_opt, CKPT_RN_STEPS,
                                         1, images=bad)
-        del rn_x, bad
+        del bad
+
+        # the async loop: the writer thread writes, the loop snapshots
+        os.environ["BIGDL_TPU_SYNC_LOOP"] = "0"
+        try:
+            aopt, _, ad = run(rn_opt, "async-resnet50", CKPT_RN_STEPS,
+                              every=2)
+        finally:
+            os.environ["BIGDL_TPU_SYNC_LOOP"] = "1"
+        blob = load_pytree(str(ad / "model"))
+        want = export_variables(aopt.model, aopt.final_params,
+                                aopt.final_state)
+        same = all(flatten(blob[bk]).keys() == flatten(want[wk]).keys()
+                   and all(np.array_equal(flatten(blob[bk])[k], a)
+                           for k, a in flatten(want[wk]).items())
+                   for bk, wk in (("params", "params"),
+                                  ("model_state", "state")))
+        am = aopt.metrics
+        res["resnet50_async"] = {
+            "snapshot_ms": am.get("checkpoint_snapshot") * 1e3,
+            "snapshots": am.count("checkpoint_snapshot"),
+            "wait_ms": am.get("checkpoint_wait") * 1e3,
+            "pin_ms": am.get("checkpoint_pin") * 1e3,
+            "write_ms": am.get("checkpoint_write") * 1e3,
+            "writes": am.count("checkpoint_write"),
+            "file_equals_final_trees": same,
+            "neval": int(blob["driver_state"]["neval"]),
+            "captures": aopt.train_step.captures}
+        print(f"ResNet-50 under the async loop: checkpoints every 2 "
+              f"iterations written by the writer thread "
+              f"({res['resnet50_async']['writes']} writes, "
+              f"{res['resnet50_async']['write_ms']:.2f} ms each on the "
+              f"writer); the loop's stall: snapshot "
+              f"{res['resnet50_async']['snapshot_ms']:.2f} ms, wait for the "
+              f"previous write {res['resnet50_async']['wait_ms']:.2f} ms, "
+              f"pinning once {res['resnet50_async']['pin_ms']:.2f} ms; the "
+              f"last file equals the final trees bit for bit {same}",
+              flush=True)
+        if not same or res["resnet50_async"]["neval"] != CKPT_RN_STEPS or \
+                res["resnet50_async"]["writes"] != CKPT_RN_STEPS // 2 or \
+                res["resnet50_async"]["captures"] != 1:
+            fail(f"ResNet-50 async checkpoints: {res['resnet50_async']}")
+        del aopt, rn_x
+        torch.cuda.empty_cache()
 
         # the LM driver: one epoch with a checkpoint, then resumed to two
         d = root / "driver"
@@ -2741,8 +2815,13 @@ def checkpoint_phase(args, card):
         optmod.LocalOptimizer._maybe_checkpoint = real_ckpt
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(root, ignore_errors=True)
+        if prev_loop is None:
+            os.environ.pop("BIGDL_TPU_SYNC_LOOP", None)
+        else:
+            os.environ["BIGDL_TPU_SYNC_LOOP"] = prev_loop
+    # the synchronous writes, timed on the loop thread
     res["writes"] = [dict(w, path=str(Path(w["path"]).relative_to(root)))
-                     for w in writes]
+                     for w in writes if "ms" in w]
     by = {}
     for w in res["writes"]:
         by.setdefault(w["path"].split("_")[0], []).append(w)
@@ -2752,6 +2831,460 @@ def checkpoint_phase(args, card):
                             for k, v in by.items()}
     print(f"checkpoint writes (bytes, median ms from the device trees to "
           f"the file): {res['write_summary']}", flush=True)
+    return res
+
+
+# the ResNet-50 recipe on the async loop (models/resnet_train.py), gradient
+# accumulation, and the async loop against the synchronous one
+RECIPE_ARGV = ["--fused", "-b", "256", "--syntheticSize", "1024",
+               "--maxEpoch", "2", "--imageSize", "224", "--optim", "lars",
+               "--warmupEpoch", "1"]
+RECIPE_BATCH, RECIPE_ITERS_PER_EPOCH = 256, 4  # 1024 images / 256
+RECIPE_RES = 224
+ACCUM, ACCUM_MICRO = 4, 64  # the accumulated step: 4 x 64 = batch 256
+LOOP_STEPS = 20      # the LM per loop, async against sync
+LOOP_NAN_AT = 12     # the LM's lr is NaN in step 13: step 14's loss
+LOOP_CKPT_EVERY = 10
+LOOP_AB_STEPS, LOOP_AB_FROM = 30, 3  # bench.py loop_ab: 30 steps, timed
+LOOP_AB_GATE = 1.3   # from the 3rd on; tests/test_async_engine.py:40-51
+
+
+class _Sleepy:
+    """A dataset whose training batches each take ``seconds`` of host
+    time (bench.py loop_ab's SleepPerBatch)."""
+
+    def __init__(self, base, seconds):
+        self.base, self.seconds = base, seconds
+
+    def batches_per_epoch(self):
+        return self.base.batches_per_epoch()
+
+    def data(self, train):
+        for b in self.base.data(train):
+            time.sleep(self.seconds)
+            yield b
+
+
+def recipe_phase(args, card, dev="cuda"):
+    """Phase 10: (a) ``resnet_train.main(RECIPE_ARGV)`` on the async loop:
+    one capture of the train step, kernels 1-5 72/36/36/26/13 times in
+    it, every read loss finite, each iteration's learning rate the
+    recipe's host schedule, Top1/Top5, ms per step (CUDA events between
+    the steps of epoch 2) and the loop's data_stall beside the producer's
+    data, then the same for one epoch of the synchronous loop; (b) the
+    fused ResNet-50 step at batch 256 as 4 x 64 (f32), compiled, against
+    the same accumulated step through the kernels' plain versions from
+    the same weights (BatchNorm randomised): loss, gradients and running
+    statistics within the train phase's f32 limits, 4 x the launches per
+    step in one capture, and the peak memory of 4 x 256 accumulated
+    (bf16 compute) against a direct batch 256; (c) the LM (T 512) for 20
+    steps on each loop with cuDNN deterministic: losses and final trees
+    bit-equal; a NaN step found at most a window later and retried from
+    the background-written checkpoint in the same capture, with the
+    loop's stall per checkpoint; bench.py loop_ab's A/B on this LM with a
+    sleep per batch equal to its step: at least 1.3x.  ``dev="cpu"``
+    serves a rehearsal with the sizes shrunk and the CUDA calls patched.
+    Returns the results."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import ResNet, resnet_train
+    from bigdl_tpu_torch.ops import fused_matmul as fm
+    from bigdl_tpu_torch.optim import (SGD, Adam, CompiledTrainStep,
+                                       Optimizer, Trigger, make_train_step,
+                                       optimizer as optmod)
+    from bigdl_tpu_torch.utils import (export_variables, load_jax_variables,
+                                       random_variables)
+
+    print(f"recipe phase on {card}", flush=True)
+    res = {}
+    prev_loop = os.environ.pop("BIGDL_TPU_SYNC_LOOP", None)
+    calls, opts = [], []
+    real_call = optmod.CompiledTrainStep.__call__
+    real_build = optmod.LocalOptimizer._build_step_fn
+
+    def call(self, *a):
+        """The loop's step, recorded: its step, rates, loss (a copy on
+        the stream) and an event after it."""
+        out = real_call(self, *a)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        calls.append({"step": a[3], "lrs": list(a[7]),
+                      "loss": out[3].detach().clone(), "event": ev})
+        return out
+
+    def build(self, model):
+        opts.append(self)
+        return real_build(self, model)
+
+    def step_ms(recs):
+        """Median device ms between consecutive recorded steps."""
+        torch.cuda.synchronize()
+        return statistics.median(a["event"].elapsed_time(b["event"])
+                                 for a, b in zip(recs, recs[1:])) \
+            if len(recs) > 1 else float("nan")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
+
+    optmod.CompiledTrainStep.__call__ = call
+    optmod.LocalOptimizer._build_step_fn = build
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        # ---------------------------------------------------- (a) recipe
+        fm.reset_launches()
+        t0 = time.perf_counter()
+        top = resnet_train.main(RECIPE_ARGV)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        opt = opts[-1]
+        step = opt.train_step
+        (graph,) = step.graphs.values()
+        iters = RECIPE_ITERS_PER_EPOCH * 2
+        recipe_args = types.SimpleNamespace(
+            learningRate=0.1, maxLr=3.2, warmupEpoch=1, maxEpoch=2,
+            momentum=0.9, weightDecay=1e-4, optim="lars")
+        ref = resnet_train.make_recipe_optim(recipe_args,
+                                             RECIPE_ITERS_PER_EPOCH)
+        want_lrs = []
+        for n in range(iters):
+            ref.state["neval"] = n
+            ref.state["epoch"] = n // RECIPE_ITERS_PER_EPOCH
+            want_lrs.append(ref.current_rate())
+        got_lrs = [c["lrs"][0] for c in calls]
+        losses = [c["loss"].item() for c in calls]
+        m = opt.metrics
+        rec = {"seconds": main_s, "result": top,
+               "captures": step.captures, "replays": step.replays,
+               "launches_per_step": dict(graph.launches),
+               "capture_seconds": graph.capture_seconds,
+               "lrs": got_lrs, "losses": losses,
+               "ms_per_step": step_ms(calls[RECIPE_ITERS_PER_EPOCH:]),
+               "data_ms": m.get("data") * 1e3,
+               "data_stall_ms": m.get("data_stall") * 1e3,
+               "data_stall_ms_last": m.last("data_stall") * 1e3,
+               "dispatch_ms_last": m.last("dispatch") * 1e3,
+               "sync_ms": m.get("sync") * 1e3,
+               "summary": m.summary()}
+        rec["images_per_s"] = RECIPE_BATCH / rec["ms_per_step"] * 1e3
+        print(f"resnet_train.main({' '.join(RECIPE_ARGV)}): {main_s:.1f} s, "
+              f"{top}; {step.captures} capture of the train step "
+              f"({graph.capture_seconds:.2f} s), {step.replays} replays, "
+              f"launches per step {rec['launches_per_step']}; "
+              f"{rec['ms_per_step']:.2f} ms per step in epoch 2 "
+              f"({rec['images_per_s']:.1f} images/s); data "
+              f"{rec['data_ms']:.2f} ms per batch on the prefetch thread, "
+              f"data_stall {rec['data_stall_ms']:.2f} ms (the last "
+              f"{rec['data_stall_ms_last']:.2f}); lrs "
+              f"{[round(v, 6) for v in got_lrs]}; losses "
+              f"{[round(v, 4) for v in losses]}", flush=True)
+        if step.captures != 1 or graph.launches != STEP_LAUNCHES[True] \
+                or len(calls) != iters:
+            fail(f"recipe: {step.captures} captures, launches per step "
+                 f"{graph.launches} (expected {STEP_LAUNCHES[True]}), "
+                 f"{len(calls)} steps (expected {iters})")
+        if got_lrs != want_lrs:
+            fail(f"recipe: learning rates {got_lrs}, the schedule gives "
+                 f"{want_lrs}")
+        if not all(math.isfinite(v) for v in losses) or not \
+                math.isfinite(opt._loop_state["loss"]) or \
+                set(top) != {"Top1Accuracy", "Top5Accuracy"}:
+            fail(f"recipe: losses {losses}, result {top}")
+        res["recipe"] = rec
+        del opt, step, graph
+        opts.clear()
+        calls.clear()
+        torch.cuda.empty_cache()
+
+        # the synchronous loop, one epoch, for its data phase
+        os.environ["BIGDL_TPU_SYNC_LOOP"] = "1"
+        sync_argv = list(RECIPE_ARGV)
+        sync_argv[sync_argv.index("--maxEpoch") + 1] = "1"
+        resnet_train.main(sync_argv)
+        del os.environ["BIGDL_TPU_SYNC_LOOP"]
+        m = opts[-1].metrics
+        res["recipe_sync"] = {"data_ms": m.get("data") * 1e3,
+                              "compute_ms": m.get("compute") * 1e3,
+                              "ms_per_step": step_ms(calls[1:]),
+                              "summary": m.summary()}
+        print(f"the same recipe, one epoch on the synchronous loop: data "
+              f"{res['recipe_sync']['data_ms']:.2f} ms per batch on the loop "
+              f"thread, {res['recipe_sync']['ms_per_step']:.2f} ms per step "
+              f"(async: data_stall {rec['data_stall_ms']:.2f} ms, "
+              f"{rec['ms_per_step']:.2f} ms per step)", flush=True)
+        opts.clear()
+        calls.clear()
+        torch.cuda.empty_cache()
+
+        # --------------------------------------------- (b) accumulation
+        crit = nn.ClassNLLCriterion(logits=True)
+        model = ResNet(1000, 50, fused=True, device=dev)
+        v = random_variables(export_variables(model), args.seed + 30)
+        load_jax_variables(model, v)
+        plain = nn.use_plain_ops(ResNet(1000, 50, fused=True, device=dev),
+                                 True)
+        load_jax_variables(plain, v)
+        rs = np.random.RandomState(args.seed + 31)
+        x = torch.from_numpy(rs.rand(ACCUM * ACCUM_MICRO, RECIPE_RES,
+                                     RECIPE_RES, 3).astype(np.float32)).to(dev)
+        t = torch.from_numpy(rs.randint(0, 1000, ACCUM * ACCUM_MICRO)).to(dev)
+
+        def fresh(m_):
+            p = {k: q.detach().clone() for k, q in m_.named_parameters()}
+            s_ = {k: b.detach().clone() for k, b in m_.named_buffers()}
+            return p, s_, {"__all__": SGD(0.1, momentum=0.9).init_state(p)}
+
+        def sgd():
+            return {"__all__": SGD(0.1, momentum=0.9)}
+
+        fm.reset_launches()
+        kstep = CompiledTrainStep(make_train_step(model, crit, sgd(),
+                                                  accum_steps=ACCUM))
+        pk, sk, ok, lk = kstep(*fresh(model), 1, None, x, t, [0.1])
+        torch.cuda.synchronize()
+        (kgraph,) = kstep.graphs.values()
+        pp, sp, op_, lp = make_train_step(plain, crit, sgd(),
+                                          accum_steps=ACCUM)(
+            *fresh(plain), 1, None, x, t, [0.1])
+        vk, vp = ok["__all__"]["velocity"], op_["__all__"]["velocity"]
+        finite = math.isfinite(lk.item()) and all(
+            torch.isfinite(vk[k]).all() for k in vk)
+        grad = {k: rel(vk[k], vp[k]) for k in vk}
+        err = {"loss": abs(lk.item() - lp.item()) / abs(lp.item()),
+               "grad": max(grad.values()),
+               "state": max(rel(sk[k], sp[k]) for k in sk)}
+        want = {k: ACCUM * n for k, n in STEP_LAUNCHES[True].items()}
+        acc = {"parity": err, "worst_grad": max(grad, key=grad.get),
+               "launches_per_step": dict(kgraph.launches),
+               "captures": kstep.captures,
+               "loss": lk.item(), "plain_loss": lp.item()}
+        print(f"accumulation {ACCUM} x {ACCUM_MICRO} (f32, kernels vs plain "
+              f"path): loss {lk.item():.6g} vs {lp.item():.6g} (rel "
+              f"{err['loss']:.3g}); gradient rel L2 per leaf max "
+              f"{err['grad']:.3g} ({acc['worst_grad']}); running stats max "
+              f"{err['state']:.3g}; {kstep.captures} capture launching "
+              f"{acc['launches_per_step']}", flush=True)
+        if not finite or kstep.captures != 1 or kgraph.launches != want or \
+                any(err[k] > lim for k, lim in TRAIN_F32_TOL.items()):
+            fail(f"accumulated step: {acc}, expected launches {want}, "
+                 f"limits {TRAIN_F32_TOL}")
+        del kstep, kgraph, pk, sk, ok, pp, sp, op_, vk, vp, plain
+        torch.cuda.empty_cache()
+
+        # peak memory: 4 x 256 accumulated against a direct 256 (bf16)
+        peak = {}
+        for k, batch in ((1, RECIPE_BATCH), (ACCUM, ACCUM * RECIPE_BATCH)):
+            xb = torch.rand((batch, RECIPE_RES, RECIPE_RES, 3), device=dev)
+            tb = torch.randint(0, 1000, (batch,), device=dev)
+            trees = fresh(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            cstep = CompiledTrainStep(make_train_step(
+                model, crit, sgd(), compute_dtype=torch.bfloat16,
+                accum_steps=k))
+            for i in range(3):
+                *trees, loss = cstep(*trees, i + 1, None, xb, tb, [0.1])
+            torch.cuda.synchronize()
+            a_, b_ = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a_.record()
+            for i in range(3):
+                *trees, loss = cstep(*trees, i + 4, None, xb, tb, [0.1])
+            b_.record()
+            b_.synchronize()
+            peak[f"{k}x{RECIPE_BATCH}"] = {
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "peak_over_inputs_and_trees":
+                    torch.cuda.max_memory_allocated() - base,
+                "ms_per_step": a_.elapsed_time(b_) / 3,
+                "loss": loss.item()}
+            del xb, tb, trees, cstep, loss
+            torch.cuda.empty_cache()
+        acc["memory"] = peak
+        print(f"peak memory, bf16 compute (remat on): "
+              + "; ".join(f"{k}: {r['peak_bytes'] / 2**30:.2f} GiB "
+                          f"({r['peak_over_inputs_and_trees'] / 2**30:.2f} "
+                          f"GiB above the batch and trees), "
+                          f"{r['ms_per_step']:.2f} ms per step"
+                          for k, r in peak.items()), flush=True)
+        if not all(math.isfinite(r["loss"]) for r in peak.values()):
+            fail(f"accumulated bf16 steps: {peak}")
+        res["accumulation"] = acc
+        del model
+        torch.cuda.empty_cache()
+
+        # ----------------------------------------- (c) async and sync
+        torch.backends.cudnn.deterministic = True
+        lm_v = None
+        rs = np.random.RandomState(args.seed + 32)
+        xs = rs.randint(0, LM["vocab_size"], (LM_BATCH * LOOP_STEPS, LM_SEQ))
+        ys = rs.randint(0, LM["vocab_size"], (LM_BATCH * LOOP_STEPS, LM_SEQ))
+
+        def lm_run(sync, steps, schedule=None, ckpt=None, data=None,
+                   trigger=None):
+            nonlocal lm_v
+            os.environ["BIGDL_TPU_SYNC_LOOP"] = "1" if sync else "0"
+            m_ = nn.Transformer(**LM)
+            if lm_v is None:
+                lm_v = lm_variables(m_, args.seed)
+            load_jax_variables(m_, lm_v)
+            base = DataSet.from_arrays(xs, ys, batch_size=LM_BATCH)
+            o = (Optimizer.apply(
+                m_, base if data is None else data(base),
+                nn.TimeDistributedCriterion(
+                    nn.ClassNLLCriterion(logits=True)),
+                end_trigger=trigger or Trigger.max_iteration(steps),
+                device=dev)
+                .set_optim_method(Adam(1e-3, schedule=schedule))
+                .set_gradient_clipping_by_l2_norm(1.0)
+                .set_compute_dtype(torch.bfloat16))
+            if ckpt is not None:
+                o.set_checkpoint(str(ckpt), Trigger.several_iteration(
+                    LOOP_CKPT_EVERY))
+            calls.clear()
+            try:
+                o.optimize()
+            finally:
+                del os.environ["BIGDL_TPU_SYNC_LOOP"]
+            torch.cuda.synchronize()
+            return o, list(calls)
+
+        runs = {}
+        for sync in (False, True):
+            o, recs = lm_run(sync, LOOP_STEPS)
+            runs[sync] = {"losses": torch.stack([c["loss"] for c in recs]),
+                          "params": o.final_params,
+                          "state": o.final_state,
+                          "ms_per_step": step_ms(recs[2:]),
+                          "captures": o.train_step.captures,
+                          "summary": o.metrics.summary()}
+        same_losses = torch.equal(runs[False]["losses"],
+                                  runs[True]["losses"])
+        same_trees = all(
+            torch.equal(runs[False][kind][k], runs[True][kind][k])
+            for kind in ("params", "state") for k in runs[False][kind])
+        loop = {"steps": LOOP_STEPS,
+                "losses": runs[False]["losses"].tolist(),
+                "losses_bit_equal": same_losses,
+                "trees_bit_equal": same_trees,
+                "ms_per_step": {"async": runs[False]["ms_per_step"],
+                                "sync": runs[True]["ms_per_step"]},
+                "summary": {"async": runs[False]["summary"],
+                            "sync": runs[True]["summary"]}}
+        print(f"LM (T {LM_SEQ}) for {LOOP_STEPS} steps, async and sync loops "
+              f"(cuDNN deterministic): losses bit-equal {same_losses}, final "
+              f"trees bit-equal {same_trees}; ms per step "
+              f"{loop['ms_per_step']}; async {runs[False]['summary']}; sync "
+              f"{runs[True]['summary']}", flush=True)
+        if not same_losses or not same_trees or \
+                runs[False]["captures"] != 1 or runs[True]["captures"] != 1:
+            fail(f"async and sync loops differ: {loop}")
+        step_device_ms = runs[False]["ms_per_step"]
+        del runs
+
+        # a NaN step: found at most a window later, retried from the
+        # writer's checkpoint
+        d = ROOT / "build" / "ckpt_loop"
+        shutil.rmtree(d, ignore_errors=True)
+        found = []
+        real_recover = optmod.LocalOptimizer._recover_or_reraise
+        real_ckpt = optmod.LocalOptimizer._maybe_checkpoint
+        ckpt_ms = []
+
+        def recover(self, e, *a):
+            found.append(str(e))
+            return real_recover(self, e, *a)
+
+        def timed_ckpt(self, *a, **kw):
+            t1 = time.perf_counter()
+            real_ckpt(self, *a, **kw)
+            if self.checkpoint_trigger(a[3]):
+                ckpt_ms.append((time.perf_counter() - t1) * 1e3)
+
+        optmod.LocalOptimizer._recover_or_reraise = recover
+        optmod.LocalOptimizer._maybe_checkpoint = timed_ckpt
+        try:
+            o, recs = lm_run(False, LOOP_STEPS, schedule=_NanOnce(LOOP_NAN_AT),
+                             ckpt=d)
+        finally:
+            optmod.LocalOptimizer._recover_or_reraise = real_recover
+            optmod.LocalOptimizer._maybe_checkpoint = real_ckpt
+            shutil.rmtree(d, ignore_errors=True)
+        hit = [re.search(r"iteration (\d+), detected at iteration (\d+)", f)
+               for f in found]
+        m = o.metrics
+        nan = {"failures": found, "retries": o._retries,
+               "neval": o._loop_state["neval"],
+               "final_loss": o._loop_state["loss"],
+               "captures": o.train_step.captures, "steps_run": len(recs),
+               "snapshot_ms": m.get("checkpoint_snapshot") * 1e3,
+               "snapshots": m.count("checkpoint_snapshot"),
+               "wait_ms": m.get("checkpoint_wait") * 1e3,
+               "pin_ms": m.get("checkpoint_pin") * 1e3,
+               "write_ms": m.get("checkpoint_write") * 1e3,
+               "maybe_checkpoint_ms": ckpt_ms,
+               "sync_window": o.sync_window}
+        print(f"LM NaN step under the async loop: {found}; {o._retries} "
+              f"retry, ended at iteration {nan['neval']} with loss "
+              f"{nan['final_loss']:.4f} after {len(recs)} steps, "
+              f"{nan['captures']} capture; the loop's stall per checkpoint: "
+              f"the snapshot (copies into pinned host memory) "
+              f"{nan['snapshot_ms']:.2f} ms over {nan['snapshots']}, the wait "
+              f"for the previous write {nan['wait_ms']:.2f} ms, pinning the "
+              f"buffers once {nan['pin_ms']:.2f} ms (the whole checkpoint "
+              f"call, its drain included, {[round(v, 2) for v in ckpt_ms]} "
+              f"ms); the writer {nan['write_ms']:.2f} ms per file (phase 9 "
+              f"times the synchronous writes)", flush=True)
+        if len(hit) != 1 or not hit[0] or int(hit[0].group(1)) != \
+                LOOP_NAN_AT + 2 or not 0 <= int(hit[0].group(2)) - int(
+                    hit[0].group(1)) <= o.sync_window or o._retries != 1 \
+                or nan["captures"] != 1 or nan["neval"] != LOOP_STEPS or \
+                not math.isfinite(nan["final_loss"]):
+            fail(f"async NaN retry: {nan}")
+        loop["nan"] = nan
+        del o, recs
+
+        # bench.py loop_ab on the LM: a sleep per batch equal to its step
+        sleep_s = step_device_ms / 1e3
+        walls = {}
+        for sync in (True, False):
+            stamp = {}
+
+            def until(state):
+                if state["neval"] == LOOP_AB_FROM:
+                    stamp["t0"] = time.perf_counter()
+                return state["neval"] >= LOOP_AB_STEPS
+
+            o, _ = lm_run(sync, LOOP_AB_STEPS, trigger=Trigger(until),
+                          data=lambda b: _Sleepy(b, sleep_s))
+            walls["sync" if sync else "async"] = \
+                time.perf_counter() - stamp["t0"]
+            del o
+        ab = walls["sync"] / walls["async"]
+        loop["loop_ab"] = {"sleep_ms": sleep_s * 1e3, "walls_s": walls,
+                           "steps_timed": LOOP_AB_STEPS - LOOP_AB_FROM,
+                           "speedup": ab}
+        print(f"loop A/B (bench.py loop_ab on the LM, {sleep_s * 1e3:.2f} ms "
+              f"of sleep per batch = its step, steps {LOOP_AB_FROM + 1}-"
+              f"{LOOP_AB_STEPS}): sync {walls['sync']:.3f} s, async "
+              f"{walls['async']:.3f} s, {ab:.3f}x (gate {LOOP_AB_GATE}x)",
+              flush=True)
+        if ab < LOOP_AB_GATE:
+            fail(f"async loop only {ab:.3f}x the synchronous one: {loop}")
+        res["loop"] = loop
+    finally:
+        optmod.CompiledTrainStep.__call__ = real_call
+        optmod.LocalOptimizer._build_step_fn = real_build
+        torch.backends.cudnn.deterministic = deterministic
+        os.environ.pop("BIGDL_TPU_SYNC_LOOP", None)
+        if prev_loop is not None:
+            os.environ["BIGDL_TPU_SYNC_LOOP"] = prev_loop
     return res
 
 
@@ -3879,6 +4412,10 @@ def main():
 
     # ------------------------------------------------------ 9. checkpoint
     ckpt = checkpoint_phase(args, card)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 10. recipe
+    recipe = recipe_phase(args, card)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -3895,7 +4432,7 @@ def main():
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
-         "width12": width12},
+         "recipe": recipe, "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -3918,7 +4455,11 @@ def main():
                 "serve": serve_launches[name],
                 "train_step_remat_on": step_launches[True][name],
                 "train_step_remat_off": step_launches[False][name],
-                "optimize": opt_launches[name]},
+                "optimize": opt_launches[name],
+                "resnet_train_per_step":
+                    recipe["recipe"]["launches_per_step"][name],
+                "accum4_per_step":
+                    recipe["accumulation"]["launches_per_step"][name]},
             "width_12": [{k: r[k] for k in ("shape", "dtype", "launches",
                                             "copies", "max_abs_err")}
                          for r in width12 if r["kernel"] == name],

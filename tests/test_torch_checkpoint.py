@@ -18,6 +18,9 @@ package's synchronous loop (bigdl_tpu/optim/optimizer.py:476-581,
 - A non-finite loss restores the latest checkpoint (every tree, the
   optimizer state included) and the run goes on; with no checkpoint, or
   once ``max_retry`` is used up, the error is raised again.
+- The resume and retry cases run under both loops: the async one (the
+  default: its checkpoints written by the background writer, a NaN read
+  up to one window late) and ``BIGDL_TPU_SYNC_LOOP=1``.
 - ``_latest_ckpt`` ignores a leftover ``model.npz.tmp``; without
   overwrite each run writes into a timestamped directory; ``request_stop``
   writes the iteration it stopped at; ``restore_cursor`` gives the JAX
@@ -44,6 +47,14 @@ from bigdl_tpu_torch.optim import SGD, Adam, Optimizer, Trigger
 from bigdl_tpu_torch.utils import flatten, load_pytree, random_variables
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(params=["async", "sync"])
+def loop(request, monkeypatch):
+    """The loop a test runs: the async engine or BIGDL_TPU_SYNC_LOOP=1."""
+    monkeypatch.setenv("BIGDL_TPU_SYNC_LOOP",
+                       "1" if request.param == "sync" else "0")
+    return request.param
 
 
 def _conv(nn):
@@ -109,7 +120,7 @@ def _bit_equal(a, b):
 
 
 @pytest.mark.parametrize("kind", ["conv_sgd", "lm_adam_dropout"])
-def test_resumed_run_equals_the_uninterrupted_one(tmp_path, kind):
+def test_resumed_run_equals_the_uninterrupted_one(tmp_path, kind, loop):
     full = _run(kind, 7, tmp_path / "full")
     # stopped at iteration 4 (epoch 1, one batch into it), resumed to 7
     _run(kind, 4, tmp_path / "part")
@@ -213,7 +224,8 @@ def _nan_run(tmp_path, calls, ckpt=True, max_retry=5):
     return opt
 
 
-def test_a_nan_step_retries_from_the_latest_checkpoint(tmp_path, caplog):
+def test_a_nan_step_retries_from_the_latest_checkpoint(tmp_path, caplog,
+                                                      loop):
     opt = _nan_run(tmp_path, [4])  # the step after the iteration-2 write
     with caplog.at_level("WARNING", logger="bigdl_tpu_torch.optim"):
         opt.optimize()
@@ -228,7 +240,8 @@ def test_a_nan_step_retries_from_the_latest_checkpoint(tmp_path, caplog):
         assert all(np.isfinite(a).all() for a in _leaves(blob[tree]).values())
 
 
-def test_a_nan_step_raises_without_a_checkpoint_or_retries(tmp_path):
+def test_a_nan_step_raises_without_a_checkpoint_or_retries(tmp_path,
+                                                          loop):
     with pytest.raises(FloatingPointError):
         _nan_run(tmp_path / "none", [4], ckpt=False).optimize()
     with pytest.raises(FloatingPointError):  # before the first checkpoint

@@ -27,7 +27,8 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "models.transformer_train", "nn.quantized", "ops.int8_matmul",
               "utils.serialization", "optim.prediction_service",
               "ops.paged_kv", "nn.beam_search", "serving.paging",
-              "serving.decode"):
+              "serving.decode", "dataset.prefetch", "optim.schedules",
+              "optim.metrics", "models.resnet_train", "models.resnet"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

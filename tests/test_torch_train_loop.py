@@ -119,10 +119,50 @@ def test_optimizer_defaults_to_the_card():
                         tnn.ClassNLLCriterion(logits=True))
 
 
-def test_only_the_all_method_is_ported():
-    _, tm = _models()
+@pytest.mark.parametrize("loop", ["async", "sync"])
+def test_several_methods_by_key_match_jax(monkeypatch, loop):
+    """``set_optim_methods`` with top-level keys: the conv ("0") with
+    LARS, the Linear ("4") with Adam, the BatchNorm ("1") with no method
+    (it keeps its weights); each method's state is its subtree's, the
+    rates go in sorted order, and the run matches JAX's, whose loop runs
+    the same way (async or synchronous)."""
+    from bigdl_tpu.optim import Adam as JaxAdam, LarsSGD as JaxLars
+    from bigdl_tpu_torch.optim import Adam, LarsSGD
+    from bigdl_tpu_torch.utils import export_opt_state
+
+    jm, tm = _models()
+    v = random_variables(jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(0))), 4)
     x, y = _data()
-    opt = Optimizer.apply(tm, DataSet.from_arrays(x, y, batch_size=4),
-                          tnn.ClassNLLCriterion(logits=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="__all__"):
-        opt.set_optim_methods({"0": SGD(0.1)})
+    monkeypatch.setenv("BIGDL_TPU_SYNC_LOOP", "1" if loop == "sync" else "0")
+    jopt = (JaxLocalOptimizer(jm, JaxDataSet.from_arrays(x, y, batch_size=4),
+                              jnn.ClassNLLCriterion(logits=True),
+                              JaxTrigger.max_iteration(4))
+            .set_optim_methods({"0": JaxLars(0.1, weight_decay=1e-3),
+                                "4": JaxAdam(1e-2)})
+            .set_initial_variables(v))
+    jopt.optimize()
+    topt = (Optimizer.apply(tm, DataSet.from_arrays(x, y, batch_size=4),
+                            tnn.ClassNLLCriterion(logits=True),
+                            end_trigger=Trigger.max_iteration(4),
+                            device="cpu")
+            .set_optim_methods({"0": LarsSGD(0.1, weight_decay=1e-3),
+                                "4": Adam(1e-2)})
+            .set_initial_variables(v))
+    topt.optimize()
+    want = flatten(jax.tree_util.tree_map(np.asarray, jopt.final_params))
+    assert topt.final_params.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_allclose(topt.final_params[k].numpy(), w,
+                                   err_msg=k, **TOL)
+    for k in ("1.weight", "1.bias"):  # owned by no method
+        np.testing.assert_array_equal(topt.final_params[k].numpy(),
+                                      flatten(v["params"])[k])
+    # a method's state nests as JAX's {name: subtree}
+    opt_states = {name: m.init_state({k: p for k, p in
+                                      topt.final_params.items()
+                                      if k.split(".")[0] == name})
+                  for name, m in topt.optim_methods.items()}
+    tree = export_opt_state(tm, opt_states["4"], "4")
+    assert set(tree) == {"m", "v"} and set(tree["m"]) == {"4"}
+    assert set(tree["m"]["4"]) == {"weight", "bias"}
