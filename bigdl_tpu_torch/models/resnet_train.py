@@ -9,10 +9,16 @@ epochs to maxLr 3.2, poly decay, LARS, zero-gamma residual BatchNorm):
 trains ``ResNet`` with the recipe's schedule and method in bf16 compute
 on the async loop, validating Top1 and Top5 every epoch, on the card
 unless ``--device cpu``.  ``--fused`` runs each bottleneck on kernels
-1-5.  The data is ``synthetic_imagenet`` (at 32x32 for
-``--dataset cifar10``); ``--folder`` (the sharded TFRecord and CIFAR
-readers) and ``--streaming`` are not ported yet and raise
-``NotImplementedError``.
+1-5.  ``--folder DIR`` reads ``DIR/train-*`` and ``DIR/validation-*``
+shards (TFRecord, or SequenceFile by the ``.seq`` extension; cached in
+host memory, or streamed with ``--streaming``) for ``--dataset
+imagenet``, and the CIFAR-10 batches under ``DIR`` for ``--dataset
+cifar10``; without it ``synthetic_imagenet`` stands in (at 32x32 for
+cifar10).  ``--summary DIR`` writes the training scalars, ``--checkpoint
+DIR`` (local or remote) a checkpoint every epoch:
+
+    python -m bigdl_tpu_torch.models.resnet_train --fused -b 256 \\
+        --folder shards/ --streaming --summary logs/ --checkpoint ckpt/
 """
 from __future__ import annotations
 
@@ -23,8 +29,10 @@ import torch
 
 from bigdl_tpu_torch import nn, optim
 from bigdl_tpu_torch.dataset import DataSet
+from bigdl_tpu_torch.dataset.sharded import imagenet_tfrecord_dataset
 from bigdl_tpu_torch.models.resnet import ResNet
-from bigdl_tpu_torch.models.train_utils import (base_parser, configure,
+from bigdl_tpu_torch.models.train_utils import (base_parser,
+                                                cifar10_datasets, configure,
                                                 init_logging,
                                                 report_validation,
                                                 synthetic_imagenet)
@@ -84,21 +92,26 @@ def main(argv: Optional[list] = None) -> dict:
                    help="each bottleneck on the fused conv+BN kernels "
                         "(imagenet bottleneck depths)")
     p.add_argument("--streaming", action="store_true",
-                   help="stream shards (not ported yet)")
+                   help="stream shards instead of caching their records in "
+                        "host memory (full-ImageNet scale)")
     args = p.parse_args(argv)
-    if args.folder or args.streaming:
-        raise NotImplementedError(
-            "--folder and --streaming need the sharded TFRecord reader "
-            "(bigdl_tpu/dataset/sharded.py) and the CIFAR reader "
-            "(bigdl_tpu/dataset/cifar.py), which are not ported yet; "
-            "without them the driver trains on synthetic data")
 
-    n = args.syntheticSize or 1024
-    res = args.imageSize if args.dataset == "imagenet" else 32
-    x, y = synthetic_imagenet(n, res, args.classNum)
-    xv, yv = synthetic_imagenet(n // 4, res, args.classNum, 1)
-    train_ds = DataSet.from_arrays(x, y, batch_size=args.batchSize)
-    val_ds = DataSet.from_arrays(xv, yv, batch_size=args.batchSize)
+    if args.folder and args.dataset == "cifar10":
+        train_ds, val_ds = cifar10_datasets(args.folder, args.batchSize)
+    elif args.folder:
+        train_ds = imagenet_tfrecord_dataset(
+            args.folder, "train", args.batchSize, args.imageSize,
+            cache=not args.streaming)
+        val_ds = imagenet_tfrecord_dataset(
+            args.folder, "validation", args.batchSize, args.imageSize,
+            cache=not args.streaming)
+    else:
+        n = args.syntheticSize or 1024
+        res = args.imageSize if args.dataset == "imagenet" else 32
+        x, y = synthetic_imagenet(n, res, args.classNum)
+        xv, yv = synthetic_imagenet(n // 4, res, args.classNum, 1)
+        train_ds = DataSet.from_arrays(x, y, batch_size=args.batchSize)
+        val_ds = DataSet.from_arrays(xv, yv, batch_size=args.batchSize)
 
     # zero gamma on the last BatchNorm of each residual block is part of
     # the recipe (models/resnet.py builds it)

@@ -9,7 +9,8 @@ clipping by the global L2 norm, bf16 compute, validation every epoch and
 a final perplexity, on the card unless ``--device cpu``.  Every attention
 forward runs the flash kernel (``csrc/flash_attention.cu``).
 ``--folder`` expects ``ptb.train.txt``/``ptb.valid.txt`` (one sentence
-per line); without it a synthetic Zipf corpus stands in.  Pipeline,
+per line); without it a synthetic Zipf corpus stands in.  ``--summary
+DIR`` writes the training scalars to a TensorBoard event file.  Pipeline,
 expert, tensor and sequence parallelism (``--pp/--ep/--tp/--sp``,
 ``--moeExperts``) are not ported yet and raise ``NotImplementedError``.
 """

@@ -86,8 +86,18 @@ iteration with a final checkpoint.  After each validation a schedule
 with ``record`` (``Plateau``) gets the score.  :func:`evaluate` runs
 validation methods over one pass of a dataset and :func:`predict` yields
 the outputs batch by batch, through one compiled forward per model and
-input shape (JAX's ``_jit_forward``, optimizer.py:1098-1144).  Numerics,
-telemetry, summaries and remote checkpoint paths are not ported yet.
+input shape (JAX's ``_jit_forward``, optimizer.py:1098-1144).
+
+Checkpoint directories and files go through ``utils/file_io.py``, so a
+checkpoint path may be remote (``gs://``, ``memory://``; fsspec).
+``set_train_summary``/``set_val_summary`` write TensorBoard scalars
+(optimizer.py:161-166, 770-772, 928-954, 981-982): ``Loss`` against
+its own iteration (the async loop writes it when the loss is read, the
+synchronous loop after each step), ``Throughput`` and ``LearningRate``
+every iteration, the ``Parameters`` histogram (a subsample of the
+parameters, reduced on the device) when its trigger fires, and each
+validation method's score.  Numerics (``GradNorm``/``UpdateRatio``) and
+telemetry are not ported yet.
 """
 from __future__ import annotations
 
@@ -116,11 +126,11 @@ from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult, _numpy)
-from bigdl_tpu_torch.utils import graphs
+from bigdl_tpu_torch.utils import file_io, graphs
 from bigdl_tpu_torch.utils.convert import (export_opt_state,
                                            export_variables, flatten,
                                            load_jax_variables)
-from bigdl_tpu_torch.utils.serialization import (_local, load_pytree,
+from bigdl_tpu_torch.utils.serialization import (load_pytree,
                                                  save_pytree)
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
@@ -393,6 +403,8 @@ class Optimizer:
         self.val_methods: List[ValidationMethod] = []
         self.checkpoint_path: Optional[str] = None
         self.checkpoint_trigger: Optional[Trigger] = None
+        self.train_summary = None
+        self.val_summary = None
         self.overwrite_checkpoint = True
         self.accum_steps = 1
         self.max_retry = 5
@@ -446,10 +458,22 @@ class Optimizer:
         return self
 
     def set_checkpoint(self, path: str, trigger: Trigger) -> "Optimizer":
-        """Write a checkpoint under the local directory ``path`` whenever
-        ``trigger`` fires after an iteration."""
+        """Write a checkpoint under the directory ``path`` (local or
+        remote) whenever ``trigger`` fires after an iteration."""
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger
+        return self
+
+    def set_train_summary(self, summary) -> "Optimizer":
+        """Write the loop's training scalars to ``summary`` (a
+        ``visualization.TrainSummary``)."""
+        self.train_summary = summary
+        return self
+
+    def set_val_summary(self, summary) -> "Optimizer":
+        """Write each validation method's score to ``summary`` (a
+        ``visualization.ValidationSummary``)."""
+        self.val_summary = summary
         return self
 
     def over_write_checkpoint(self, overwrite: bool = True) -> "Optimizer":
@@ -605,6 +629,7 @@ class LocalOptimizer(Optimizer):
         self._last_failure = 0.0
         self._log_t0 = time.perf_counter()
         self._log_records = 0
+        self._last_throughput = 0.0
         prefetcher = None
         if self._sync_loop:
             data_iter = self.dataset.data(train=True)
@@ -669,18 +694,19 @@ class LocalOptimizer(Optimizer):
     # -- checkpoints (bigdl_tpu/optim/optimizer.py:529-581, 616-676,
     # 989-1096) --------------------------------------------------------
     def _prepare_ckpt_dir(self) -> Optional[str]:
-        """The run's checkpoint directory, made: ``checkpoint_path``
-        itself when overwriting, else a timestamped subdirectory."""
+        """The run's checkpoint directory, made (through ``file_io``):
+        ``checkpoint_path`` itself when overwriting, else a timestamped
+        subdirectory."""
         if not self.checkpoint_path:
             return None
-        d = _local(self.checkpoint_path)
+        d = self.checkpoint_path
         if not self.overwrite_checkpoint:
-            d = os.path.join(d, time.strftime("%Y%m%d_%H%M%S"))
-        os.makedirs(d, exist_ok=True)
+            d = file_io.join(d, time.strftime("%Y%m%d_%H%M%S"))
+        file_io.makedirs(d)
         return d
 
     def _ckpt_file(self, d: str, it: int) -> str:
-        return os.path.join(d, "model" if self.overwrite_checkpoint
+        return file_io.join(d, "model" if self.overwrite_checkpoint
                             else f"model.{it}")
 
     @staticmethod
@@ -688,13 +714,13 @@ class LocalOptimizer(Optimizer):
         """The newest checkpoint in ``d`` (without ``.npz``), or ``None``:
         only ``model.npz`` and ``model.<iteration>.npz`` count, so a
         temporary file left by a killed write is ignored."""
-        names = [f for f in os.listdir(d)
+        names = [f for f in file_io.listdir(d)
                  if re.fullmatch(r"model(\.\d+)?\.npz", f)]
         if not names:
             return None
         latest = max(names, key=lambda f: int(f.split(".")[1])
                      if f.count(".") > 1 else 1 << 60)
-        return os.path.join(d, latest[:-len(".npz")])
+        return file_io.join(d, latest[:-len(".npz")])
 
     def _blob(self, model, params, model_state, opt_states, driver_state):
         """The checkpoint blob, each tree in JAX's nesting."""
@@ -908,6 +934,9 @@ class LocalOptimizer(Optimizer):
             return
         for method, res in results:
             logger.info("%s is %s", method.name, res)
+            if self.val_summary is not None:
+                self.val_summary.add_scalar(method.name, res.result()[0],
+                                            loop_state["neval"])
         loop_state["score"] = results[0][1].result()[0]
         for m in self.optim_methods.values():
             record = getattr(m.schedule, "record", None)
@@ -929,6 +958,9 @@ class LocalOptimizer(Optimizer):
                     f"loss diverged: {loss} (iteration {it}, detected at "
                     f"iteration {loop_state['neval']})")
             loop_state["loss"] = loss
+            if self.train_summary is not None:
+                # against its own iteration, not the one it was read at
+                self.train_summary.add_scalar("Loss", loss, it)
 
     def _one_iteration(self, step_fn, trees, loop_state, data_iter,
                        batches_per_epoch, wall_start):
@@ -984,6 +1016,7 @@ class LocalOptimizer(Optimizer):
                 throughput = self._log_records / max(now - self._log_t0,
                                                      1e-9)
                 self._log_t0 = now
+                self._last_throughput = throughput
             self._log_records = 0
             metrics.set_value("throughput", round(throughput, 1))
             logger.info(
@@ -995,4 +1028,25 @@ class LocalOptimizer(Optimizer):
                 batches_per_epoch * n_records, it,
                 time.time() - wall_start, throughput, loop_state["loss"],
                 metrics.summary())
+        if self.train_summary is not None:
+            self._write_summary(params, loop_state, n_records)
         return params, model_state, opt_states
+
+    def _write_summary(self, params, loop_state, n_records):
+        """The iteration's training scalars (optimizer.py:928-954): the
+        sync loop's Loss, Throughput (the sync loop's step, the async
+        loop's rate at its last log line), the first method's
+        LearningRate, and the Parameters histogram when it is due."""
+        summary, it = self.train_summary, loop_state["neval"]
+        if self._sync_loop:
+            summary.add_scalar("Loss", loop_state["loss"], it)
+            throughput = n_records / max(self.metrics.get("compute"), 1e-9)
+        else:
+            throughput = self._last_throughput
+        summary.add_scalar("Throughput", throughput, it)
+        summary.add_scalar(
+            "LearningRate",
+            sorted(self.optim_methods.items())[0][1].current_rate(), it)
+        maybe = getattr(summary, "maybe_add_parameters", None)
+        if maybe is not None:
+            maybe(params, it)

@@ -8,30 +8,27 @@ uint8 array) beside the structure and the path -> array index.  The
 layout is the reference's byte for byte, so a file written by either
 package loads in the other.
 
-Local paths only (``file://`` is stripped).  A remote scheme such as
-``gs://`` or ``memory://`` raises ``NotImplementedError``: the JAX
-package routes those through utils/file_io.py, which is not ported yet.
+A path may carry a scheme (``gs://``, ``s3://``, ``memory://``, ...):
+it goes through ``utils/file_io.py`` (fsspec, imported only for such a
+path).  A local file is written through a temporary file and an atomic
+rename, streamed, with no copy of the whole archive in host memory.
+:func:`save_model`/:func:`load_model` keep the JAX package's model blob,
+``{"class": <class name>, "variables": {"params", "state"}}``, so a
+model file from either package loads in the other.
 """
 from __future__ import annotations
 
 import io
 import json
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["dumps_pytree", "loads_pytree", "save_pytree", "load_pytree"]
+from bigdl_tpu_torch.utils import file_io
 
-
-def _local(path: str) -> str:
-    if path.startswith("file://"):
-        return path[len("file://"):]
-    if "://" in path:
-        raise NotImplementedError(
-            f"{path}: remote paths go through utils/file_io.py, which is "
-            "not ported yet; use a local path")
-    return path
+__all__ = ["dumps_pytree", "load_model", "load_pytree", "loads_pytree",
+           "save_model", "save_pytree"]
 
 
 def _flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -111,11 +108,15 @@ def loads_pytree(data: bytes) -> Any:
 
 def save_pytree(path: str, tree: Any) -> None:
     """Save a pytree of arrays/scalars (plus plain python values under
-    string keys) to ``path`` (``.npz`` appended if missing), through a
-    temporary file and an atomic rename."""
+    string keys) to ``path`` (``.npz`` appended if missing): a local
+    file through a temporary file and an atomic rename, a remote one in
+    one put."""
     if not path.endswith(".npz"):
         path = path + ".npz"
-    path = _local(path)
+    if file_io.is_remote(path):
+        file_io.write_bytes(path, dumps_pytree(tree, compress=False))
+        return
+    path = file_io.strip_file_scheme(path)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:  # a file object: savez appends no suffix
@@ -126,5 +127,30 @@ def save_pytree(path: str, tree: Any) -> None:
 def load_pytree(path: str) -> Any:
     if not path.endswith(".npz"):
         path = path + ".npz"
-    with open(_local(path), "rb") as f:
-        return loads_pytree(f.read())
+    return loads_pytree(file_io.read_bytes(path))
+
+
+def save_model(path: str, module, variables: Optional[Dict[str, Any]] = None
+               ) -> None:
+    """Save a model's variables with its class name (BigDL's
+    ``Module.saveModule``; bigdl_tpu/utils/serialization.py:136-140).
+    ``variables`` is a JAX-shaped ``{"params", "state"}`` tree; by
+    default the module's own, exported by ``export_variables``."""
+    if variables is None:
+        from bigdl_tpu_torch.utils.convert import export_variables
+
+        variables = export_variables(module)
+    save_pytree(path, {"class": type(module).__name__,
+                       "variables": variables})
+
+
+def load_model(path: str, module=None) -> Dict[str, Any]:
+    """The blob :func:`save_model` wrote (either package's), with its
+    ``variables``; given a freshly built ``module``, those variables are
+    loaded into it by name (``load_jax_variables``) as well."""
+    blob = load_pytree(path)
+    if module is not None:
+        from bigdl_tpu_torch.utils.convert import load_jax_variables
+
+        load_jax_variables(module, blob["variables"])
+    return blob

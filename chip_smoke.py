@@ -193,7 +193,21 @@ Phases:
    from the background-written checkpoint in the same capture (the
    loop's stall per checkpoint printed), and bench.py loop_ab's A/B on
    the LM with a sleep per batch equal to its step: the async loop at
-   least 1.3x the synchronous one.
+   least 1.3x the synchronous one;
+11. data: 1024 + 256 seeded 224 px images written into 8 + 2 TFRecord
+   shards under build/ by write_image_shards (the port's C++ record
+   library built by g++ and loaded; count_tfrecords and every CRC
+   checked; the threaded reader's records/s and MB/s), then phase 10's
+   recipe with --folder in place of --syntheticSize, --summary and
+   --checkpoint --overwrite, cached and then --streaming, on the async
+   loop: one capture launching kernels 1-5 72/36/36/26/13 times a step,
+   finite losses, the recipe's rates, each cached epoch every record
+   once, the event file's Loss/Throughput/LearningRate at each
+   iteration, the checkpoint equal to the final trees, and
+   save_model/load_model of the trained model giving a bit-equal forward
+   on 32 validation images; ms per step, the producer's data, the loop's
+   data_stall, the time to the first batch and the peak RSS of both
+   modes beside phase 10's step on arrays.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -3288,6 +3302,342 @@ def recipe_phase(args, card, dev="cuda"):
     return res
 
 
+# the recipe on data files: TFRecord shards written here, read cached and
+# streamed, with TensorBoard summaries, checkpoints and a model file
+DATA_TRAIN, DATA_VAL = 1024, 256      # records: 4 steps of 256 an epoch
+DATA_SHARDS = (8, 2)                  # train, validation
+DATA_DIR = ROOT / "build" / "data_phase"
+
+
+def _tagged_images(n, res, rs, first=0):
+    """Seeded uint8 images whose pixel (0, 0) carries the record's index
+    in its first two channels, so a batch names its records."""
+    x = rs.randint(0, 256, (n, res, res, 3)).astype("uint8")
+    idx = [first + i for i in range(n)]
+    x[:, 0, 0, 0] = [i % 256 for i in idx]
+    x[:, 0, 0, 1] = [i // 256 for i in idx]
+    return x
+
+
+def _record_ids(features):
+    """The record indices a batch of normalized images carries (the
+    inverse of make_image_parser's (x / 255 - mean) / std at pixel 0, 0)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.sharded import _IMAGENET_MEAN, _IMAGENET_STD
+
+    p = np.rint((np.asarray(features)[:, 0, 0, :2] * _IMAGENET_STD[:2]
+                 + _IMAGENET_MEAN[:2]) * 255).astype(int)
+    return (p[:, 0] + 256 * p[:, 1]).tolist()
+
+
+def data_phase(args, card, synthetic, dev="cuda"):
+    """Phase 11: the recipe of phase 10 on data files.  DATA_TRAIN and
+    DATA_VAL seeded RECIPE_RES-px images go into DATA_SHARDS TFRecord
+    shards under build/ (``write_image_shards``): ``native_available()``,
+    ``count_tfrecords`` and every record's CRC checked, and the threaded
+    reader's records/s and MB/s timed.  Then ``resnet_train.main`` with
+    ``--folder`` in place of ``--syntheticSize``, ``--summary`` and
+    ``--checkpoint --overwrite``, cached and then ``--streaming``, on the
+    async loop: one capture launching kernels 1-5 72/36/36/26/13 times
+    per step, finite losses, the recipe's learning rates, each cached
+    epoch every record once, the event file's Loss, Throughput and
+    LearningRate at each iteration, the checkpoint equal to the final
+    trees, and ``save_model``/``load_model`` of the trained model giving
+    a bit-equal forward on a validation batch.  ms per step, the
+    producer's ``data``, the loop's ``data_stall``, the time to the first
+    batch and the host's peak RSS of both modes are printed beside phase
+    10's step on arrays (``synthetic``).  The shards, event files and
+    checkpoints are removed at the end.  ``dev="cpu"`` serves a rehearsal
+    with the sizes shrunk: the plain versions run there, so it checks no
+    launches.  Returns the results."""
+    import resource
+    import types
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.dataset import record_io
+    from bigdl_tpu_torch.dataset import sharded as tsh
+    from bigdl_tpu_torch.models import ResNet, resnet_train
+    from bigdl_tpu_torch.ops import fused_matmul as fm
+    from bigdl_tpu_torch.optim import optimizer as optmod
+    from bigdl_tpu_torch.utils import (export_variables, flatten, load_model,
+                                       load_pytree, save_model)
+    from bigdl_tpu_torch.visualization import read_events
+
+    print(f"data phase on {card}", flush=True)
+    if not record_io.native_available():
+        fail("record_io: the C++ reader did not build or load (g++)")
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    shards = DATA_DIR / "shards"
+    rs = np.random.RandomState(args.seed + 40)
+    t0 = time.perf_counter()
+    written = {}
+    for split, n, k, first in (("train", DATA_TRAIN, DATA_SHARDS[0], 0),
+                               ("validation", DATA_VAL, DATA_SHARDS[1],
+                                DATA_TRAIN)):
+        images = _tagged_images(n, RECIPE_RES, rs, first)
+        written[split] = tsh.write_image_shards(
+            str(shards), images, rs.randint(0, 1000, n), k, split)
+    write_s = time.perf_counter() - t0
+    counts = {s: sum(tsh.count_tfrecords(p) for p in ps)
+              for s, ps in written.items()}
+    if counts != {"train": DATA_TRAIN, "validation": DATA_VAL}:
+        fail(f"count_tfrecords: {counts}")
+    # every record's CRCs by the sequential reader; the C++ CRC against
+    # the pure-Python one on one record
+    t0 = time.perf_counter()
+    crc_records = sum(1 for ps in written.values() for p in ps
+                      for _ in record_io.read_tfrecords(p))
+    crc_s = time.perf_counter() - t0
+    rec = next(record_io.read_tfrecords(written["train"][0]))
+    if crc_records != DATA_TRAIN + DATA_VAL or record_io.masked_crc32c(
+            rec) != record_io.py_masked_crc32c(rec):
+        fail(f"CRC check: {crc_records} records read")
+    train_bytes = sum(os.path.getsize(p) for p in written["train"])
+    t0 = time.perf_counter()
+    reader = record_io.PrefetchingRecordReader(written["train"])
+    got = sum(1 for _ in reader)
+    read_s = time.perf_counter() - t0
+    crc_errors = reader.crc_errors
+    reader.close()
+    parse = tsh.make_image_parser(RECIPE_RES)
+    recs = list(record_io.read_tfrecords(written["train"][0]))
+    t0 = time.perf_counter()
+    for r in recs:
+        parse(r)
+    parse_ms = (time.perf_counter() - t0) / len(recs) * 1e3
+    if got != DATA_TRAIN or crc_errors:
+        fail(f"threaded reader: {got} records, {crc_errors} CRC errors")
+    res = {"write_s": write_s, "records": counts, "train_bytes": train_bytes,
+           "crc_check_s": crc_s,
+           "reader": {"records_per_s": got / read_s,
+                      "mb_per_s": train_bytes / read_s / 1e6,
+                      "threads": 4, "seconds": read_s},
+           "parse_ms_per_record": parse_ms}
+    print(f"shards: {DATA_TRAIN} + {DATA_VAL} records of {RECIPE_RES}x"
+          f"{RECIPE_RES}x3 uint8 in {DATA_SHARDS[0]} + {DATA_SHARDS[1]} "
+          f"TFRecord files ({train_bytes / 1e6:.1f} MB of train) written in "
+          f"{write_s:.2f} s; every CRC checked ({crc_s:.2f} s); the threaded "
+          f"reader {res['reader']['records_per_s']:.0f} records/s, "
+          f"{res['reader']['mb_per_s']:.0f} MB/s over the train shards; "
+          f"make_image_parser {parse_ms:.3f} ms a record", flush=True)
+
+    prev_loop = os.environ.pop("BIGDL_TPU_SYNC_LOOP", None)
+    calls, opts, seen = [], [], {"ids": [], "first_s": []}
+    real_call = optmod.CompiledTrainStep.__call__
+    real_build = optmod.LocalOptimizer._build_step_fn
+    real_data = tsh.ShardedFileDataSet.data
+    real_load = tsh.ShardedFileDataSet._load
+
+    def call(self, *a):
+        out = real_call(self, *a)
+        ev = None
+        if dev == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        calls.append({"lrs": list(a[7]), "loss": out[3].detach().clone(),
+                      "event": ev})
+        return out
+
+    def build(self, model):
+        opts.append(self)
+        return real_build(self, model)
+
+    def data(self, train):
+        """The training stream, recorded: the records of each batch and
+        the time to the first batch."""
+        t_start = time.perf_counter()
+        for i, b in enumerate(real_data(self, train)):
+            if train:
+                if i == 0:
+                    seen["first_s"].append(time.perf_counter() - t_start)
+                seen["ids"].append(_record_ids(b.get_input()))
+            yield b
+
+    def load(self):
+        """The cached mode's parse of every local record, timed."""
+        first = self._records is None
+        t_start = time.perf_counter()
+        real_load(self)
+        if first:
+            seen.setdefault("load_s", []).append(
+                time.perf_counter() - t_start)
+
+    def step_ms(recs):
+        if dev != "cuda" or len(recs) < 2:
+            return float("nan")
+        torch.cuda.synchronize()
+        return statistics.median(a["event"].elapsed_time(b["event"])
+                                 for a, b in zip(recs, recs[1:]))
+
+    recipe_args = types.SimpleNamespace(
+        learningRate=0.1, maxLr=3.2, warmupEpoch=1, maxEpoch=2,
+        momentum=0.9, weightDecay=1e-4, optim="lars")
+    ref = resnet_train.make_recipe_optim(recipe_args, RECIPE_ITERS_PER_EPOCH)
+    want_lrs = []
+    for n in range(2 * RECIPE_ITERS_PER_EPOCH):
+        ref.state["neval"] = n
+        ref.state["epoch"] = n // RECIPE_ITERS_PER_EPOCH
+        want_lrs.append(ref.current_rate())
+    argv = list(RECIPE_ARGV)
+    at = argv.index("--syntheticSize")
+    argv[at:at + 2] = ["--folder", str(shards)]
+    ckpt = DATA_DIR / "ckpt"
+    optmod.CompiledTrainStep.__call__ = call
+    optmod.LocalOptimizer._build_step_fn = build
+    tsh.ShardedFileDataSet.data = data
+    tsh.ShardedFileDataSet._load = load
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for mode in ("cached", "streaming"):
+            logs = DATA_DIR / f"logs_{mode}"
+            run_argv = argv + ["--summary", str(logs), "--checkpoint",
+                               str(ckpt), "--overwrite"] + (
+                ["--streaming"] if mode == "streaming" else [])
+            calls.clear()
+            opts.clear()
+            seen["ids"].clear()
+            seen["first_s"].clear()
+            seen["load_s"] = []
+            fm.reset_launches()
+            t0 = time.perf_counter()
+            top = resnet_train.main(run_argv)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            opt = opts[-1]
+            step = opt.train_step
+            m = opt.metrics
+            losses = [c["loss"].item() for c in calls]
+            got_lrs = [c["lrs"][0] for c in calls]
+            r = {"argv": run_argv, "seconds": main_s, "result": top,
+                 "captures": step.captures, "replays": step.replays,
+                 "losses": losses, "lrs": got_lrs,
+                 "ms_per_step": step_ms(calls[RECIPE_ITERS_PER_EPOCH:]),
+                 "data_ms": m.get("data") * 1e3,
+                 "data_ms_last": m.last("data") * 1e3,
+                 "data_stall_ms": m.get("data_stall") * 1e3,
+                 "data_stall_ms_last": m.last("data_stall") * 1e3,
+                 "first_batch_s": seen["first_s"][0],
+                 "load_s": seen["load_s"],
+                 "peak_rss_bytes": resource.getrusage(
+                     resource.RUSAGE_SELF).ru_maxrss * 1024,
+                 "summary": m.summary()}
+            if dev == "cuda":
+                (graph,) = step.graphs.values()
+                r["launches_per_step"] = dict(graph.launches)
+                if step.captures != 1 or graph.launches != \
+                        STEP_LAUNCHES[True]:
+                    fail(f"{mode} folder recipe: {step.captures} captures, "
+                         f"launches per step {graph.launches} (expected "
+                         f"{STEP_LAUNCHES[True]})")
+            r["images_per_s"] = RECIPE_BATCH / r["ms_per_step"] * 1e3
+            if len(calls) != 2 * RECIPE_ITERS_PER_EPOCH or \
+                    got_lrs != want_lrs or not all(
+                        math.isfinite(v) for v in losses) or \
+                    set(top) != {"Top1Accuracy", "Top5Accuracy"}:
+                fail(f"{mode} folder recipe: {len(calls)} steps, lrs "
+                     f"{got_lrs} (want {want_lrs}), losses {losses}, "
+                     f"result {top}")
+            if mode == "cached":
+                # each epoch's batches: every record once
+                per_epoch = [sorted(i for b in seen["ids"][e:e + RECIPE_ITERS_PER_EPOCH]
+                                    for i in b)
+                             for e in (0, RECIPE_ITERS_PER_EPOCH)]
+                if any(ids != list(range(DATA_TRAIN)) for ids in per_epoch):
+                    fail("cached folder recipe: an epoch did not read every "
+                         "record once")
+                r["epochs_cover_every_record"] = True
+            # the event file: Loss, Throughput, LearningRate per iteration
+            tdir = logs / "resnet_train" / "train"
+            events = [e for f in sorted(os.listdir(tdir))
+                      for e in read_events(str(tdir / f))]
+            steps = list(range(1, 2 * RECIPE_ITERS_PER_EPOCH + 1))
+            tags = {tag: [e["step"] for e in events if e["tag"] == tag]
+                    for tag in ("Loss", "Throughput", "LearningRate")}
+            ev_loss = [e["value"] for e in events if e["tag"] == "Loss"]
+            if any(v != steps for v in tags.values()) or not np.allclose(
+                    ev_loss, losses, rtol=1e-6) or \
+                    (logs / "resnet_train" / "validation").exists():
+                fail(f"{mode} event file: steps {tags}, Loss {ev_loss} "
+                     f"against {losses}")
+            r["event_tags"] = sorted({e["tag"] for e in events if e["tag"]})
+            # the checkpoint: the final trees
+            blob = load_pytree(str(ckpt / "model"))
+            final = export_variables(opt.model, opt.final_params,
+                                     opt.final_state)
+            fp, bp = flatten(final["params"]), flatten(blob["params"])
+            if blob["driver_state"]["neval"] != 2 * RECIPE_ITERS_PER_EPOCH \
+                    or fp.keys() != bp.keys() or not all(
+                        np.array_equal(fp[k], bp[k]) for k in fp):
+                fail(f"{mode} checkpoint: not the final trees")
+            res[mode] = r
+            print(f"resnet_train.main({' '.join(run_argv)}): {main_s:.1f} s, "
+                  f"{top}; {step.captures} capture, launches per step "
+                  f"{r.get('launches_per_step')}; {r['ms_per_step']:.2f} ms "
+                  f"per step in epoch 2 ({r['images_per_s']:.1f} images/s; "
+                  f"phase 10 on arrays {synthetic['ms_per_step']:.2f}); "
+                  f"data {r['data_ms']:.2f} ms per batch on the prefetch "
+                  f"thread (the last {r['data_ms_last']:.2f}; phase 10 "
+                  f"{synthetic['data_ms']:.2f}), data_stall "
+                  f"{r['data_stall_ms']:.2f} ms (the last "
+                  f"{r['data_stall_ms_last']:.2f}); first batch after "
+                  f"{r['first_batch_s']:.2f} s (cached loads, train and "
+                  f"validation: {[round(v, 2) for v in r['load_s']]} s); "
+                  f"peak RSS "
+                  f"{r['peak_rss_bytes'] / 2**30:.2f} GiB; events "
+                  f"{r['event_tags']} at steps 1-{len(steps)}; checkpoint = "
+                  f"final trees; losses {[round(v, 4) for v in losses]}",
+                  flush=True)
+            if mode == "streaming":
+                continue
+            # the model file: the trained model's forward, bit for bit
+            torch.backends.cudnn.deterministic = True
+            path = str(DATA_DIR / "model")
+            t0 = time.perf_counter()
+            save_model(path, opt.model)
+            save_s = time.perf_counter() - t0
+            fresh = ResNet(class_num=1000, depth=50, fused=True, device=dev)
+            blob = load_model(path, fresh)
+            val = tsh.imagenet_tfrecord_dataset(
+                str(shards), "validation", 32, RECIPE_RES, process_id=0,
+                num_processes=1)
+            x = torch.from_numpy(next(iter(val.data(False))).get_input()).to(
+                dev)
+            with torch.no_grad():
+                opt.model.eval()
+                fresh.eval()
+                a, b = opt.model(x), fresh(x)
+            torch.backends.cudnn.deterministic = deterministic
+            same = torch.equal(a, b) and bool(torch.isfinite(a).all())
+            res["model_file"] = {"class": blob["class"], "save_s": save_s,
+                                 "bytes": os.path.getsize(path + ".npz"),
+                                 "forward_bit_equal": same}
+            print(f"save_model/load_model: {blob['class']}, "
+                  f"{res['model_file']['bytes']} bytes in {save_s:.2f} s; "
+                  f"the loaded model's forward on 32 validation images "
+                  f"bit-equal {same}", flush=True)
+            if not same:
+                fail("save_model/load_model: the forwards differ")
+            del fresh, a, b, x, blob, opt, step
+            opts.clear()
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        optmod.CompiledTrainStep.__call__ = real_call
+        optmod.LocalOptimizer._build_step_fn = real_build
+        tsh.ShardedFileDataSet.data = real_data
+        tsh.ShardedFileDataSet._load = real_load
+        torch.backends.cudnn.deterministic = deterministic
+        if prev_loop is not None:
+            os.environ["BIGDL_TPU_SYNC_LOOP"] = prev_loop
+        opts.clear()
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return res
+
+
 def tick_checks(model, rs):
     """The server's programs as a server uses them: TICK_SLOTS slots of
     TICK_LEN, prompts of 5 to 200 tokens prefilled in buckets and written
@@ -4416,6 +4766,10 @@ def main():
 
     # ---------------------------------------------------------- 10. recipe
     recipe = recipe_phase(args, card)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 11. data
+    data = data_phase(args, card, recipe["recipe"])
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -4432,7 +4786,7 @@ def main():
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
-         "recipe": recipe, "width12": width12},
+         "recipe": recipe, "data": data, "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -4459,7 +4813,11 @@ def main():
                 "resnet_train_per_step":
                     recipe["recipe"]["launches_per_step"][name],
                 "accum4_per_step":
-                    recipe["accumulation"]["launches_per_step"][name]},
+                    recipe["accumulation"]["launches_per_step"][name],
+                "resnet_folder_per_step":
+                    data["cached"]["launches_per_step"][name],
+                "resnet_folder_streaming_per_step":
+                    data["streaming"]["launches_per_step"][name]},
             "width_12": [{k: r[k] for k in ("shape", "dtype", "launches",
                                             "copies", "max_abs_err")}
                          for r in width12 if r["kernel"] == name],

@@ -1,5 +1,7 @@
 """bigdl_tpu_torch must run where there is no JAX: it imports neither
-``jax`` nor the JAX package, not even its numpy-only modules."""
+``jax`` nor the JAX package, not even its numpy-only modules.  Nor does
+it need ``fsspec`` (imported only for a remote path) or ``PIL`` to be
+imported."""
 import pkgutil
 import re
 import subprocess
@@ -9,7 +11,7 @@ from pathlib import Path
 import bigdl_tpu_torch
 
 PKG = Path(bigdl_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "bigdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "bigdl_tpu", "fsspec", "PIL")
 
 
 def _modules():
@@ -28,7 +30,11 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "utils.serialization", "optim.prediction_service",
               "ops.paged_kv", "nn.beam_search", "serving.paging",
               "serving.decode", "dataset.prefetch", "optim.schedules",
-              "optim.metrics", "models.resnet_train", "models.resnet"):
+              "optim.metrics", "models.resnet_train", "models.resnet",
+              "dataset.record_io", "dataset.sharded", "dataset.seqfile",
+              "dataset.cifar", "utils.file_io", "utils.protowire",
+              "visualization", "visualization.tensorboard",
+              "visualization.summary"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -45,9 +51,22 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
 
 def test_no_source_line_imports_jax_or_bigdl_tpu():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|bigdl_tpu)(\.|\s|$)")
+        r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|bigdl_tpu|PIL)"
+        r"(\.|\s|$)")
     hits = [f"{p.relative_to(PKG)}:{i}: {line.strip()}"
             for p in PKG.rglob("*.py")
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if pattern.match(line)]
     assert hits == []
+
+
+def test_fsspec_is_imported_only_inside_file_io_functions():
+    """fsspec is optional (the card's machine has none): only
+    utils/file_io.py imports it, inside the functions that take a remote
+    path."""
+    hits = [(p.relative_to(PKG).as_posix(), line)
+            for p in PKG.rglob("*.py")
+            for line in p.read_text().splitlines()
+            if re.match(r"^\s*(import|from)\s+fsspec(\.|\s|$)", line)]
+    assert hits and {f for f, _ in hits} == {"utils/file_io.py"}
+    assert all(line.startswith(" ") for _, line in hits)

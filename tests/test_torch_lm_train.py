@@ -261,7 +261,7 @@ def test_transformer_train_main_on_the_cpu():
 
 @pytest.mark.parametrize("argv,match", [
     (["--tp", "2"], "parallelism"), (["--moeExperts", "4"], "parallelism"),
-    (["--summary", "/nonexistent"], "summary")])
+    (["--sp", "2"], "parallelism")])
 def test_transformer_train_options_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         transformer_train.main(argv + [

@@ -9,7 +9,9 @@ models/resnet.py) against the JAX package's, on the CPU.
   poly from maxLr) equals JAX's, for LARS and SGD.
 - ``main`` on JAX's tiny recipe run (tests/test_train_drivers.py:20-31,
   ``--device cpu``) trains on the async loop and reports Top1 and Top5;
-  ``--folder``, ``--streaming`` and ``--summary`` raise.
+  with ``--folder`` (CIFAR-10 binary batches), ``--streaming`` (TFRecord
+  shards of an unfused depth-18 imagenet ResNet) and ``--summary`` it
+  trains from the files and writes the scalars.
 - ``synthetic_imagenet`` gives JAX's arrays; ``predict`` yields JAX's
   ``predict`` outputs batch by batch.
 """
@@ -101,11 +103,50 @@ def test_main_runs_the_recipe_on_the_cpu(caplog):
     assert set(jres) == set(res)
 
 
-@pytest.mark.parametrize("flag", [["--folder", "/nowhere"], ["--streaming"],
-                                  ["--summary", "/nowhere"]])
-def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError):
-        resnet_train.main(RECIPE + ["--device", "cpu"] + flag)
+@pytest.mark.parametrize("flag", [["--folder", "{cifar}"],
+                                  ["--streaming", "--folder", "{shards}"],
+                                  ["--summary", "{logs}"]])
+def test_unported_options_raise(flag, tmp_path, caplog):
+    """Once these options raised NotImplementedError; now each runs:
+    ``--folder`` reads CIFAR-10 binary batches written here (the cifar10
+    recipe), ``--streaming`` streams imagenet-layout TFRecord shards (an
+    unfused depth-18 imagenet ResNet at 32 px), ``--summary`` writes the
+    training scalars at every iteration."""
+    from bigdl_tpu_torch.dataset.sharded import write_image_shards
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    rs = np.random.RandomState(5)
+    cifar = tmp_path / "cifar"
+    cifar.mkdir()
+    for name, n in [(f"data_batch_{i}", 16) for i in range(1, 6)] + [
+            ("test_batch", 32)]:
+        recs = np.concatenate([rs.randint(0, 4, (n, 1)),
+                               rs.randint(0, 256, (n, 3072))], axis=1)
+        recs.astype(np.uint8).tofile(str(cifar / f"{name}.bin"))
+    shards = tmp_path / "shards"
+    for split, n, k in (("train", 32, 4), ("validation", 16, 2)):
+        write_image_shards(str(shards), rs.randint(0, 256, (n, 32, 32, 3)),
+                           rs.randint(0, 4, n), k, split)
+    paths = {"cifar": str(cifar), "shards": str(shards),
+             "logs": str(tmp_path / "logs")}
+    argv = RECIPE + ["--device", "cpu"] + [a.format(**paths) for a in flag]
+    if "--streaming" in flag:
+        argv += ["--dataset", "imagenet", "--depth", "18", "-b", "16"]
+    with caplog.at_level("INFO", logger="bigdl_tpu_torch.optim"):
+        res = resnet_train.main(argv)
+    assert set(res) == {"Top1Accuracy", "Top5Accuracy"}
+    assert 0.0 <= res["Top1Accuracy"] <= res["Top5Accuracy"] <= 1.0
+    iters = [m for m in (r.getMessage() for r in caplog.records)
+             if "[Iteration" in m]
+    # 80 cifar records at batch 32 or 32 streamed ones at 16: 2 batches an
+    # epoch; the synthetic 128: 4
+    want = 8 if "--summary" in flag else 4
+    assert f"[Iteration {want}]" in iters[-1], iters[-1]
+    if "--summary" in flag:
+        s = TrainSummary(paths["logs"], "resnet_train")
+        for tag in ("Loss", "Throughput", "LearningRate"):
+            assert [st for st, _ in s.read_scalar(tag)] == \
+                list(range(1, want + 1)), tag
 
 
 def test_synthetic_imagenet_and_predict_match_jax():
