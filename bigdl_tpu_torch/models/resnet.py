@@ -3,9 +3,11 @@ bigdl_tpu/models/resnet.py:82-202).
 
 The graph is built node for node as the JAX builder builds it, so the
 child keys, and with them the ``state_dict`` keys, equal the JAX pytree's
-paths.  ``fused=True`` builds each ImageNet bottleneck as one
-:class:`~bigdl_tpu_torch.nn.FusedBottleneck`, which runs on the port's
-Hopper kernels 1-5.
+paths.  ``fused=True`` builds each residual block as one
+:class:`~bigdl_tpu_torch.nn.FusedBottleneck` or
+:class:`~bigdl_tpu_torch.nn.FusedBasicBlock`, which run on the port's
+Hopper kernels 1-5; :func:`fuse_resnet_params` and
+:func:`unfuse_resnet_params` carry weights between the two forms.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.nn.init import MsraFiller, Zeros
 
-__all__ = ["ResNet", "ResNet50", "fold_stem_to_s2d", "unfold_stem_from_s2d"]
+__all__ = ["ResNet", "ResNet50", "fold_stem_to_s2d", "fuse_resnet_params",
+           "unfold_stem_from_s2d", "unfuse_resnet_params"]
 
 
 def _conv(n_in, n_out, k, stride=1, name=None):
@@ -35,7 +38,7 @@ def _bn(n, zero_gamma=False, name=None):
 
 
 def basic_block(x, n_in, n_out, stride):
-    """2x conv3x3 residual block (ResNet-18/34), unfused."""
+    """2x conv3x3 residual block (ResNet-18/34 and CIFAR), unfused."""
     y = _conv(n_in, n_out, 3, stride).inputs(x)
     y = _bn(n_out).inputs(y)
     y = nn.ReLU().inputs(y)
@@ -86,15 +89,16 @@ def ResNet(class_num: int = 1000, depth: int = 50,
     ``dataset="imagenet"``: depth 18/34/50/101/152 on 224x224 inputs.
     ``dataset="cifar10"``: depth ``6n + 2`` (20/32/44/56/110), a 3x3 stem
     and three stages of n basic blocks of 16/32/64 channels on 32x32
-    inputs, the classifier named ``fc``; its fused form
-    (``FusedBasicBlock``) is not ported yet, so ``fused=True`` raises.
+    inputs, the classifier named ``fc``.
 
     ``stem="space_to_depth"`` is the 2x2 space-to-depth + 4x4/s1 conv
     with ``(1, 2)`` pads, the same function as the 7x7/s2 stem
-    (:func:`fold_stem_to_s2d`).  ``fused=True`` builds each bottleneck as
-    a :class:`~bigdl_tpu_torch.nn.FusedBottleneck`, whose training
-    forward is recomputed in the backward when ``remat`` (the JAX
-    package's default).  Call ``.train()`` to train.  Weights are drawn
+    (:func:`fold_stem_to_s2d`).  ``fused=True`` builds each residual
+    block as a :class:`~bigdl_tpu_torch.nn.FusedBottleneck` (depths 50,
+    101, 152) or a :class:`~bigdl_tpu_torch.nn.FusedBasicBlock` (18, 34
+    and CIFAR), named ``fused_s{stage}b{block}``, whose training forward
+    is recomputed in the backward when ``remat`` (the JAX package's
+    default).  Call ``.train()`` to train.  Weights are drawn
     from ``generator`` (a CPU ``torch.Generator``); load trained or JAX
     weights with :func:`bigdl_tpu_torch.utils.load_jax_variables`.
     """
@@ -113,9 +117,6 @@ def ResNet(class_num: int = 1000, depth: int = 50,
         kind = "basic"
     else:
         raise ValueError(f"unknown dataset {dataset!r}")
-    if fused and kind != "bottleneck":
-        raise NotImplementedError("FusedBasicBlock is not ported yet")
-
     inp = nn.Input()
     if dataset == "cifar10":
         n = (depth - 2) // 6
@@ -127,7 +128,12 @@ def ResNet(class_num: int = 1000, depth: int = 50,
             planes = 16 * (2 ** stage)
             for b in range(n):
                 stride = 2 if (stage > 0 and b == 0) else 1
-                x = basic_block(x, n_in, planes, stride)
+                if fused:
+                    x = nn.FusedBasicBlock(n_in, planes, stride,
+                                           name=f"fused_s{stage}b{b}",
+                                           remat=remat).inputs(x)
+                else:
+                    x = basic_block(x, n_in, planes, stride)
                 n_in = planes
         x = nn.GlobalAveragePooling2D().inputs(x)
         x = nn.Linear(n_in, class_num, name="fc").inputs(x)
@@ -150,9 +156,11 @@ def ResNet(class_num: int = 1000, depth: int = 50,
             for b in range(n_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 if fused:
-                    x = nn.FusedBottleneck(n_in, planes, stride,
-                                           name=f"fused_s{stage}b{b}",
-                                           remat=remat).inputs(x)
+                    fused_block = (nn.FusedBasicBlock if kind == "basic"
+                                   else nn.FusedBottleneck)
+                    x = fused_block(n_in, planes, stride,
+                                    name=f"fused_s{stage}b{b}",
+                                    remat=remat).inputs(x)
                 else:
                     x = block(x, n_in, planes, stride)
                 n_in = planes * expansion
@@ -192,3 +200,78 @@ def unfold_stem_from_s2d(w4):
     w8 = (w4.reshape(4, 4, 2, 2, c, o).transpose(0, 2, 1, 3, 4, 5)
           .reshape(8, 8, c, o))
     return np.ascontiguousarray(w8[:7, :7])
+
+
+def _block_key_order(block):
+    """A fused block's slots in the unfused graph's topological order:
+    the residual branch, then the shortcut
+    (bigdl_tpu/models/resnet.py:205-214)."""
+    keys = ["conv1", "bn1", "conv2", "bn2"]
+    if isinstance(block, nn.FusedBottleneck):
+        keys += ["conv3", "bn3"]
+    if block.project:
+        keys += ["conv_sc", "bn_sc"]
+    return keys
+
+
+def _convert_resnet_params(variables, class_num, depth, stem, to_fused,
+                           dataset="imagenet"):
+    """Map a JAX-layout ``{"params", "state"}`` tree (nested dicts of
+    numpy arrays) between the unfused graph's keys and the fused blocks'
+    slots (bigdl_tpu/models/resnet.py:216-261).  The leaves are the same
+    arrays: only the keying differs.  The unfused graph's
+    parameter-holding children come from the port's own graph, keyed as
+    the JAX graph keys them."""
+    unfused = ResNet(class_num, depth, dataset, stem, device="cpu")
+    fused = ResNet(class_num, depth, dataset, stem, fused=True,
+                   device="cpu")
+    shared = set(fused.child_keys) & set(unfused.child_keys)
+    children = dict(unfused.named_children())
+    queue = [k for k in unfused.child_keys if k not in shared
+             and next(children[k].parameters(), None) is not None]
+    blocks = [(k, m) for k, m in fused.named_children()
+              if k.startswith("fused_")]
+
+    params, state = variables["params"], variables["state"]
+    out_p, out_s = {}, {}
+    qi = 0
+    for fk, block in blocks:
+        sub_p, sub_s = {}, {}
+        for slot in _block_key_order(block):
+            uk = queue[qi]
+            qi += 1
+            if to_fused:
+                sub_p[slot] = params[uk]
+                if state.get(uk):  # the BatchNorm slots (convs hold none)
+                    sub_s[slot] = state[uk]
+            else:
+                out_p[uk] = params[fk][slot]
+                out_s[uk] = state.get(fk, {}).get(slot) or {}
+        if to_fused:
+            out_p[fk] = sub_p
+            out_s[fk] = sub_s
+    if qi != len(queue):
+        raise ValueError(f"{len(queue)} unfused layers for {qi} block slots")
+    for k in shared:
+        out_p[k] = params[k]
+        out_s[k] = state.get(k, {})
+    target = fused if to_fused else unfused
+    # parameter-free keys get empty subtrees, in the target graph's order
+    return {"params": {k: out_p.get(k, {}) for k in target.child_keys},
+            "state": {k: out_s.get(k, {}) for k in target.child_keys}}
+
+
+def fuse_resnet_params(variables, class_num=1000, depth=50, stem="conv7",
+                       dataset="imagenet"):
+    """Unfused ``ResNet(...)`` variables -> ``ResNet(fused=True)``
+    variables (the same function; see nn/fused_block.py), so that a
+    trained or mid-training checkpoint moves to the fused blocks."""
+    return _convert_resnet_params(variables, class_num, depth, stem,
+                                  to_fused=True, dataset=dataset)
+
+
+def unfuse_resnet_params(variables, class_num=1000, depth=50, stem="conv7",
+                         dataset="imagenet"):
+    """Inverse of :func:`fuse_resnet_params`."""
+    return _convert_resnet_params(variables, class_num, depth, stem,
+                                  to_fused=False, dataset=dataset)

@@ -8,8 +8,9 @@ epochs to maxLr 3.2, poly decay, LARS, zero-gamma residual BatchNorm):
 
 trains ``ResNet`` with the recipe's schedule and method in bf16 compute
 on the async loop, validating Top1 and Top5 every epoch, on the card
-unless ``--device cpu``.  ``--fused`` runs each bottleneck on kernels
-1-5.  ``--folder DIR`` reads ``DIR/train-*`` and ``DIR/validation-*``
+unless ``--device cpu``.  ``--fused`` runs each residual block (the
+bottlenecks of depths 50-152, the basic blocks of 18, 34 and CIFAR) on
+kernels 1-5.  ``--folder DIR`` reads ``DIR/train-*`` and ``DIR/validation-*``
 shards (TFRecord, or SequenceFile by the ``.seq`` extension; cached in
 host memory, or streamed with ``--streaming``) for ``--dataset
 imagenet``, and the CIFAR-10 batches under ``DIR`` for ``--dataset
@@ -89,8 +90,8 @@ def main(argv: Optional[list] = None) -> dict:
     p.add_argument("--dataset", default="imagenet",
                    choices=["imagenet", "cifar10"])
     p.add_argument("--fused", action="store_true",
-                   help="each bottleneck on the fused conv+BN kernels "
-                        "(imagenet bottleneck depths)")
+                   help="each residual block on the fused conv+BN "
+                        "kernels (every depth and dataset)")
     p.add_argument("--streaming", action="store_true",
                    help="stream shards instead of caching their records in "
                         "host memory (full-ImageNet scale)")

@@ -20,24 +20,35 @@ from bigdl_tpu_torch.nn.module import Module
 
 
 class BatchNormalization(Module):
-    """Affine BatchNorm over the last axis (N, C), (N, T, C) or NHWC."""
+    """BatchNorm over the last axis (N, C), (N, T, C) or NHWC.
+
+    With ``affine=False`` the layer holds no ``weight``/``bias`` (both
+    ``None``, so its JAX params subtree is ``{}``) and normalises only:
+    ``scale = rsqrt(var + eps)``, ``offset = -mean * scale``."""
 
     def __init__(self, n_output: int, eps: float = 1e-5,
-                 momentum: float = 0.1, weight_init=None,
-                 name: Optional[str] = None):
+                 momentum: float = 0.1, affine: bool = True,
+                 weight_init=None, name: Optional[str] = None):
         super().__init__(name)
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum
+        self.affine = affine
         # Zeros() gives the zero-gamma residual trick
         self.weight_init = weight_init
-        self.weight = torch.nn.Parameter(torch.empty(n_output))
-        self.bias = torch.nn.Parameter(torch.empty(n_output))
+        if affine:
+            self.weight = torch.nn.Parameter(torch.empty(n_output))
+            self.bias = torch.nn.Parameter(torch.empty(n_output))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.register_buffer("running_mean", torch.zeros(n_output))
         self.register_buffer("running_var", torch.ones(n_output))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
+        if not self.affine:
+            return
         with torch.no_grad():
             if self.weight_init is not None:
                 self.weight.copy_(self.weight_init(generator,
@@ -67,6 +78,8 @@ class BatchNormalization(Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
+        if not self.affine:
+            return x * inv.to(x.dtype) + (-mean * inv).to(x.dtype)
         scale = inv * self.weight.float()
         offset = (-mean * inv) * self.weight.float() + self.bias.float()
         return x * scale.to(x.dtype) + offset.to(x.dtype)

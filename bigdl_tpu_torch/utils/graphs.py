@@ -35,6 +35,8 @@ replay adds nothing to ``LAUNCHES`` and one to ``COUNTS["replays"]``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -163,6 +165,34 @@ def prepare(device: torch.device):
     _workspace(device)
 
 
+_capturing = 0  # captures in progress, in any thread
+_collector_was_on = True
+_collector_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_off():
+    """Python's cyclic collector off while any capture runs.  A dead
+    cycle holding an old graph, collected inside a capture, would destroy
+    that graph there: an API call a capture does not permit, which
+    invalidates it.  The first capture to start collects the dead cycles
+    first; the last to end turns the collector back on if it was on."""
+    global _capturing, _collector_was_on
+    with _collector_lock:
+        if _capturing == 0:
+            gc.collect()
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _capturing += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _capturing -= 1
+            if _capturing == 0 and _collector_was_on:
+                gc.enable()
+
+
 def _launches() -> Dict[str, int]:
     """The hand-written kernels' launch counters, merged."""
     from bigdl_tpu_torch.ops import flash_attention, fused_matmul, int8_matmul
@@ -202,8 +232,9 @@ class Compiled:
         # captured on the warm-up's stream, one per capture: captures in
         # two threads (a first-sight bucket and a pytree forward) never
         # share a capture stream
-        with torch.cuda.graph(self.graph, pool=pool, stream=side,
-                              capture_error_mode="thread_local"):
+        with _collector_off(), torch.cuda.graph(
+                self.graph, pool=pool, stream=side,
+                capture_error_mode="thread_local"):
             self.outputs = fn(*example_args)
         self.launches = {k: n - before[k] for k, n in _launches().items()
                          if n != before[k]}

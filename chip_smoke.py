@@ -208,6 +208,30 @@ Phases:
    on 32 validation images; ms per step, the producer's data, the loop's
    data_stall, the time to the first batch and the peak RSS of both
    modes beside phase 10's step on arrays.
+12. basic: the basic-block family.  Kernels 4 and 5 without a prologue
+   (the stride-1 conv1 of every basic block) at ResNet-18's shapes at
+   batch 256 and CIFAR-20's at batch 128, bf16 (each case twice,
+   bit-equal) and f32, against their plain versions, timed beside the
+   plain version and F.conv2d / conv2d_input with their bound; a
+   stride-1 and a stride-2 FusedBasicBlock at ResNet-18 shapes against
+   the plain path in f32 (output, every gradient, running statistics);
+   the fused ResNet-18 train step (bf16 compute, batch 256) in one CUDA
+   graph with remat on and off: kernels 1-5 6/3/3/26/13 and 3/3/3/13/13
+   times per step (the capture, the host and, by profiler, a replay), no
+   channel padding, ms per step, images/s and peak memory, and one step
+   at batch 32 against the plain path in bf16 and f32; a captured
+   ResNet-34 step at batch 32 (6/3/3/58/29); resnet_train.main with
+   --fused --depth 18 -b 256 --syntheticSize 1024 --maxEpoch 2 --optim
+   lars --warmupEpoch 1, and with --dataset cifar10 --depth 20 --fused
+   -b 128 --maxEpoch 2 --folder over CIFAR-10 binary batches written
+   under build/ from the seed and removed after (4/2/2/32/16 a step):
+   one capture, finite losses; fuse_resnet_params on the card: the fused
+   ResNet-18 from the unfused one's randomised tree gives its eval
+   forward (bf16 within the serving tolerance, f32 within 1e-3 of the
+   largest logit with the same argmax); every criterion's loss and input
+   gradient on CUDA tensors against the same call on the CPU (f32,
+   within 1e-5 of |cpu| + max |cpu|), ClassNLL's one-hot targets
+   included; the phase's seconds.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -216,6 +240,7 @@ go to the --out directory (default build/smoke/).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import logging
 import math
@@ -227,6 +252,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from collections import Counter
 from pathlib import Path
 
@@ -301,6 +327,17 @@ INT8_FWD = {"int8_matmul": 34}
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def device_memory(what: str):
+    """Print the card's allocated and reserved memory (a phase that
+    leaks live tensors leaves the captures after it less headroom)."""
+    import torch
+
+    print(f"device memory {what}: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved",
+          flush=True)
 
 
 def call_ms(fn):
@@ -3985,79 +4022,582 @@ def int8_kv_checks(model, rs):
     return r
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", type=Path, default=ROOT / "build" / "smoke",
-                    help="directory for the nvcc log and per-shape times")
-    ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels, then stop")
-    args = ap.parse_args()
+# --------------------------------------------------- basic-block slice
+# kernels 4 and 5 without a prologue (the stride-1 conv1 of every basic
+# block): (B, H, W, C, Co) -> calls per forward
+BASIC_NO_PROLOGUE = {
+    "resnet18": {(256, 56, 56, 64, 64): 2, (256, 28, 28, 128, 128): 1,
+                 (256, 14, 14, 256, 256): 1, (256, 7, 7, 512, 512): 1},
+    "cifar20": {(128, 32, 32, 16, 16): 3, (128, 16, 16, 32, 32): 2,
+                (128, 8, 8, 64, 64): 2}}
+# one FusedBasicBlock at ResNet-18 shapes, kernels vs plain path (f32)
+BASIC_BLOCKS = ((64, 64, 1, 56), (64, 128, 2, 56))  # n_in, n_out, stride, hw
+_K15 = ("fused_matmul_bn", "fused_matmul_bn_dgrad", "fused_matmul_bn_wgrad",
+        "fused_conv3x3_bn", "fused_conv3x3_bn_dgrad")
+# kernels 1-5 per train step: kernel 4 once per stride-1 conv1 and per
+# conv2, kernel 1 per projection, each twice with remat (the recompute)
+BASIC_LAUNCHES = {k: dict(zip(_K15, v)) for k, v in {
+    ("resnet18", True): (6, 3, 3, 26, 13),
+    ("resnet18", False): (3, 3, 3, 13, 13),
+    ("resnet34", True): (6, 3, 3, 58, 29),
+    ("cifar20", True): (4, 2, 2, 32, 16)}.items()}
+BASIC_RECIPE_ARGV = ["--fused", "--depth", "18", "-b", "256",
+                     "--syntheticSize", "1024", "--maxEpoch", "2",
+                     "--optim", "lars", "--warmupEpoch", "1"]
+CIFAR_ARGV = ["--dataset", "cifar10", "--depth", "20", "--fused", "-b",
+              "128", "--maxEpoch", "2"]
+CIFAR_RECORDS = (256, 256)  # per data_batch_{1..5}.bin, in test_batch.bin
+BASIC_RES = 224  # the ResNet-18/34 steps' images
+CIFAR_DIR = ROOT / "build" / "basic_cifar"
+CRITERION_RTOL = 1e-5
+# phase 2's deepest f32 reduction (kernel 5 at Co 128: 9 x 128 terms),
+# the depth its f32 absolute tolerance was set at
+F32_REDUCTION = 1152
 
+
+def criterion_cases(nn, rs):
+    """``(name, criterion, input, target)`` of every criterion class of
+    the port (and ClassNLL's one-hot targets), CPU tensors from ``rs``."""
     import numpy as np
     import torch
 
-    # ---------------------------------------------------------- 1. device
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False")
-    sys.path.insert(0, str(ROOT))
-    try:
-        import bigdl_tpu_torch
-    except ImportError as e:
-        fail(f"cannot import bigdl_tpu_torch beside this script: {e}")
-    if Path(bigdl_tpu_torch.__file__).resolve().parents[1] != ROOT:
-        fail(f"bigdl_tpu_torch imported from {bigdl_tpu_torch.__file__}, "
-             "not from this checkout")
-    from bigdl_tpu_torch.ops import _build
+    n, c = 16, 10
+
+    def f(*shape, lo=None, hi=None):
+        a = rs.randn(*shape) if lo is None else rs.uniform(lo, hi, shape)
+        return torch.tensor(a, dtype=torch.float32)
+
+    def sign(*shape):
+        return torch.tensor(np.where(rs.rand(*shape) > 0.5, 1.0, -1.0),
+                            dtype=torch.float32)
+
+    def labels(*shape):
+        return torch.tensor(rs.randint(0, c, shape))
+
+    def probs(*shape):
+        return torch.softmax(f(*shape), -1)
+
+    def binary(*shape):
+        return torch.tensor(rs.rand(*shape) > 0.5, dtype=torch.float32)
+
+    one_hot = torch.eye(c)[labels(n)]
+    mlm = torch.tensor([[3, 0, -1, 1, 2], [2, -1, 4, 0, -1]] * (n // 2))
+    cases = [
+        ("ClassNLLCriterion", nn.ClassNLLCriterion(logits=True), f(n, c),
+         labels(n)),
+        ("ClassNLLCriterion one-hot", nn.ClassNLLCriterion(logits=True),
+         f(n, c), one_hot),
+        ("ClassNLLCriterion soft rows", nn.ClassNLLCriterion(),
+         torch.log_softmax(f(n, c), -1), probs(n, c)),
+        ("CrossEntropyCriterion", nn.CrossEntropyCriterion(), f(n, c),
+         labels(n)),
+        ("MSECriterion", nn.MSECriterion(), f(n, 3, 4), f(n, 3, 4)),
+        ("AbsCriterion", nn.AbsCriterion(), f(n, c), f(n, c)),
+        ("SmoothL1Criterion", nn.SmoothL1Criterion(), 2 * f(n, c),
+         f(n, c)),
+        ("BCECriterion", nn.BCECriterion(), f(n, c, lo=0.05, hi=0.95),
+         binary(n, c)),
+        ("BCEWithLogitsCriterion", nn.BCEWithLogitsCriterion(),
+         2 * f(n, c), binary(n, c)),
+        ("MarginCriterion", nn.MarginCriterion(0.7), f(n, c), sign(n, c)),
+        ("HingeEmbeddingCriterion", nn.HingeEmbeddingCriterion(1.5),
+         f(n, c).abs(), sign(n, c)),
+        ("DistKLDivCriterion", nn.DistKLDivCriterion(),
+         torch.log_softmax(f(n, c), -1), probs(n, c)),
+        ("KLDCriterion", nn.KLDCriterion(), (f(n, 4), f(n, 4)), None),
+        ("CosineEmbeddingCriterion", nn.CosineEmbeddingCriterion(0.1),
+         (f(n, 6), f(n, 6)), sign(n)),
+        ("MarginRankingCriterion", nn.MarginRankingCriterion(0.5),
+         (f(n), f(n)), sign(n)),
+        ("MultiLabelSoftMarginCriterion",
+         nn.MultiLabelSoftMarginCriterion(), f(n, c), binary(n, c)),
+        ("MultiMarginCriterion", nn.MultiMarginCriterion(p=2), f(n, c),
+         labels(n)),
+        ("SoftMarginCriterion", nn.SoftMarginCriterion(), f(n, c),
+         sign(n, c)),
+        ("MultiCriterion", nn.MultiCriterion().add(nn.MSECriterion(), 0.5)
+         .add(nn.AbsCriterion(), 2.0), f(n, c), f(n, c)),
+        ("ParallelCriterion", nn.ParallelCriterion()
+         .add(nn.MSECriterion(), 0.5).add(nn.CrossEntropyCriterion()),
+         (f(n, 3), f(n, c)), (f(n, 3), labels(n))),
+        ("TimeDistributedCriterion", nn.TimeDistributedCriterion(
+            nn.ClassNLLCriterion(logits=True)), f(4, 5, c), labels(4, 5)),
+        ("ClassSimplexCriterion", nn.ClassSimplexCriterion(), f(n, c),
+         f(n, c)),
+        ("DiceCoefficientCriterion", nn.DiceCoefficientCriterion(),
+         f(n, c, lo=0, hi=1), binary(n, c)),
+        ("MeanAbsolutePercentageCriterion",
+         nn.MeanAbsolutePercentageCriterion(), f(n, c),
+         f(n, c) + 0.5 * sign(n, c)),
+        ("MeanSquaredLogarithmicCriterion",
+         nn.MeanSquaredLogarithmicCriterion(), f(n, c, lo=0.01, hi=2),
+         f(n, c, lo=0.01, hi=2)),
+        ("KullbackLeiblerDivergenceCriterion",
+         nn.KullbackLeiblerDivergenceCriterion(), probs(n, c),
+         probs(n, c)),
+        ("PoissonCriterion", nn.PoissonCriterion(), f(n, c, lo=0.1, hi=2),
+         torch.tensor(rs.poisson(1.0, (n, c)), dtype=torch.float32)),
+        ("CosineProximityCriterion", nn.CosineProximityCriterion(),
+         f(n, c), f(n, c)),
+        ("CategoricalCrossEntropy", nn.CategoricalCrossEntropy(),
+         probs(n, c), one_hot),
+        ("CosineDistanceCriterion", nn.CosineDistanceCriterion(), f(n, c),
+         f(n, c)),
+        ("DotProductCriterion", nn.DotProductCriterion(True), f(n, c),
+         f(n, c)),
+        ("PGCriterion", nn.PGCriterion(), probs(n, c), one_hot * f(n, 1)),
+        ("GaussianCriterion", nn.GaussianCriterion(),
+         {1: f(n, 4), 2: f(n, 4)}, f(n, 4)),
+        ("L1HingeEmbeddingCriterion", nn.L1HingeEmbeddingCriterion(20.0),
+         [f(c), f(c)], torch.tensor(-1.0)),
+        ("MultiLabelMarginCriterion", nn.MultiLabelMarginCriterion(),
+         f(n, 5), mlm),
+        ("SmoothL1CriterionWithWeights",
+         nn.SmoothL1CriterionWithWeights(2.0, 3), f(n, c),
+         (f(n, c), f(n, c, lo=0, hi=1), f(n, c, lo=0, hi=1))),
+        ("SoftmaxWithCriterion", nn.SoftmaxWithCriterion(1), f(4, c, 3, 3),
+         labels(4, 3, 3)),
+        ("TimeDistributedMaskCriterion", nn.TimeDistributedMaskCriterion(
+            nn.ClassNLLCriterion(logits=True)), f(4, 5, c),
+         labels(4, 5)),
+        ("TransformerCriterion", nn.TransformerCriterion(
+            nn.MSECriterion(), nn.Linear(8, 4), nn.Linear(8, 4)), f(n, 8),
+         f(n, 8)),
+    ]
+    return cases
+
+
+def _to(tree, dev):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def basic_phase(args, card, kt, dev="cuda"):
+    """Phase 12, the basic-block family (``kt``: :func:`kernel_tools`):
+    (a) kernels 4 and 5 without a prologue at ResNet-18's stride-1 conv1
+    shapes at batch 256 and CIFAR-20's at batch 128, bf16 (twice,
+    bit-equal) and f32, against their plain versions, timed beside the
+    plain version and the library call with their bound; (b) a stride-1
+    and a stride-2 FusedBasicBlock at ResNet-18 shapes against the plain
+    path in f32 (output, every gradient, running statistics); (c) the
+    fused ResNet-18 train step (bf16 compute, batch 256) in one CUDA
+    graph with remat on and off: launches per step (and per replay, by
+    profiler), no channel padding, ms per step, images/s, peak memory;
+    one step at batch 32 against the plain path in bf16 and f32; (d) a
+    captured ResNet-34 step at batch 32 and its launches; (e)
+    ``resnet_train.main`` with --fused at depth 18 on synthetic 224 px
+    images and at CIFAR depth 20 on CIFAR-10 batches written here:
+    finite losses, one capture and its launches per step; (f)
+    ``fuse_resnet_params`` on the card: the fused ResNet-18 from the
+    unfused one's tree gives its eval forward (bf16 within the serving
+    tolerance, f32 with the same argmax); (g) every criterion's loss and
+    input gradient on the card against the same call on the CPU.
+    ``dev="cpu"`` serves a rehearsal with the sizes shrunk and the CUDA
+    calls patched.  Returns the results."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import (ResNet, fuse_resnet_params,
+                                        resnet_train)
     from bigdl_tpu_torch.ops import fused_matmul as fm
+    from bigdl_tpu_torch.optim import (SGD, CompiledTrainStep,
+                                       make_train_step, optimizer as optmod)
+    from bigdl_tpu_torch.utils import (export_variables, graphs,
+                                       load_jax_variables, random_variables)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed: {smi.stderr.strip()}"
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {kind} count {torch.cuda.device_count()}", flush=True)
-    # f32 references in full f32 (cuDNN's default for f32 convs is TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    print(f"basic-block phase on {card}", flush=True)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    res = {}
 
-    out = args.out
-    out.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    libs = _build.build(verbose=True)
-    build_s = time.perf_counter() - t0
-    (out / "kernel_build.log").write_text("\n".join(
-        f"== {n}\n{log}" for n, log in _build.build_info["logs"].items()))
-    print(f"kernels built in {build_s:.1f} s "
-          f"({', '.join(_build.build_info['compiled'])})", flush=True)
-    hgmma = {}
-    for name in ("fused_matmul_bn", "fused_matmul_bn_dgrad",
-                 "fused_matmul_bn_wgrad", "fused_conv3x3_bn",
-                 "fused_conv3x3_bn_dgrad", "flash_attention"):
-        sass = subprocess.run(
-            [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
-             str(libs[name])], capture_output=True, text=True)
-        hgmma[name] = sass.stdout.count("HGMMA")
-        if sass.returncode != 0 or hgmma[name] == 0:
-            fail(f"{name}: no wgmma (HGMMA) in its SASS "
-                 f"({sass.stderr.strip()[:200]})")
-    # kernel 7's integer wgmma: cuobjdump spells it IGMMA
-    sass = subprocess.run(
-        [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
-         str(libs["int8_matmul"])], capture_output=True, text=True)
-    hgmma["int8_matmul (IGMMA)"] = sass.stdout.count("IGMMA")
-    if sass.returncode != 0 or hgmma["int8_matmul (IGMMA)"] == 0:
-        fail(f"int8_matmul: no integer wgmma (IGMMA) in its SASS "
-             f"({sass.stderr.strip()[:200]})")
-    print(f"wgmma instructions (HGMMA; IGMMA for int8_matmul) in the SASS: "
-          f"{hgmma}", flush=True)
-    dev = torch.device("cuda")
+    def rel(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
 
-    # --------------------------------------------------------- 2. kernels
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    def exact64(op, o):
+        """y (kernel 4) or dx (kernel 5) without a prologue, in f64
+        from the f32 operands (ytot rounded to f32, as both round it)."""
+        w = o["w"].double().permute(3, 2, 0, 1)
+        if op == "cv":
+            return torch.nn.functional.conv2d(
+                o["x"].double().permute(0, 3, 1, 2), w,
+                padding=1).permute(0, 2, 3, 1)
+        t = kt.ytot(o, torch.float32).double()
+        b, h, wd, ci = o["x"].shape
+        return torch.nn.grad.conv2d_input(
+            (b, ci, h, wd), w, t.permute(0, 3, 1, 2),
+            padding=1).permute(0, 2, 3, 1)
+
+    # ------------------------------------ (a) kernels 4 and 5, no prologue
+    rows = []
+    for model, shapes in BASIC_NO_PROLOGUE.items():
+        for shape, count in shapes.items():
+            for op in ("cv", "cv_dgrad"):
+                name, kern, plain, _ = kt.kernels[op]
+                for dt, dtype in (("bf16", bf16), ("f32", torch.float32)):
+                    o = kt.operands(op, shape, False, dtype)
+                    got = kt.call(kern, op, o)
+                    if dt == "bf16" and not kt.same(got, kt.call(kern, op,
+                                                                 o)):
+                        fail(f"{name}{shape} no prologue: two runs differ")
+                    # f32: the absolute part grows with the reduction
+                    # (9 C or 9 Co products) past phase 2's deepest
+                    # (1152), as a K-term f32 sum's worst-case error
+                    k = 9 * shape[3 if op == "cv" else 4]
+                    err = kt.check(f"{name}{shape} {dt}, no prologue", op,
+                                   got, kt.call(plain, op, o), dt,
+                                   math.prod(shape[:-2]),
+                                   max(1.0, k / F32_REDUCTION)
+                                   if dt == "f32" else 1.0)
+                    if dt == "f32":  # both against the same function in f64
+                        f64 = exact64(op, o)
+                        errs = [(v[0].double() - f64).abs().max().item()
+                                for v in (got, kt.call(plain, op, o))]
+                    del got
+                    reps = 10 if dt == "bf16" else 2
+                    r = {"kernel": name, "model": model, "shape": list(shape),
+                         "dtype": dt, "calls_per_forward": count,
+                         "max_abs_err": err,
+                         "ms": device_ms(lambda: kt.call(kern, op, o), reps),
+                         "plain_ms": device_ms(lambda: kt.call(plain, op, o),
+                                               reps),
+                         "library_ms": device_ms(lambda: kt.library(op, o),
+                                                 reps)}
+                    if dt == "f32":
+                        r["kernel_f64_err"], r["plain_f64_err"] = errs
+                    r["bytes_ms"], r["ops_ms"] = kt.bound(op, shape, False,
+                                                          dt == "f32")
+                    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+                    rows.append(r)
+                    print(f"  {name} {shape} {dt}, no prologue, x{count}: "
+                          f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                          f"library {r['library_ms']:.4f}, bound "
+                          f"{r['bound_ms']:.4f}), max |d| {err:.3g}"
+                          + (f"; max |d| from f64: kernel "
+                             f"{r['kernel_f64_err']:.3g}, plain "
+                             f"{r['plain_f64_err']:.3g}" if dt == "f32"
+                             else ""), flush=True)
+                    del o
+    res["no_prologue"] = rows
+
+    # -------------------------------------- (b) one block, kernels vs plain
+    res["blocks"] = {}
+    batch = BATCH
+    for n_in, n_out, stride, hw in BASIC_BLOCKS:
+        bv = random_variables(export_variables(
+            nn.FusedBasicBlock(n_in, n_out, stride)), args.seed + 5)
+        xb = torch.randn((batch, hw, hw, n_in), generator=gen, device=dev)
+        cot = torch.randn((batch, hw // stride, hw // stride, n_out),
+                          generator=gen, device=dev)
+        got = []
+        for plain in (False, True):
+            blk = nn.FusedBasicBlock(n_in, n_out, stride).to(dev)
+            load_jax_variables(blk, bv)
+            nn.use_plain_ops(blk, plain).train()
+            xx = xb.clone().requires_grad_(True)
+            yb = blk(xx)
+            (yb * cot).sum().backward()
+            got.append({"out": yb.detach(), "dx": xx.grad,
+                        **{k: p.grad for k, p in blk.named_parameters()},
+                        **dict(blk.named_buffers())})
+        err = {k: rel(got[0][k], got[1][k]) for k in got[1]}
+        worst = max(err, key=err.get)
+        what = f"basic block({n_in}, {n_out}, stride {stride}) at {hw}x{hw}"
+        res["blocks"][what] = err[worst]
+        print(f"basic parity, {what}, f32: output, gradients and running "
+              f"stats rel L2 max {err[worst]:.3g} ({worst})", flush=True)
+        if err[worst] > BLOCK_TOL or not all(
+                torch.isfinite(t).all() for t in got[0].values()):
+            fail(f"{what}: kernels disagree with the plain path: {worst} "
+                 f"{err[worst]:.3g} > {BLOCK_TOL}")
+        del got, xb, cot
+
+    # ------------------------------------------- (c) the ResNet-18 step
+    crit = nn.ClassNLLCriterion(logits=True)
+
+    def sgd():
+        return {"__all__": SGD(0.1, momentum=0.9)}
+
+    def fresh(m):
+        params = {k: p.detach().clone() for k, p in m.named_parameters()}
+        state = {k: b.detach().clone() for k, b in m.named_buffers()}
+        return params, state, {"__all__": SGD(0.1, momentum=0.9)
+                               .init_state(params)}
+
+    def set_remat(m, on):
+        for blk in m.modules():
+            if isinstance(blk, nn.FusedBasicBlock):
+                blk.remat = on
+
+    def captured(what, step, trees, x, t, want):
+        """One compiled step: its capture's launches (and the host's
+        count) must be ``want``, with no channel padding."""
+        fm.reset_launches()
+        compiled = CompiledTrainStep(step)
+        trees = compiled(*trees, 1, None, x, t, [0.1])[:3]
+        (graph,) = compiled.graphs.values()
+        if graph.launches != want or fm.LAUNCHES != host_launches(
+                want, 1) or fm.COPIES["fused_channel_pad"]:
+            fail(f"{what}: the capture launched {graph.launches}, the host "
+                 f"counted {fm.LAUNCHES}, channel pads {fm.COPIES}; "
+                 f"expected {want} per capture and no padding")
+        return compiled, graph, trees
+
+    res18, big = BASIC_RES, TRAIN_BATCH
+    m18 = ResNet(1000, 18, fused=True, device=dev)
+    v18 = random_variables(export_variables(m18), args.seed + 18)
+    load_jax_variables(m18, v18)
+    step = make_train_step(m18, crit, sgd(), compute_dtype=bf16)
+    x = torch.rand((big, res18, res18, 3), generator=gen, device=dev).to(bf16)
+    t = torch.randint(0, 1000, (big,), generator=gen, device=dev)
+    res["resnet18_step"] = {}
+    for remat in (True, False):
+        set_remat(m18, remat)
+        what = f"ResNet-18 step at batch {big}, remat {'on' if remat else 'off'}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        compiled, graph, trees = captured(
+            what, step, fresh(m18), x, t, BASIC_LAUNCHES[("resnet18", remat)])
+        replay = check_graph(what, graph, BASIC_LAUNCHES[("resnet18", remat)],
+                             lambda: compiled(*trees, 2, None, x, t, [0.1]))
+        for i in range(3):
+            *trees, loss = compiled(*trees, i + 3, None, x, t, [0.1])
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(TIMED_STEPS):
+            *trees, loss = compiled(*trees, i + 6, None, x, t, [0.1])
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b) / TIMED_STEPS
+        r = {"launches_per_step": graph.launches, "ms_per_step": ms,
+             "images_per_s": big / ms * 1e3,
+             "replay_device_ms": replay["replay_device_ms"],
+             "allocated_before_bytes": before,
+             "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+             "capture_seconds": graph.capture_seconds, "loss": loss.item()}
+        if not math.isfinite(r["loss"]):
+            fail(f"{what}: non-finite loss {r['loss']}")
+        res["resnet18_step"]["remat_on" if remat else "remat_off"] = r
+        print(f"{what} (one CUDA graph): launches {graph.launches}, "
+              f"{ms:.2f} ms per step, {r['images_per_s']:.1f} images/s, "
+              f"device {r['replay_device_ms']:.2f} ms per replay (profiler),"
+              f" peak memory {r['peak_allocated_bytes'] / 2**30:.2f} GiB "
+              f"allocated ({before / 2**30:.2f} before the step) / "
+              f"{r['peak_reserved_bytes'] / 2**30:.2f} GiB reserved; "
+              f"capture {graph.capture_seconds:.2f} s", flush=True)
+        del compiled, graph, trees
+    set_remat(m18, True)
+    del x, t
+
+    # one step at batch 32 against the plain path, bf16 and f32
+    small = BATCH
+    ref18 = nn.use_plain_ops(ResNet(1000, 18, fused=True, device=dev))
+    load_jax_variables(ref18, v18)
+    x = torch.rand((small, res18, res18, 3), generator=gen, device=dev)
+    t = torch.randint(0, 1000, (small,), generator=gen, device=dev)
+    res["resnet18_parity"] = {}
+    for dt, tol, kw in (("bf16", TRAIN_BF16_TOL, {"compute_dtype": bf16}),
+                        ("f32", TRAIN_F32_TOL, {})):
+        xx = x.to(bf16) if dt == "bf16" else x
+        (pk, sk, ok, lk), (_, sp, op_, lp) = (
+            make_train_step(m, crit, sgd(), **kw)(
+                *fresh(m), 1, None, xx, t, [0.1]) for m in (m18, ref18))
+        vk, vp = ok["__all__"]["velocity"], op_["__all__"]["velocity"]
+        if not (math.isfinite(lk.item()) and all(
+                torch.isfinite(vk[k]).all() for k in vk)):
+            fail(f"ResNet-18 {dt} step: non-finite loss or gradients")
+        err = {"loss": abs(lk.item() - lp.item()) / abs(lp.item()),
+               "grad": max(rel(vk[k], vp[k]) for k in vk),
+               "state": max(rel(sk[k], sp[k]) for k in sk)}
+        res["resnet18_parity"][dt] = err
+        print(f"ResNet-18 step parity at batch {small}, {dt} (kernels vs "
+              f"plain path): loss {lk.item():.6g} vs {lp.item():.6g}; rel "
+              f"errors {err}", flush=True)
+        over = {k: (err[k], lim) for k, lim in tol.items() if err[k] > lim}
+        if over:
+            fail(f"ResNet-18 {dt} step disagrees with the plain path: "
+                 f"(error, limit) {over}")
+    del ref18, step
+
+    # -------------------------------------------- (d) the ResNet-34 step
+    m34 = ResNet(1000, 34, fused=True, device=dev)
+    load_jax_variables(m34, random_variables(export_variables(m34),
+                                             args.seed + 34))
+    step34 = make_train_step(m34, crit, sgd(), compute_dtype=bf16)
+    xb, want = x.to(bf16), BASIC_LAUNCHES[("resnet34", True)]
+    compiled, graph, trees = captured("ResNet-34 step", step34, fresh(m34),
+                                      xb, t, want)
+    check_graph("ResNet-34 step", graph, want,
+                lambda: compiled(*trees, 2, None, xb, t, [0.1]))
+    res["resnet34_step"] = {"launches_per_step": graph.launches,
+                            "capture_seconds": graph.capture_seconds}
+    print(f"ResNet-34 step at batch {small} (one CUDA graph): launches "
+          f"{graph.launches}; capture {graph.capture_seconds:.2f} s",
+          flush=True)
+    del m34, step34, compiled, graph, trees, x, xb, t
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ (e) the user entry points
+    opts, losses, events = [], [], []
+    real_call = optmod.CompiledTrainStep.__call__
+    real_build = optmod.LocalOptimizer._build_step_fn
+
+    def call(self, *a):
+        """The loop's step, recorded: its loss and an event after it."""
+        out = real_call(self, *a)
+        losses.append(out[3].detach().clone())
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+
+    def build(self, model):
+        opts.append(self)
+        return real_build(self, model)
+
+    def recipe(what, argv, key):
+        opts.clear()
+        losses.clear()
+        events.clear()
+        t0 = time.perf_counter()
+        top = resnet_train.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        opt = opts[-1]
+        step = opt.train_step
+        (graph,) = step.graphs.values()
+        vals = [v.item() for v in losses]
+        ipe = len(events) // 2  # two epochs: epoch 2's steps, back to back
+        ms = statistics.median(a.elapsed_time(b) for a, b in zip(
+            events[ipe:], events[ipe + 1:]))
+        r = {"seconds": secs, "result": top, "captures": step.captures,
+             "replays": step.replays, "launches_per_step": graph.launches,
+             "losses": vals, "ms_per_step": ms}
+        print(f"{what}: {secs:.1f} s, {top}; {step.captures} capture, "
+              f"{step.replays} replays, launches per step {graph.launches};"
+              f" {ms:.2f} ms per step in epoch 2 (CUDA events); losses "
+              f"{[round(v, 4) for v in vals]}", flush=True)
+        if step.captures != 1 or graph.launches != BASIC_LAUNCHES[key] \
+                or not vals or not all(math.isfinite(v) for v in vals) \
+                or not math.isfinite(opt._loop_state["loss"]):
+            fail(f"{what}: {step.captures} captures, launches per step "
+                 f"{graph.launches} (expected {BASIC_LAUNCHES[key]}), "
+                 f"losses {vals}")
+        return r
+
+    optmod.CompiledTrainStep.__call__ = call
+    optmod.LocalOptimizer._build_step_fn = build
+    try:
+        res["recipe18"] = recipe(
+            f"resnet_train.main({' '.join(BASIC_RECIPE_ARGV)})",
+            BASIC_RECIPE_ARGV, ("resnet18", True))
+        if set(res["recipe18"]["result"]) != {"Top1Accuracy",
+                                              "Top5Accuracy"}:
+            fail(f"resnet_train depth 18: result {res['recipe18']['result']}")
+        rs = np.random.RandomState(args.seed + 20)
+        shutil.rmtree(CIFAR_DIR, ignore_errors=True)
+        CIFAR_DIR.mkdir(parents=True)
+        n_train, n_test = CIFAR_RECORDS
+        for name, k in [(f"data_batch_{i}", n_train) for i in range(1, 6)] \
+                + [("test_batch", n_test)]:
+            recs = np.concatenate([rs.randint(0, 10, (k, 1)),
+                                   rs.randint(0, 256, (k, 3072))], axis=1)
+            recs.astype(np.uint8).tofile(str(CIFAR_DIR / f"{name}.bin"))
+        argv = CIFAR_ARGV + ["--folder", str(CIFAR_DIR)]
+        try:
+            res["cifar20"] = recipe(f"resnet_train.main({' '.join(argv)})",
+                                    argv, ("cifar20", True))
+        finally:
+            shutil.rmtree(CIFAR_DIR, ignore_errors=True)
+    finally:
+        optmod.CompiledTrainStep.__call__ = real_call
+        optmod.LocalOptimizer._build_step_fn = real_build
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ (f) the converters, eval
+    unfused = ResNet(1000, 18, device=dev)
+    vu = random_variables(export_variables(unfused), args.seed + 6)
+    load_jax_variables(unfused, vu)
+    load_jax_variables(m18, fuse_resnet_params(vu, 1000, 18))
+    m18.eval()
+    x = torch.rand((small, res18, res18, 3), generator=gen, device=dev)
+    conv = {}
+    with torch.inference_mode():
+        for dt in ("bf16", "f32"):
+            xx = x.to(bf16) if dt == "bf16" else x
+            a, b = (m(xx).float() for m in (m18, unfused))
+            scale = b.abs().max().item()
+            conv[dt] = {"max_abs_err": (a - b).abs().max().item(),
+                        "max_abs_logit": scale,
+                        "argmax_equal": int((a.argmax(-1) == b.argmax(-1))
+                                            .sum())}
+    res["converted"] = conv
+    print(f"fuse_resnet_params on the card: fused vs unfused ResNet-18 eval "
+          f"at batch {small}: {conv}", flush=True)
+    if conv["bf16"]["max_abs_err"] > SERVE_TOL * conv["bf16"]["max_abs_logit"] \
+            or conv["f32"]["argmax_equal"] != small or \
+            conv["f32"]["max_abs_err"] > 1e-3 * conv["f32"]["max_abs_logit"]:
+        fail(f"the converted fused ResNet-18 disagrees with the unfused one: "
+             f"{conv}")
+    del m18, unfused, x
+
+    # ------------------------------------------------- (g) the criteria
+    rs = np.random.RandomState(args.seed + 21)
+    worst, n_cases = 0.0, 0
+    for name, crit_cpu, x, tgt in criterion_cases(nn, rs):
+        crit_dev = copy.deepcopy(crit_cpu)
+        for attr in ("input_transformer", "target_transformer"):
+            if getattr(crit_dev, attr, None) is not None:
+                getattr(crit_dev, attr).to(dev)
+        want = crit_cpu.forward(x, tgt)
+        want_g = graphs.leaves(crit_cpu.backward(x, tgt))
+        xd, td = _to(x, dev), _to(tgt, dev)
+        got = crit_dev.forward(xd, td)
+        got_g = graphs.leaves(crit_dev.backward(xd, td))
+        if got.device.type != torch.device(dev).type or \
+                len(got_g) != len(want_g):
+            fail(f"criterion {name}: result on {got.device}")
+        for what, g, w in [("loss", got, want)] + [
+                ("gradient", g, w) for g, w in zip(got_g, want_g)]:
+            g, w = g.detach().cpu().float(), w.detach().float()
+            d = (g - w).abs()
+            lim = CRITERION_RTOL * (w.abs() + w.abs().max())
+            if not torch.isfinite(g).all() or (d > lim).any():
+                fail(f"criterion {name} {what}: the card gives max |d| "
+                     f"{d.max().item():.3g} from the CPU's")
+            worst = max(worst, (d / (w.abs().max() + 1e-30)).max().item())
+        n_cases += 1
+    res["criteria"] = {"cases": n_cases, "max_rel_err": worst}
+    print(f"criteria on the card: {n_cases} cases, loss and input gradient "
+          f"against the CPU within {CRITERION_RTOL} (max |d| / max |cpu| "
+          f"{worst:.3g})", flush=True)
+
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"basic-block phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def kernel_tools(gen, dev):
+    """The kernel checks' helpers over the generator ``gen`` on
+    ``dev``: random operands of kernels 1-5 (``operands``), their
+    calls (``call``), one library call for each (``library``), the
+    checks against the plain versions (``check``, ``close``), a
+    bit-equality test (``same``), the least time (``bound``) and
+    ``kernels``: op -> (kernel name, wrapper, plain version, the TPU
+    kernel it replaces)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import fused_matmul as fm
 
     def rand(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * scale
@@ -4140,11 +4680,13 @@ def main():
         return fn(o["dy"], o["y"], o["dssum"], o["dssq"], o["w"], o["x"],
                   o["ps"], o["pb"], relu=True)
 
-    def close(name, what, got, ref, dt):
-        """Elementwise check of a tensor in x's type; max |d|."""
+    def close(name, what, got, ref, dt, atol_scale=1.0):
+        """Elementwise check of a tensor in x's type; max |d|.
+        ``atol_scale`` widens the absolute part for deeper reductions."""
         d = (got.float() - ref.float()).abs()
         scale = ref.float().abs().max().item()
-        bad = (d > Y_RTOL[dt] * ref.float().abs() + Y_ATOL[dt] * scale).sum()
+        bad = (d > Y_RTOL[dt] * ref.float().abs()
+               + atol_scale * Y_ATOL[dt] * scale).sum()
         if not torch.isfinite(got.float()).all() or bad:
             fail(f"{name}: kernel {what} disagrees with the plain version "
                  f"({int(bad)} bad, max |d| {d.max().item():.4g})")
@@ -4157,18 +4699,18 @@ def main():
                  f"({int(bad)} bad, max |d| "
                  f"{(got - ref).abs().max().item():.4g})")
 
-    def check(name, op, got, ref, dt, m):
+    def check(name, op, got, ref, dt, m, atol_scale=1.0):
         if op in ("mm", "cv"):
             (y, s, q), (yr, sr, qr) = got, ref
-            err = close(name, "y", y, yr, dt)
+            err = close(name, "y", y, yr, dt, atol_scale)
             close_sums(name, "ssum", s, sr, STATS_RTOL,
                        1e-5 * torch.sqrt(m * qr))  # bounds |column sum|
             close_sums(name, "ssq", q, qr, STATS_RTOL, 0.0)
             return err
         if op == "mm_wgrad":
-            return close(name, "dW", got, ref, dt)
+            return close(name, "dW", got, ref, dt, atol_scale)
         (dx, dps, dpb), (dxr, dpsr, dpbr) = got, ref
-        err = close(name, "dx", dx, dxr, dt)
+        err = close(name, "dx", dx, dxr, dt, atol_scale)
         if (dps is None) != (dpsr is None):
             fail(f"{name}: d_ps/d_pb present in one version only")
         for what, g, r in (("d_ps", dps, dpsr), ("d_pb", dpb, dpbr)):
@@ -4192,6 +4734,128 @@ def main():
         "cv_dgrad": ("fused_conv3x3_bn_dgrad", fm.fused_conv3x3_bn_dgrad,
                      fm.fused_conv3x3_bn_dgrad_plain, f"{tpu}671"),
     }
+    def same(a, b):
+        if a is None or isinstance(a, torch.Tensor):
+            return a is b if a is None else torch.equal(a, b)
+        return all(same(u, v) for u, v in zip(a, b))
+
+    def bound(op, shape, prologue, f32=False):
+        """(bytes ms, operations ms): each input read once, each output
+        written once, over the card's memory rate and bf16 peak (with
+        ``f32``: 4-byte elements over the f32 peak outside the tensor
+        cores).  Without a prologue a dgrad reads no x and a kernel no
+        ps, pb (dx = g)."""
+        pro = int(prologue)
+        if op.startswith("mm"):
+            m, k, n = shape
+            flops = 2 * m * k * n
+            # x, w, y / dy, y, w, dx (+ x) / x, dy, y; ps, pb and the
+            # column vectors (ssum, ssq / dssum, dssq, d_ps, d_pb)
+            elems = {"mm": m * k + k * n + m * n,
+                     "mm_dgrad": 2 * m * n + k * n + m * k + pro * m * k,
+                     "mm_wgrad": m * k + 2 * m * n}[op]
+            vec = 2 * pro * k + 2 * n + (2 * pro * k if op == "mm_dgrad"
+                                         else 0)
+            nbytes = (4 if f32 else 2) * elems + 4 * vec + (4 * k * n if op == "mm_wgrad"
+                                            else 0)
+        else:
+            b, h, wd, c, co = shape
+            m = b * h * wd
+            flops = 18 * m * c * co
+            if op == "cv":  # x, w, y; ps, pb, ssum, ssq
+                elems = m * c + 9 * c * co + m * co
+                vec = 2 * pro * c + 2 * co
+            else:  # dy, y, dx, w (+ x); dssum, dssq (+ ps, pb, d_ps, d_pb)
+                elems = 2 * m * co + m * c + 9 * c * co + pro * m * c
+                vec = 4 * pro * c + 2 * co
+            nbytes = (4 if f32 else 2) * elems + 4 * vec
+        return (nbytes / PEAK_BYTES * 1e3,
+                flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS) * 1e3)
+
+    return types.SimpleNamespace(
+        kernels=kernels, src=src, rand=rand, operands=operands, ytot=ytot,
+        prologue_bwd=prologue_bwd, library=library, call=call, close=close,
+        close_sums=close_sums, check=check, same=same, bound=bound)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "smoke",
+                    help="directory for the nvcc log and per-shape times")
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels, then stop")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    # ---------------------------------------------------------- 1. device
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    sys.path.insert(0, str(ROOT))
+    try:
+        import bigdl_tpu_torch
+    except ImportError as e:
+        fail(f"cannot import bigdl_tpu_torch beside this script: {e}")
+    if Path(bigdl_tpu_torch.__file__).resolve().parents[1] != ROOT:
+        fail(f"bigdl_tpu_torch imported from {bigdl_tpu_torch.__file__}, "
+             "not from this checkout")
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import fused_matmul as fm
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {kind} count {torch.cuda.device_count()}", flush=True)
+    # f32 references in full f32 (cuDNN's default for f32 convs is TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    out = args.out
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    libs = _build.build(verbose=True)
+    build_s = time.perf_counter() - t0
+    (out / "kernel_build.log").write_text("\n".join(
+        f"== {n}\n{log}" for n, log in _build.build_info["logs"].items()))
+    print(f"kernels built in {build_s:.1f} s "
+          f"({', '.join(_build.build_info['compiled'])})", flush=True)
+    hgmma = {}
+    for name in ("fused_matmul_bn", "fused_matmul_bn_dgrad",
+                 "fused_matmul_bn_wgrad", "fused_conv3x3_bn",
+                 "fused_conv3x3_bn_dgrad", "flash_attention"):
+        sass = subprocess.run(
+            [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+             str(libs[name])], capture_output=True, text=True)
+        hgmma[name] = sass.stdout.count("HGMMA")
+        if sass.returncode != 0 or hgmma[name] == 0:
+            fail(f"{name}: no wgmma (HGMMA) in its SASS "
+                 f"({sass.stderr.strip()[:200]})")
+    # kernel 7's integer wgmma: cuobjdump spells it IGMMA
+    sass = subprocess.run(
+        [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+         str(libs["int8_matmul"])], capture_output=True, text=True)
+    hgmma["int8_matmul (IGMMA)"] = sass.stdout.count("IGMMA")
+    if sass.returncode != 0 or hgmma["int8_matmul (IGMMA)"] == 0:
+        fail(f"int8_matmul: no integer wgmma (IGMMA) in its SASS "
+             f"({sass.stderr.strip()[:200]})")
+    print(f"wgmma instructions (HGMMA; IGMMA for int8_matmul) in the SASS: "
+          f"{hgmma}", flush=True)
+    dev = torch.device("cuda")
+
+    # --------------------------------------------------------- 2. kernels
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    kt = kernel_tools(gen, dev)
+    (operands, library, call, close, check, kernels, src, same,
+     bound) = (kt.operands, kt.library, kt.call, kt.close, kt.check,
+               kt.kernels, kt.src, kt.same, kt.bound)
     mm_calls, cv_calls = resnet50_calls(BATCH)
     if sum(mm_calls.values()) != 36 or sum(cv_calls.values()) != 13:
         fail(f"call table: {sum(mm_calls.values())} matmuls, "
@@ -4212,11 +4876,6 @@ def main():
                   (op, (1, 7, 7, 512, 512), True, "bf16"),
                   (op, (3, 7, 7, 512, 512), False, "bf16"),
                   (op, (2, 14, 14, 64, 128), True, "f32")]
-    def same(a, b):
-        if a is None or isinstance(a, torch.Tensor):
-            return a is b if a is None else torch.equal(a, b)
-        return all(same(u, v) for u, v in zip(a, b))
-
     max_err = Counter()
     for op, shape, prologue, dt in extra + [
             (o_, s_, p_, "bf16") for o_, s_, p_, _ in main_shapes]:
@@ -4300,36 +4959,6 @@ def main():
         print("quick: kernels build, launch and agree; stopping")
         return
 
-    def bound(op, shape, prologue):
-        """(bytes ms, operations ms): each input read once, each output
-        written once, over the card's memory rate and bf16 peak.  Without
-        a prologue a dgrad reads no x and a kernel no ps, pb (dx = g)."""
-        pro = int(prologue)
-        if op.startswith("mm"):
-            m, k, n = shape
-            flops = 2 * m * k * n
-            # x, w, y / dy, y, w, dx (+ x) / x, dy, y; ps, pb and the
-            # column vectors (ssum, ssq / dssum, dssq, d_ps, d_pb)
-            elems = {"mm": m * k + k * n + m * n,
-                     "mm_dgrad": 2 * m * n + k * n + m * k + pro * m * k,
-                     "mm_wgrad": m * k + 2 * m * n}[op]
-            vec = 2 * pro * k + 2 * n + (2 * pro * k if op == "mm_dgrad"
-                                         else 0)
-            nbytes = 2 * elems + 4 * vec + (4 * k * n if op == "mm_wgrad"
-                                            else 0)
-        else:
-            b, h, wd, c, co = shape
-            m = b * h * wd
-            flops = 18 * m * c * co
-            if op == "cv":  # x, w, y; ps, pb, ssum, ssq
-                elems = m * c + 9 * c * co + m * co
-                vec = 2 * pro * c + 2 * co
-            else:  # dy, y, dx, w (+ x); dssum, dssq (+ ps, pb, d_ps, d_pb)
-                elems = 2 * m * co + m * c + 9 * c * co + pro * m * c
-                vec = 4 * pro * c + 2 * co
-            nbytes = 2 * elems + 4 * vec
-        return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-
     rows, agg = [], {}
     for op, shape, prologue, count in main_shapes:
         name, kern, plain, _ = kernels[op]
@@ -4384,6 +5013,7 @@ def main():
         del o
 
     # ----------------------------------------------------------- 3. serve
+    device_memory("before phase 3 (serve)")
     from bigdl_tpu_torch.models import ResNet50
     from bigdl_tpu_torch.nn import use_plain_ops
     from bigdl_tpu_torch.serving import ServingEngine
@@ -4481,6 +5111,7 @@ def main():
     del engine, model, images, answers, got, ref_np
 
     # ----------------------------------------------------------- 4. train
+    device_memory("before phase 4 (train)")
     from bigdl_tpu_torch.dataset import DataSet
     from bigdl_tpu_torch.nn import ClassNLLCriterion, FusedBottleneck
     from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger, make_train_step
@@ -4745,31 +5376,43 @@ def main():
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- 5. lm
+    device_memory("before phase 5 (lm)")
     lm = lm_phase(args)
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 6. quant
+    device_memory("before phase 6 (quant)")
     quant = quant_phase(args, out)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 7. graphs
+    device_memory("before phase 7 (graphs)")
     graph_res = graphs_phase(args)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 8. decode
+    device_memory("before phase 8 (decode)")
     decode = decode_phase(args, card)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 9. checkpoint
+    device_memory("before phase 9 (checkpoint)")
     ckpt = checkpoint_phase(args, card)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 10. recipe
+    device_memory("before phase 10 (recipe)")
     recipe = recipe_phase(args, card)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 11. data
+    device_memory("before phase 11 (data)")
     data = data_phase(args, card, recipe["recipe"])
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 12. basic
+    device_memory("before phase 12 (basic)")
+    basic = basic_phase(args, card, kt)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -4786,7 +5429,8 @@ def main():
                    "optimize": {"seconds": opt_s, "loss": final_loss}},
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
-         "recipe": recipe, "data": data, "width12": width12},
+         "recipe": recipe, "data": data, "basic": basic,
+         "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -4817,7 +5461,20 @@ def main():
                 "resnet_folder_per_step":
                     data["cached"]["launches_per_step"][name],
                 "resnet_folder_streaming_per_step":
-                    data["streaming"]["launches_per_step"][name]},
+                    data["streaming"]["launches_per_step"][name],
+                "resnet18_per_step":
+                    basic["recipe18"]["launches_per_step"].get(name, 0),
+                "resnet34_per_step":
+                    basic["resnet34_step"]["launches_per_step"].get(name, 0),
+                "cifar20_per_step":
+                    basic["cifar20"]["launches_per_step"].get(name, 0)},
+            "no_prologue": {
+                f"{r['model']} {r['dtype']}": {key: sum(
+                    q["calls_per_forward"] * q[key]
+                    for q in basic["no_prologue"] if q["kernel"] == name
+                    and (q["model"], q["dtype"]) == (r["model"], r["dtype"]))
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for r in basic["no_prologue"] if r["kernel"] == name},
             "width_12": [{k: r[k] for k in ("shape", "dtype", "launches",
                                             "copies", "max_abs_err")}
                          for r in width12 if r["kernel"] == name],

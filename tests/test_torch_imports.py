@@ -34,7 +34,7 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "dataset.record_io", "dataset.sharded", "dataset.seqfile",
               "dataset.cifar", "utils.file_io", "utils.protowire",
               "visualization", "visualization.tensorboard",
-              "visualization.summary"):
+              "visualization.summary", "nn.fused_block", "nn.norm"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

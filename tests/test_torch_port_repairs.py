@@ -1,4 +1,4 @@
-"""Five faults of the port against the JAX package, held on the CPU.
+"""Seven faults of the port against the JAX package, held on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages.
 
@@ -40,8 +40,25 @@ Inputs are made with numpy from a seed and handed to both packages.
   -> 12) in training against the JAX block, forward and every gradient
   within 2e-4 (the block tolerance of test_torch_train_layers.py), with
   the plain versions as they are and wrapped in the padding helpers.
+- ClassNLL's one-hot targets: a non-integer target with the input's rank
+  and class width holds one-hot (or soft) rows, whose loss is
+  ``-sum(logp * target)`` per row (the port once read it as N * C
+  labels and raised).  Loss and input gradient against JAX's for
+  (4, 5) one-hot and soft rows and a (2, 3, 5) input under
+  ``TimeDistributedCriterion``, with ``logits`` True and False, f32
+  within 1e-6 / 1e-5 relative.
+- Python's cyclic collector inside a CUDA graph capture: a dead cycle
+  holding an old graph, collected there, destroys that graph inside the
+  capture, which invalidates it (seen once on the card in a whole
+  ``chip_smoke.py`` run, phase 9).  ``graphs.Compiled`` collects the
+  dead cycles before a capture and keeps the collector off during it;
+  held here with the CUDA calls around the capture stood in for by
+  CPU fakes.
 """
+import contextlib
+import gc
 import math
+
 import numpy as np
 import pytest
 
@@ -388,3 +405,104 @@ def test_width_12_fused_bottleneck_training_matches_jax(channel_route):
     for k, g in grads.items():
         np.testing.assert_allclose(named[k].grad.numpy(), g, err_msg=k,
                                    **block)
+
+
+@pytest.mark.parametrize("logits", [True, False])
+@pytest.mark.parametrize("case", ["one_hot", "soft", "time_distributed"])
+def test_class_nll_one_hot_targets_match_jax(case, logits):
+    rs = np.random.RandomState(16)
+    shape = (2, 3, 5) if case == "time_distributed" else (4, 5)
+    x = rs.randn(*shape).astype(np.float32)
+    if not logits:  # log-probabilities
+        x = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    if case == "soft":
+        t = rs.rand(*shape).astype(np.float32)
+        t /= t.sum(-1, keepdims=True)
+    else:
+        t = np.eye(5, dtype=np.float32)[rs.randint(0, 5, shape[:-1])]
+
+    def make(m):
+        crit = m.ClassNLLCriterion(logits=logits)
+        return (m.TimeDistributedCriterion(crit)
+                if case == "time_distributed" else crit)
+
+    jc, tc = make(jnn), make(tnn)
+    want = jc.forward(jnp.asarray(x), jnp.asarray(t))
+    want_g = jc.backward(jnp.asarray(x), jnp.asarray(t))
+    got = tc.forward(torch.from_numpy(x), torch.from_numpy(t))
+    got_g = tc.backward(torch.from_numpy(x), torch.from_numpy(t))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5,
+                               atol=1e-7)
+
+
+class _FakeCapture:
+    """Stand-ins for the CUDA calls around ``graphs.Compiled``'s capture:
+    a capture that records the collector's state as it begins and ends."""
+
+    def __init__(self):
+        self.active = False
+        self.seen = []
+
+    def graph(self, *args, **kwargs):
+        outer = self
+
+        class Ctx:
+            def __enter__(self):
+                outer.active = True
+
+            def __exit__(self, *exc):
+                outer.seen.append(gc.isenabled())
+                outer.active = False
+
+        return Ctx()
+
+
+def test_no_garbage_collection_inside_a_capture(monkeypatch):
+    from bigdl_tpu_torch.utils import graphs
+
+    fake = _FakeCapture()
+
+    class Stream:
+        def __init__(self, *a):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(graphs, "prepare", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph", fake.graph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+    finalized_in_capture = []
+
+    class OldGraph:  # a dead cycle's member with a finalizer
+        def __del__(self):
+            finalized_in_capture.append(fake.active)
+
+    def fn(x):
+        if fake.active:  # allocations inside the capture
+            junk = [[i] for i in range(20000)]
+            del junk
+            gc.collect(0)  # what an allocation threshold would run
+        return x * 2
+
+    was = gc.isenabled()
+    gc.enable()
+    try:
+        cycle = OldGraph()
+        cycle.self = cycle
+        del cycle
+        compiled = graphs.Compiled(fn, (torch.ones(3),))
+        assert fake.seen == [False]  # the collector was off in the capture
+        assert finalized_in_capture == [False]  # collected before it
+        assert gc.isenabled()  # and back on after it
+        assert torch.equal(compiled.outputs, torch.full((3,), 2.0))
+    finally:
+        if not was:
+            gc.disable()

@@ -2,19 +2,23 @@
 resnet_train.py, train_utils.py and the cifar10 branch of
 models/resnet.py) against the JAX package's, on the CPU.
 
-- ResNet-8 for CIFAR-10 (unfused) carries JAX's weights key for key and
-  gives JAX's eval forward within 1e-4; its fused form and a bad depth
-  raise.
+- ResNet-8 for CIFAR-10 carries JAX's weights key for key and gives
+  JAX's eval forward within 1e-4, unfused and fused (FusedBasicBlock); a
+  bad depth raises.
 - ``make_recipe_optim``'s rate at every step of a run (warmup, then
   poly from maxLr) equals JAX's, for LARS and SGD.
 - ``main`` on JAX's tiny recipe run (tests/test_train_drivers.py:20-31,
-  ``--device cpu``) trains on the async loop and reports Top1 and Top5;
+  ``--device cpu``) trains on the async loop and reports Top1 and Top5,
+  and so does its fused CIFAR form (``--fused --dataset cifar10 --depth
+  8``);
   with ``--folder`` (CIFAR-10 binary batches), ``--streaming`` (TFRecord
   shards of an unfused depth-18 imagenet ResNet) and ``--summary`` it
   trains from the files and writes the scalars.
 - ``synthetic_imagenet`` gives JAX's arrays; ``predict`` yields JAX's
   ``predict`` outputs batch by batch.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -59,8 +63,18 @@ def test_cifar_resnet8_forward_matches_jax():
     got = tm(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="FusedBasicBlock"):
-        ResNet(4, depth=8, dataset="cifar10", fused=True, device="cpu")
+    # the fused form builds and gives JAX's fused forward
+    jf = JaxResNet(4, depth=8, dataset="cifar10", fused=True)
+    vf = random_variables(jax.tree_util.tree_map(
+        lambda a: np.zeros(a.shape, np.float32), jax.eval_shape(
+            lambda: jf.init(jax.random.PRNGKey(0)))), 5)
+    tf = ResNet(4, depth=8, dataset="cifar10", fused=True, device="cpu")
+    load_jax_variables(tf, vf)
+    want, _ = jf.apply(vf["params"], vf["state"], x, training=False)
+    with torch.inference_mode():
+        got = tf(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
     with pytest.raises(ValueError, match="6n"):
         ResNet(4, depth=10, dataset="cifar10", device="cpu")
 
@@ -101,6 +115,21 @@ def test_main_runs_the_recipe_on_the_cpu(caplog):
     assert sum(m.startswith("Top5Accuracy is") for m in lines) == 2
     jres = jax_resnet_train.main(RECIPE)
     assert set(jres) == set(res)
+
+
+def test_main_runs_the_fused_cifar_recipe_on_the_cpu(caplog):
+    """Two iterations of the fused CIFAR ResNet-8 with finite losses (its
+    4 validation images are fewer than a batch: no Top1 to report)."""
+    with caplog.at_level("INFO", logger="bigdl_tpu_torch.optim"):
+        res = resnet_train.main(["--fused", "--dataset", "cifar10",
+                                 "--depth", "8", "--classNum", "4", "-b",
+                                 "8", "--syntheticSize", "16", "--maxEpoch",
+                                 "1", "--warmupEpoch", "1", "--device",
+                                 "cpu"])
+    losses = [float(v) for r in caplog.records
+              for v in re.findall(r"Loss is (\S+)\. ", r.getMessage())]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert res == {}
 
 
 @pytest.mark.parametrize("flag", [["--folder", "{cifar}"],
