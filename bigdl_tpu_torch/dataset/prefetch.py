@@ -17,6 +17,11 @@
   on, and marks every tensor of the batch as used on that stream
   (``record_stream``), so the allocator does not give the batch's memory
   to the producer's next copy before the step has read it.
+
+The producer records a ``prefetch_item`` span per item (pull, transform
+and placement) correlated ``item:<index>`` on the shared timeline
+(``telemetry/tracer.py``), so a trace shows which batch the loop's
+``data_stall`` waited on.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from bigdl_tpu_torch.telemetry.tracer import CAT_DATA, get_tracer
 
 __all__ = ["DEFAULT_DEPTH", "DevicePrefetcher", "Prefetcher",
            "prefetch_depth", "to_device"]
@@ -72,6 +79,8 @@ class Prefetcher:
         self._finished = False
 
         def run():
+            tracer = get_tracer()
+            idx = 0
             try:
                 t0 = time.perf_counter()
                 for item in it:
@@ -81,6 +90,9 @@ class Prefetcher:
                         item = transform(item)
                     if timer is not None:
                         timer(time.perf_counter() - t0)
+                    tracer.add_span("prefetch_item", CAT_DATA, t0,
+                                    time.perf_counter(), corr=f"item:{idx}")
+                    idx += 1
                     # checked again before the put, so that close() (which
                     # drains the queue) never leaves the producer blocked
                     if self._stop.is_set():

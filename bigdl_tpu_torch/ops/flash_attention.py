@@ -49,9 +49,11 @@ from typing import Optional, Tuple
 import torch
 
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.telemetry.kernels import accounted
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
-           "LAUNCHES", "reset_launches", "BLOCK_K", "BLOCK_K_WIDE"]
+__all__ = ["flash_cost", "flash_attention", "flash_attention_plain",
+           "flash_attention_lse", "LAUNCHES", "reset_launches", "BLOCK_K",
+           "BLOCK_K_WIDE"]
 
 Tensor = torch.Tensor
 
@@ -249,6 +251,20 @@ def _flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     return o, lse
 
 
+def flash_cost(b: int, h: int, t: int, s: int, d: int, causal: bool,
+               size: int):
+    """Kernel 6's ``(operations, bytes)``: 4*B*H*T*S*D operations,
+    halved under causal (the masked blocks are skipped); q, k, v read
+    once, O and the f32 lse written once (``size`` bytes per element of
+    q)."""
+    ops = 4 * b * h * t * s * d // (2 if causal else 1)
+    return ops, size * b * h * (2 * t * d + 2 * s * d) + 4 * b * h * t
+
+
+@accounted("flash_attention", lambda q, *a, **k: q,
+           lambda q, k, v, causal=False, *a, **kw: flash_cost(
+               *q.shape[:3], k.shape[2], q.shape[3], causal,
+               q.element_size()))
 def flash_attention_lse(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
                         sm_scale: Optional[float] = None
                         ) -> Tuple[Tensor, Tensor]:

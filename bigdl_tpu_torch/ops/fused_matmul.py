@@ -41,7 +41,9 @@ statistics cotangents, so its ``ytot`` is 0 and adds nothing to dx or dW.
 
 ``LAUNCHES`` counts kernel launches per wrapper and ``COPIES`` the
 calls whose operands were copied to be padded; the plain versions do not
-count.
+count.  ``COSTS`` holds each kernel's ``(operations, bytes)`` formula,
+which the cost model adds to a counted call (``telemetry/kernels.py``)
+and ``chip_smoke.py`` divides by the card's peaks for its bounds.
 """
 from __future__ import annotations
 
@@ -52,13 +54,14 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.telemetry.kernels import accounted
 
 __all__ = ["fused_matmul_bn", "fused_conv3x3_bn", "fused_matmul_bn_plain",
            "fused_conv3x3_bn_plain", "fused_matmul_bn_dgrad",
            "fused_matmul_bn_wgrad", "fused_conv3x3_bn_dgrad",
            "fused_matmul_bn_dgrad_plain", "fused_matmul_bn_wgrad_plain",
            "fused_conv3x3_bn_dgrad_plain", "conv3x3_wgrad", "bn_constants",
-           "COPIES", "LAUNCHES", "reset_launches"]
+           "COPIES", "COSTS", "LAUNCHES", "reset_launches"]
 
 Tensor = torch.Tensor
 Stats = Tuple[Tensor, Tensor, Tensor]
@@ -83,6 +86,60 @@ _MM_BK = 64      # kernel 1's bf16 reduction step: 64 channels
 _WGRAD_BN = 128  # kernel 3's bf16 tile of dW^T rows (N): two warpgroups
 _WGRAD_BM = 64   # kernel 3's reduction step: 64 rows of M
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+# --------------------------------------------------------------------------
+# cost formulas: operations, and bytes with each input read once and each
+# output written once (``size`` bytes per element of x; ps, pb and the
+# column vectors in f32).  Without a prologue a dgrad reads no x and no
+# kernel reads ps, pb.
+# --------------------------------------------------------------------------
+def cost_matmul(m: int, k: int, n: int, prologue: bool, size: int):
+    """Kernel 1: x, w, y; ps, pb, ssum, ssq."""
+    pro = int(prologue)
+    return 2 * m * k * n, size * (m * k + k * n + m * n) \
+        + 4 * (2 * pro * k + 2 * n)
+
+
+def cost_matmul_dgrad(m: int, k: int, n: int, prologue: bool, size: int):
+    """Kernel 2: dy, y, w, dx (+ x); dssum, dssq (+ ps, pb, d_ps, d_pb)."""
+    pro = int(prologue)
+    return 2 * m * k * n, size * (2 * m * n + k * n + m * k + pro * m * k) \
+        + 4 * (4 * pro * k + 2 * n)
+
+
+def cost_matmul_wgrad(m: int, k: int, n: int, prologue: bool, size: int):
+    """Kernel 3: x, dy, y, dW; ps, pb, dssum, dssq, and the f32 partial
+    dW."""
+    pro = int(prologue)
+    return 2 * m * k * n, size * (m * k + 2 * m * n) \
+        + 4 * (2 * pro * k + 2 * n) + 4 * k * n
+
+
+def cost_conv3(b: int, h: int, w: int, c: int, co: int, prologue: bool,
+               size: int):
+    """Kernel 4: x, w, y; ps, pb, ssum, ssq."""
+    m, pro = b * h * w, int(prologue)
+    return 18 * m * c * co, size * (m * c + 9 * c * co + m * co) \
+        + 4 * (2 * pro * c + 2 * co)
+
+
+def cost_conv3_dgrad(b: int, h: int, w: int, c: int, co: int,
+                     prologue: bool, size: int):
+    """Kernel 5: dy, y, dx, w (+ x); dssum, dssq (+ ps, pb, d_ps, d_pb)."""
+    m, pro = b * h * w, int(prologue)
+    return 18 * m * c * co, \
+        size * (2 * m * co + m * c + 9 * c * co + pro * m * c) \
+        + 4 * (4 * pro * c + 2 * co)
+
+
+#: kernel name -> its formula, over ``(m, k, n)`` or ``(b, h, w, c, co)``
+#: then ``prologue`` and ``size``
+COSTS = {"fused_matmul_bn": cost_matmul,
+         "fused_matmul_bn_dgrad": cost_matmul_dgrad,
+         "fused_matmul_bn_wgrad": cost_matmul_wgrad,
+         "fused_conv3x3_bn": cost_conv3,
+         "fused_conv3x3_bn_dgrad": cost_conv3_dgrad}
 
 
 def reset_launches():
@@ -432,6 +489,9 @@ def _matmul_plan(m: int, k: int, n: int, sms: int) -> MatmulPlan:
     return MatmulPlan(_MM_BM, bn, steps, per, slices, blocks)
 
 
+@accounted("fused_matmul_bn", lambda x, *a: x,
+           lambda x, w, ps, *a: cost_matmul(
+               *x.shape, w.shape[1], ps is not None, x.element_size()))
 def _matmul_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
     m, k = x.shape
     kw, n = w.shape
@@ -495,6 +555,9 @@ def _conv3_plan(b: int, h: int, w: int, c: int, co: int,
     return Conv3Plan(bm, bn, steps, per, -(-steps // per))
 
 
+@accounted("fused_conv3x3_bn", lambda x, *a: x,
+           lambda x, w, ps, *a: cost_conv3(
+               *x.shape, w.shape[3], ps is not None, x.element_size()))
 def _conv3x3_forward(x: Tensor, w: Tensor, ps, pb, relu: bool) -> Stats:
     if tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[3]:
         raise ValueError(f"fused_conv3x3_bn: x {tuple(x.shape)}, "
@@ -585,6 +648,11 @@ def _dgrad_plan(m: int, k: int, n: int, sms: int) -> DgradPlan:
     return DgradPlan(_MM_BM, bn, steps, per, slices, blocks, part_rows)
 
 
+@accounted("fused_matmul_bn_dgrad",
+           lambda dy, y, dssum, dssq, w, x, *a, **k: x,
+           lambda dy, y, dssum, dssq, w, x, prologue_scale=None, *a, **k:
+           cost_matmul_dgrad(*x.shape, w.shape[1],
+                             prologue_scale is not None, x.element_size()))
 def fused_matmul_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
                           dssq: Tensor, w: Tensor, x: Tensor,
                           prologue_scale: Optional[Tensor] = None,
@@ -653,6 +721,10 @@ def _wgrad_plan(m: int, k: int, n: int, sms: int) -> WgradPlan:
     return WgradPlan(_WGRAD_BN, bk, steps, per, -(-steps // per))
 
 
+@accounted("fused_matmul_bn_wgrad", lambda x, *a, **k: x,
+           lambda x, prologue_scale, prologue_bias, dy, *a, **k:
+           cost_matmul_wgrad(*x.shape, dy.shape[1],
+                             prologue_scale is not None, x.element_size()))
 def fused_matmul_bn_wgrad(x: Tensor, prologue_scale: Optional[Tensor],
                           prologue_bias: Optional[Tensor], dy: Tensor,
                           y: Tensor, dssum: Tensor, dssq: Tensor,
@@ -709,6 +781,11 @@ def _conv3_dgrad_plan(b: int, h: int, w: int, ci: int, co: int,
     return Conv3Plan(bm, bn, steps, per, -(-steps // per))
 
 
+@accounted("fused_conv3x3_bn_dgrad",
+           lambda dy, y, dssum, dssq, w, x, *a, **k: x,
+           lambda dy, y, dssum, dssq, w, x, prologue_scale=None, *a, **k:
+           cost_conv3_dgrad(*x.shape, w.shape[3],
+                            prologue_scale is not None, x.element_size()))
 def fused_conv3x3_bn_dgrad(dy: Tensor, y: Tensor, dssum: Tensor,
                            dssq: Tensor, w: Tensor, x: Tensor,
                            prologue_scale: Optional[Tensor] = None,

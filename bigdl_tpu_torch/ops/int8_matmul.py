@@ -45,9 +45,10 @@ from typing import Dict, Iterator, List, NamedTuple, Tuple
 import torch
 
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.telemetry.kernels import accounted
 
-__all__ = ["int8_matmul_dequant", "int8_matmul_dequant_plain", "LAUNCHES",
-           "reset_launches", "record_calls", "Int8Plan"]
+__all__ = ["int8_cost", "int8_matmul_dequant", "int8_matmul_dequant_plain",
+           "LAUNCHES", "reset_launches", "record_calls", "Int8Plan"]
 
 Tensor = torch.Tensor
 
@@ -316,6 +317,17 @@ def _int8_matmul_cuda(x_q: Tensor, w_q: Tensor, scale_row: Tensor,
     return y if ldy == n else y[:, :n].contiguous()
 
 
+def int8_cost(m: int, k: int, n: int, out_size: int):
+    """Kernel 7's ``(operations, bytes)``: 2*M*N*K int8 operations; x_q,
+    w_q and the f32 scale read once, y (``out_size`` bytes per element)
+    written once."""
+    return 2 * m * n * k, m * k + k * n + 4 * n + out_size * m * n
+
+
+@accounted("int8_matmul", lambda x_q, *a, **k: x_q,
+           lambda x_q, w_q, scale_row, out_dtype=torch.bfloat16: int8_cost(
+               *x_q.shape, w_q.shape[1],
+               torch.finfo(out_dtype).bits // 8))
 def int8_matmul_dequant(x_q: Tensor, w_q: Tensor, scale_row: Tensor,
                         out_dtype=torch.bfloat16) -> Tensor:
     """``(M, K) s8 @ (K, N) s8 -> (M, N) out_dtype``, scaled per column:

@@ -13,6 +13,15 @@ loss reads, the loop's only waits on the device); its checkpoints add
 ``checkpoint_snapshot`` (the trees copied to the host on the loop
 thread).  The prefetch thread adds its times while the loop thread adds
 its own, so every update takes a lock.
+
+Every ``Metrics`` is a span sink (bigdl_tpu/optim/metrics.py:31-84):
+each :meth:`add` of a phase emits a span into the global
+:mod:`bigdl_tpu_torch.telemetry` tracer, ``[now - seconds, now]`` on the
+calling thread in category ``train``, so the phase timers of
+the loop, the prefetcher and the checkpoint writer land on one timeline.
+A sample that is not an interval of the calling thread opts out with
+:meth:`no_span`.  With the tracer off an add costs one attribute check
+more.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, Set
+
+from bigdl_tpu_torch.telemetry.tracer import CAT_TRAIN, get_tracer
 
 
 class Metrics:
@@ -30,11 +41,13 @@ class Metrics:
         self._values: Dict[str, float] = {}
         self._no_span: Set[str] = set()
         self._lock = threading.Lock()
+        self._tracer = get_tracer()
 
     def no_span(self, name: str) -> "Metrics":
-        """Mark ``name`` as a sample that is not an interval of the
-        calling thread (the prefetch thread's ``data``).  The port has no
-        span timeline yet, so this only records the mark."""
+        """Opt ``name`` out of spans: a sample that is not an interval of
+        the calling thread (the loop's ``data`` under the async engine,
+        timed by the prefetch thread, which records its own
+        ``prefetch_item`` span)."""
         self._no_span.add(name)
         return self
 
@@ -43,6 +56,11 @@ class Metrics:
             self._sums[name] = self._sums.get(name, 0.0) + seconds
             self._counts[name] = self._counts.get(name, 0) + 1
             self._last[name] = seconds
+        tr = self._tracer
+        if tr.enabled and name not in self._no_span:
+            # the phase just ended: [now - seconds, now]
+            t1 = time.perf_counter()
+            tr.add_span(name, CAT_TRAIN, t1 - seconds, t1)
 
     @contextmanager
     def time(self, name: str):
@@ -74,6 +92,15 @@ class Metrics:
 
     def value(self, name: str, default: float = 0.0) -> float:
         return self._values.get(name, default)
+
+    def values(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._values)
+
+    def phases(self) -> list:
+        """The names of the phases timed so far."""
+        with self._lock:
+            return list(self._sums)
 
     def summary(self, unit_scale: float = 1e3) -> str:
         """One line, average ms per phase, then the values."""

@@ -96,8 +96,19 @@ its own iteration (the async loop writes it when the loss is read, the
 synchronous loop after each step), ``Throughput`` and ``LearningRate``
 every iteration, the ``Parameters`` histogram (a subsample of the
 parameters, reduced on the device) when its trigger fires, and each
-validation method's score.  Numerics (``GradNorm``/``UpdateRatio``) and
-telemetry are not ported yet.
+validation method's score.
+
+Telemetry (``bigdl_tpu_torch.telemetry``, optimizer.py:778-918,
+1052-1071): each iteration's spans carry ``step:<n>`` while the tracer
+is on; the compiled step is stamped with its flops and bytes (counted
+from one eager call before its capture) and registered as
+``train_step`` in the program registry, which counts its calls; each log
+line adds ``mfu`` and ``bytes_per_sec`` to the metrics' values (so to
+``summary()``) and samples the HBM ledger; a divergence read by a drain
+emits a ``loss_divergence`` instant and a retry a
+``divergence_recovery`` one; a checkpoint's write is a span on the
+writer thread correlated with its step.  Numerics (``GradNorm``/
+``UpdateRatio``, NaN provenance) are not ported yet.
 """
 from __future__ import annotations
 
@@ -126,6 +137,9 @@ from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult, _numpy)
+from bigdl_tpu_torch.telemetry import costmodel, programs
+from bigdl_tpu_torch.telemetry.tracer import (CAT_TRAIN, correlate,
+                                              get_tracer, set_correlation)
 from bigdl_tpu_torch.utils import file_io, graphs
 from bigdl_tpu_torch.utils.convert import (export_opt_state,
                                            export_variables, flatten,
@@ -275,10 +289,15 @@ class CompiledTrainStep:
     they are written into device scalars that the graphs read.
     ``graphs`` maps each batch's signature to its compiled call;
     ``captures`` and ``replays`` add them up.  The graphs share one
-    memory pool: the first batch, the largest, is captured first."""
+    memory pool: the first batch, the largest, is captured first.  Each
+    compile is registered as :attr:`program` in the program registry,
+    and ``cost`` is the latest one's stamp (``telemetry/costmodel.py``)."""
+
+    program = "train_step"
 
     def __init__(self, step_fn: Callable):
         self.step_fn = step_fn
+        self.cost: Optional[costmodel.ProgramCost] = None
         self.graphs: Dict[Any, Callable] = {}
         self._pool = None
         self._scalars: Optional[tuple] = None
@@ -304,13 +323,33 @@ class CompiledTrainStep:
                 targets, lrs_t)
         key = graphs.signature((features, targets, rng is None))
         fn = self.graphs.get(key)
-        if fn is None:
+        first = fn is None
+        if first:
             if device.type == "cuda" and self._pool is None:
                 self._pool = graphs.new_pool()
+            sig = programs.signature_of(
+                dict(zip(("params", "model_state", "opt_states", "step",
+                          "rng", "features", "targets", "lrs"), args)),
+                donated=("params", "model_state", "opt_states"))
+            count = costmodel.new_count()
+            # on the CPU the first call itself is the counted eager call
+            eager = device.type != "cuda"
+            t0 = time.perf_counter()
             fn = self.graphs[key] = graphs.compile(
-                graphs.donate(self.step_fn, (0, 1, 2)), args[:5] + graphs.clone((features, targets))
-                + (lrs_t,), self._pool)
-        loss = fn(*args)[3]
+                graphs.donate(self.step_fn, (0, 1, 2)),
+                args[:5] + graphs.clone((features, targets)) + (lrs_t,),
+                self._pool, None if eager else count)
+            compile_s = time.perf_counter() - t0
+        if first and eager and count is not None:
+            loss = graphs.counted(fn, args, count)[3]
+        else:
+            loss = fn(*args)[3]
+        if first:
+            self.cost = costmodel.stamp(self.program, count) or self.cost
+            programs.register_program(self.program, sig, fn, compile_s,
+                                      cost=self.cost, expected=True)
+        else:
+            programs.get_program_registry().record_call(self.program)
         return params, model_state, opt_states, loss
 
     @property
@@ -627,6 +666,7 @@ class LocalOptimizer(Optimizer):
         self._host = None  # the checkpoints' host buffers
         self._retries = 0
         self._last_failure = 0.0
+        self._diverged_at: Optional[int] = None
         self._log_t0 = time.perf_counter()
         self._log_records = 0
         self._last_throughput = 0.0
@@ -786,7 +826,9 @@ class LocalOptimizer(Optimizer):
         def write():
             if ready is not None:
                 ready.synchronize()
-            with self.metrics.time("checkpoint_write"):
+            # a span on the writer's own track, joined to its step
+            with correlate(f"step:{iteration}"), \
+                    self.metrics.time("checkpoint_write"):
                 save_pytree(path, self._blob(model, *host, driver_state))
             logger.info("Checkpoint saved to %s (iteration %d)", path,
                         iteration)
@@ -900,12 +942,21 @@ class LocalOptimizer(Optimizer):
         if self._retries > self.max_retry or not ckpt_dir:
             raise e
         self._wait_writer()
+        detected_at = loop_state["neval"]
         if not self._load_latest(ckpt_dir, trees, loop_state):
             raise e
         self._pending.clear()
         logger.warning("Training failure (%s); retry %d from checkpoint "
                        "at iteration %d", e, self._retries,
                        loop_state["neval"])
+        diverged_at, self._diverged_at = self._diverged_at, None
+        get_tracer().instant(
+            "divergence_recovery", CAT_TRAIN,
+            corr=f"step:{detected_at if diverged_at is None else diverged_at}",
+            args={"iteration": diverged_at, "detected_at": detected_at,
+                  "restored_iteration": loop_state["neval"],
+                  "replayed_steps": detected_at - loop_state["neval"],
+                  "checkpoint_dir": ckpt_dir, "retry": self._retries})
 
     def train_log_line(self) -> str:
         """One-line training status (bigdl_tpu/optim/optimizer.py:683)."""
@@ -954,6 +1005,16 @@ class LocalOptimizer(Optimizer):
                 loss = self._ring.get(slot)
             if math.isnan(loss) or math.isinf(loss):
                 self._pending.clear()
+                self._diverged_at = it
+                # the iteration that produced it and the one that read
+                # it: the watchdog counts these as nan_windows
+                get_tracer().instant(
+                    "loss_divergence", CAT_TRAIN, corr=f"step:{it}",
+                    args={"iteration": it,
+                          "detected_at": loop_state["neval"],
+                          "lag_steps": loop_state["neval"] - it,
+                          "sync_window": self.sync_window,
+                          "loss": str(loss)})
                 raise FloatingPointError(
                     f"loss diverged: {loss} (iteration {it}, detected at "
                     f"iteration {loop_state['neval']})")
@@ -965,6 +1026,9 @@ class LocalOptimizer(Optimizer):
     def _one_iteration(self, step_fn, trees, loop_state, data_iter,
                        batches_per_epoch, wall_start):
         metrics = self.metrics
+        if get_tracer().enabled:
+            # every span this thread records in the iteration carries it
+            set_correlation(f"step:{loop_state['neval'] + 1}")
         if self._sync_loop:
             with metrics.time("data"):
                 batch = next(data_iter)
@@ -988,6 +1052,7 @@ class LocalOptimizer(Optimizer):
                 slot = self._ring.put(it, loss)
         if self._sync_loop:
             if math.isnan(loss) or math.isinf(loss):
+                self._diverged_at = it
                 raise FloatingPointError(f"loss diverged: {loss}")
             loop_state["loss"] = loss
         else:
@@ -1019,6 +1084,17 @@ class LocalOptimizer(Optimizer):
                 self._last_throughput = throughput
             self._log_records = 0
             metrics.set_value("throughput", round(throughput, 1))
+            cost = step_fn.cost
+            if cost is not None and throughput > 0 and n_records:
+                step_s = n_records / throughput
+                metrics.set_value("mfu", round(cost.mfu(step_s), 5))
+                metrics.set_value("bytes_per_sec",
+                                  round(cost.bytes_per_s(step_s), 1))
+                programs.get_program_registry().record_mfu(
+                    step_fn.program, cost.mfu(step_s))
+            # the HBM ledger rides the log cadence (rate-limited by its
+            # own knob)
+            programs.get_hbm_ledger().maybe_sample()
             logger.info(
                 "[Epoch %d %d/%d][Iteration %d][Wall Clock %.3fs] "
                 "Throughput is %.1f records/second. Loss is %.4f. %s",

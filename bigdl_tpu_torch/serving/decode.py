@@ -39,10 +39,19 @@ at example shapes (bigdl_tpu/serving/decode.py:470-600).
 these programs: a request queue, admission into free slots through a
 bucketed prefill (or a chunked one for long prompts), continuous
 batching at token granularity, deadlines, page budgeting with eviction
-of younger requests, per-request sampling and speculative rounds.  The
-JAX engine's telemetry hooks (tracer, request X-ray, exemplars, program
-registry, HBM ledger, cost stamps) are not ported, as ``ServingEngine``
-leaves them out.
+of younger requests, per-request sampling and speculative rounds.  Its
+telemetry, as the JAX engine's (``bigdl_tpu_torch.telemetry``): every
+program is registered under the JAX engine's name (``decode_tick``,
+``decode_prefill``, ``decode_write_slot``, ``decode_prefill_chunk``,
+``page_reset``, ``draft_prefill``, ``draft_write_slot``,
+``draft_prefill_chunk``, ``draft_propose``, ``spec_verify``) with its
+signature, so a compile at steady state names its changed axis; the
+tick, or the verify when speculating, is stamped with its flops and
+bytes and accounted per round; tracer instants mark each request's
+edges and each tick carries ``tick:<n>``; the request X-ray charges each
+request's phases (queue, prefill, sample, resident, page stall,
+spec_verify, deliver) and keeps tail exemplars; the KV cache is an HBM
+ledger resident (the pages in use, or the dense grid's reservation).
 """
 from __future__ import annotations
 
@@ -68,6 +77,11 @@ from bigdl_tpu_torch.serving.engine import (DeadlineExceededError,
                                             QueueFullError, ServingFuture)
 from bigdl_tpu_torch.serving.metrics import (PeriodicMetricsLogger,
                                              ServingMetrics)
+from bigdl_tpu_torch.telemetry import costmodel, programs
+from bigdl_tpu_torch.telemetry import requests as request_xray
+from bigdl_tpu_torch.telemetry import workload
+from bigdl_tpu_torch.telemetry.tracer import (CAT_DECODE, get_tracer,
+                                              set_correlation)
 from bigdl_tpu_torch.utils import graphs
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -85,15 +99,16 @@ Tensor = torch.Tensor
 
 
 def _compile(fn: Callable, args: tuple, out_at: Optional[int] = 0,
-             in_place: tuple = ()) -> Callable:
+             in_place: tuple = (), count=None) -> Callable:
     """``fn`` compiled at the shapes of ``args`` with ``args[0]``
     donated (``graphs.donate``: its new value is the output at ``out_at``,
     ``None`` for the whole output).  The other arguments are cloned into
-    static inputs, except those at the positions ``in_place``."""
+    static inputs, except those at the positions ``in_place``.  ``count``
+    is filled from one eager call (``graphs.compile``)."""
     example = (args[0],) + tuple(
         a if j + 1 in in_place else graphs.clone(a)
         for j, a in enumerate(args[1:]))
-    return graphs.compile(graphs.donate(fn, out_at), example)
+    return graphs.compile(graphs.donate(fn, out_at), example, count=count)
 
 
 def _freeze_lengths(cache: dict, old: dict, active: Tensor) -> dict:
@@ -242,10 +257,12 @@ def sampling_tick_fn(model) -> Callable:
 
 
 def build_sampling_tick(model, cache, tokens, active, keys, temp, top_k,
-                        top_p) -> Callable:
-    """:func:`sampling_tick_fn` compiled, the grid ``cache`` donated."""
+                        top_p, count=None) -> Callable:
+    """:func:`sampling_tick_fn` compiled, the grid ``cache`` donated
+    (``count``: see :func:`_compile`)."""
     return _compile(sampling_tick_fn(model),
-                    (cache, tokens, active, keys, temp, top_k, top_p))
+                    (cache, tokens, active, keys, temp, top_k, top_p),
+                    count=count)
 
 
 # ---------------------------------------------------------------------------
@@ -268,10 +285,12 @@ def paged_tick_fn(model) -> Callable:
 
 
 def build_paged_tick(model, cache, table, tokens, active, keys, temp,
-                     top_k, top_p) -> Callable:
-    """:func:`paged_tick_fn` compiled, the pools ``cache`` donated."""
+                     top_k, top_p, count=None) -> Callable:
+    """:func:`paged_tick_fn` compiled, the pools ``cache`` donated
+    (``count``: see :func:`_compile`)."""
     return _compile(paged_tick_fn(model), (cache, table, tokens, active,
-                                           keys, temp, top_k, top_p))
+                                           keys, temp, top_k, top_p),
+                    count=count)
 
 
 def paged_write_slot_fn() -> Callable:
@@ -437,16 +456,16 @@ def spec_verify_fn(model, k: int, paged: bool = False) -> Callable:
     return verify_paged if paged else verify
 
 
-def build_spec_verify(model, k: int, cache, *args, paged: bool = False
-                      ) -> Callable:
+def build_spec_verify(model, k: int, cache, *args, paged: bool = False,
+                      count=None) -> Callable:
     """:func:`spec_verify_fn` compiled at the shapes of ``(cache, *args)``
     (``args``: ``tokens, draft, active``, the block table first when
     ``paged``), the grid ``cache`` donated; the ``draft`` tensor is read
     in place when a call passes the one given here (the propose
-    program's output)."""
+    program's output).  ``count``: see :func:`_compile`."""
     at = 3 if paged else 2  # the draft's position
     return _compile(spec_verify_fn(model, k, paged), (cache,) + args,
-                    in_place=(at,))
+                    in_place=(at,), count=count)
 
 
 def decode_program_check(model, *, slots: int = 8, max_len: int = 160,
@@ -741,6 +760,16 @@ class DecodeEngine:
             collections.deque()
 
         self._rids = itertools.count()
+        self._tick_no = 0
+        self._tick_cost = None  # the tick's (or verify's) cost stamp
+        self._warming = False
+        self._resident_name: Optional[str] = None
+        self._tracer = get_tracer()
+        self._registry = programs.get_program_registry()
+        # request X-ray: exact per-request budgets and tail exemplars
+        self.xray = request_xray.RequestLedger(tracer=self._tracer)
+        self.exemplars = request_xray.ExemplarReservoir(
+            tracer=self._tracer)
         self._periodic = PeriodicMetricsLogger(
             self.log_line, every_s=metrics_log_every_s)
         self._rq: "queue.Queue" = queue.Queue(maxsize=max(1, max_queue))
@@ -768,18 +797,47 @@ class DecodeEngine:
     def recompiles(self) -> int:
         return self.metrics.recompiles
 
-    def _tracked(self, key, build: Callable) -> Callable:
-        """The program ``key``, built by ``build()`` at its first sight,
-        which ``metrics.recompiles`` counts with its seconds (on the card
-        a CUDA graph captured, its warm-up calls included; on the CPU
-        the eager function)."""
+    def _tracked(self, key, build: Callable, program: str,
+                 sig_fn: Callable, stamp: bool = False) -> Callable:
+        """The program ``key``, built by ``build(count)`` at its first
+        sight, which ``metrics.recompiles`` counts with its seconds (on
+        the card a CUDA graph captured, its warm-up calls included; on
+        the CPU the eager function).  Its compile is registered as
+        ``program`` with the signature ``sig_fn()`` (before
+        ``record_recompile``, so that the Watchdog pairs a forensic with
+        that span); a call of a built program counts a call.  With
+        ``stamp``, ``count`` is a cost count, stamped under ``program``
+        as the tick's cost, which each round accounts."""
         prog = self._programs.get(key)
-        if prog is None:
-            t0 = time.perf_counter()
-            prog = build()
-            self.metrics.record_recompile(time.perf_counter() - t0)
-            self._programs[key] = prog
+        if prog is not None:
+            self._registry.record_call(program)
+            return prog
+        sig = sig_fn()
+        count = costmodel.new_count() if stamp else None
+        t0 = time.perf_counter()
+        prog = build(count)
+        dt = time.perf_counter() - t0
+        cost = costmodel.stamp(program, count)
+        if cost is not None:
+            self._tick_cost = cost
+            self.metrics.record_program_cost(cost)
+        programs.register_program(program, sig, prog, dt, cost=cost,
+                                  expected=self._warming,
+                                  registry=self._registry)
+        self.metrics.record_recompile(dt)
+        self._programs[key] = prog
         return prog
+
+    def _sig(self, params, **tree) -> Callable:
+        """A ``sig_fn`` for :meth:`_tracked`: the signature of ``params``
+        (a model, or ``None``) and the arguments ``tree``, whose
+        ``cache``, when present, is donated; ``static`` goes apart."""
+        static = tree.pop("static", None)
+        if params is not None:
+            tree["params"] = params
+        return lambda: programs.signature_of(
+            tree, static=static,
+            donated=("cache",) if "cache" in tree else ())
 
     def _place(self, model, variables: Optional[dict]):
         """``model`` on the engine's device in evaluation mode, with a JAX
@@ -832,45 +890,53 @@ class DecodeEngine:
         otherwise they are captured at their first use."""
         before = self.metrics.recompiles
         with self._lock:
-            if self._spec:
-                if ("propose",) not in self._programs or \
-                        ("verify",) not in self._programs:
-                    self._run_verify(self._run_propose())
-            elif ("tick",) not in self._programs:
-                self._run_tick()
-            idle = next((s for s in range(self.slots)
-                         if self._slot_state[s] is None
-                         and not self._active[s]
-                         and (self._chunking is None
-                              or self._chunking["slot"] != s)), None)
-            for bucket, draft in itertools.product(
-                    self.grid.declared_buckets(), self._sides()):
-                ids = np.zeros((bucket.batch,) + bucket.dims, np.int32)
-                src = ("dprefill" if draft else "prefill", ids.shape)
-                write = ("write",) + src not in self._programs \
-                    and idle is not None
-                if src in self._programs and not write:
-                    continue
-                _, pcache = self._run_prefill(
-                    ids, np.ones((bucket.batch,), np.int32), draft)
-                if write:
-                    self._run_write(pcache, 0, idle, src, draft)
-            for draft in self._sides() if self.prefill_chunk \
-                    and self._chunking is None else ():
-                src = ("dchunk" if draft else "chunk",)
-                write = ("write",) + src not in self._programs \
-                    and idle is not None
-                if src in self._programs and not write:
-                    continue
-                _, staging = self._run_chunk(
-                    self._staging(draft),
-                    np.zeros((1, self.prefill_chunk), np.int32),
-                    np.ones((1,), np.int32), draft)
-                if write:
-                    self._run_write(staging, 0, idle, src, draft)
-            if self._page_zero and ("page_reset",) not in self._programs:
-                self._run_page_reset([])
+            self._warming = True  # declared programs: no forensics
+            try:
+                self._warm()
+            finally:
+                self._warming = False
         return self.metrics.recompiles - before
+
+    def _warm(self):
+        """:meth:`warmup`'s captures, with ``_lock`` held."""
+        if self._spec:
+            if ("propose",) not in self._programs or \
+                    ("verify",) not in self._programs:
+                self._run_verify(self._run_propose())
+        elif ("tick",) not in self._programs:
+            self._run_tick()
+        idle = next((s for s in range(self.slots)
+                     if self._slot_state[s] is None
+                     and not self._active[s]
+                     and (self._chunking is None
+                          or self._chunking["slot"] != s)), None)
+        for bucket, draft in itertools.product(
+                self.grid.declared_buckets(), self._sides()):
+            ids = np.zeros((bucket.batch,) + bucket.dims, np.int32)
+            src = ("dprefill" if draft else "prefill", ids.shape)
+            write = ("write",) + src not in self._programs \
+                and idle is not None
+            if src in self._programs and not write:
+                continue
+            _, pcache = self._run_prefill(
+                ids, np.ones((bucket.batch,), np.int32), draft)
+            if write:
+                self._run_write(pcache, 0, idle, src, draft)
+        for draft in self._sides() if self.prefill_chunk \
+                and self._chunking is None else ():
+            src = ("dchunk" if draft else "chunk",)
+            write = ("write",) + src not in self._programs \
+                and idle is not None
+            if src in self._programs and not write:
+                continue
+            _, staging = self._run_chunk(
+                self._staging(draft),
+                np.zeros((1, self.prefill_chunk), np.int32),
+                np.ones((1,), np.int32), draft)
+            if write:
+                self._run_write(staging, 0, idle, src, draft)
+        if self._page_zero and ("page_reset",) not in self._programs:
+            self._run_page_reset([])
 
     def _tick_args(self, place: Callable) -> tuple:
         host = (self._tokens, self._active, self._keys, self._temps,
@@ -883,8 +949,15 @@ class DecodeEngine:
         """One tick of the whole grid; the next tokens on the host (the
         tick's one synchronisation), the slots' keys advanced."""
         build = build_paged_tick if self.paged else build_sampling_tick
-        prog = self._tracked(("tick",), lambda: build(
-            self.model, *self._tick_args(self._dev)))
+        host = dict(tokens=self._tokens, active=self._active, keys=self._keys,
+                    temp=self._temps, top_k=self._topks, top_p=self._topps)
+        if self.paged:
+            host["table"] = self._alloc.table
+        prog = self._tracked(
+            ("tick",), lambda count: build(
+                self.model, *self._tick_args(self._dev), count=count),
+            "decode_tick", self._sig(self.model, cache=self._cache, **host),
+            stamp=True)
         self._cache, nxt, keys = prog(*self._tick_args(torch.from_numpy))
         self._keys = keys.cpu().numpy().copy()
         return nxt.cpu().numpy().copy()
@@ -893,9 +966,14 @@ class DecodeEngine:
         """The draft's k proposals per slot (S, k), left on the device
         for the verify; the draft cache follows the host's lengths."""
         host = (self._tokens, self._host_len, self._active)
-        prog = self._tracked(("propose",), lambda: build_draft_propose(
-            self._draft_model, self.draft_k, self._dcache,
-            *map(self._dev, host)))
+        prog = self._tracked(
+            ("propose",), lambda count: build_draft_propose(
+                self._draft_model, self.draft_k, self._dcache,
+                *map(self._dev, host)),
+            "draft_propose", self._sig(
+                self._draft_model, cache=self._dcache,
+                tokens=self._tokens, lengths=self._host_len,
+                active=self._active))
         self._dcache, props = prog(self._dcache,
                                    *map(torch.from_numpy, host))
         return props
@@ -909,8 +987,15 @@ class DecodeEngine:
             return (self._cache,) + table + (place(self._tokens), props,
                                              place(self._active))
 
-        prog = self._tracked(("verify",), lambda: build_spec_verify(
-            self.model, self.draft_k, *args(self._dev), paged=self.paged))
+        prog = self._tracked(
+            ("verify",), lambda count: build_spec_verify(
+                self.model, self.draft_k, *args(self._dev),
+                paged=self.paged, count=count),
+            "spec_verify", self._sig(
+                self.model, cache=self._cache, tokens=self._tokens,
+                active=self._active, static={"draft_k": self.draft_k,
+                                             "layout": self.kv_layout}),
+            stamp=True)
         self._cache, emitted, n_emit = prog(*args(torch.from_numpy))
         return emitted.cpu().numpy().copy(), n_emit.cpu().numpy().copy()
 
@@ -921,8 +1006,12 @@ class DecodeEngine:
         model, dtype = (self._draft_model, self._ddtype) if draft \
             else (self.model, self._dtype)
         key = ("dprefill" if draft else "prefill", ids.shape)
-        prog = self._tracked(key, lambda: build_prefill(
-            model, self.max_len, self._dev(ids), self._dev(lengths), dtype))
+        prog = self._tracked(
+            key, lambda count: build_prefill(
+                model, self.max_len, self._dev(ids), self._dev(lengths),
+                dtype),
+            "draft_prefill" if draft else "decode_prefill",
+            self._sig(model, ids=ids, lengths=lengths))
         return prog(torch.from_numpy(ids), torch.from_numpy(lengths))
 
     def _run_write(self, pcache, row: int, slot: int, src: tuple,
@@ -934,21 +1023,26 @@ class DecodeEngine:
         that program's output, which each call then reads in place."""
         rs = (np.array([row], np.int32), np.array([slot], np.int32))
         key = ("write",) + src
+        sig = self._sig(None, cache=self._dcache if draft else self._cache,
+                        prefill_cache=pcache, static={
+                            "batch": src[1][0] if len(src) > 1 else 1,
+                            "layout": "dense" if draft else self.kv_layout})
+        name = "draft_write_slot" if draft else "decode_write_slot"
         if draft:
-            prog = self._tracked(key, lambda: build_write_slot(
-                self._dcache, pcache, *map(self._dev, rs)))
+            prog = self._tracked(key, lambda count: build_write_slot(
+                self._dcache, pcache, *map(self._dev, rs)), name, sig)
             self._dcache = prog(self._dcache, pcache,
                                 *map(torch.from_numpy, rs))
         elif self.paged:
             table_row = self._alloc.table[slot]
-            prog = self._tracked(key, lambda: build_paged_write_slot(
+            prog = self._tracked(key, lambda count: build_paged_write_slot(
                 self._cache, self._dev(table_row), pcache,
-                *map(self._dev, rs)))
+                *map(self._dev, rs)), name, sig)
             self._cache = prog(self._cache, torch.from_numpy(table_row),
                                pcache, *map(torch.from_numpy, rs))
         else:
-            prog = self._tracked(key, lambda: build_write_slot(
-                self._cache, pcache, *map(self._dev, rs)))
+            prog = self._tracked(key, lambda count: build_write_slot(
+                self._cache, pcache, *map(self._dev, rs)), name, sig)
             self._cache = prog(self._cache, pcache,
                                *map(torch.from_numpy, rs))
 
@@ -958,8 +1052,10 @@ class DecodeEngine:
         arr = np.zeros((self._alloc.pages_per_slot,), np.int32)
         ids = np.asarray(pages, np.int32)[:arr.size]
         arr[:ids.size] = ids
-        prog = self._tracked(("page_reset",), lambda: build_page_reset(
-            self._cache, self._dev(arr)))
+        prog = self._tracked(
+            ("page_reset",), lambda count: build_page_reset(
+                self._cache, self._dev(arr)),
+            "page_reset", self._sig(None, cache=self._cache, pages=arr))
         self._cache = prog(self._cache, torch.from_numpy(arr))
 
     def _staging(self, draft: bool = False):
@@ -976,10 +1072,12 @@ class DecodeEngine:
         ``_run_draft_chunk``): the last valid position's logits on the
         host, and the staging cache."""
         model = self._draft_model if draft else self.model
-        prog = self._tracked(("dchunk" if draft else "chunk",),
-                             lambda: build_prefill_chunk(
-                                 model, staging, self._dev(ids),
-                                 self._dev(adv)))
+        prog = self._tracked(
+            ("dchunk" if draft else "chunk",), lambda count:
+            build_prefill_chunk(model, staging, self._dev(ids),
+                                self._dev(adv)),
+            "draft_prefill_chunk" if draft else "decode_prefill_chunk",
+            self._sig(model, cache=staging, ids=ids, advance=adv))
         last, staging = prog(staging, torch.from_numpy(ids),
                              torch.from_numpy(adv))
         return last.float().cpu(), staging
@@ -1055,9 +1153,23 @@ class DecodeEngine:
             self._rq.put_nowait(req)
         except queue.Full:
             self.metrics.inc_rejected()
+            self._tracer.instant("queue_full", CAT_DECODE, corr=f"req:{rid}",
+                                 args={"max_queue": self._rq.maxsize})
             raise QueueFullError(
                 f"decode queue full ({self._rq.maxsize}); retry later"
             ) from None
+        self._tracer.instant("enqueue", CAT_DECODE, corr=f"req:{rid}",
+                             args={"prompt_len": int(prompt.size),
+                                   "max_new": max_new_tokens})
+        self.xray.open(rid, now=now)
+        rec = workload.recorder()
+        if rec is not None:
+            # the resolved seed, so that the stream replays the same tokens
+            rec.record_decode(rid, prompt, max_new_tokens,
+                              temperature=temperature, top_k=top_k,
+                              top_p=top_p,
+                              seed=rid if seed is None else int(seed),
+                              deadline_ms=dl)
         return fut
 
     def generate(self, prompt, max_new_tokens: int,
@@ -1077,6 +1189,20 @@ class DecodeEngine:
             self._started = True
             self._loop_thread.start()
             self._periodic.start()
+            # the KV cache as an HBM ledger resident: a paged engine's
+            # pages in use (retirement shows as memory returned), a dense
+            # engine's fixed reservation
+            ledger = programs.get_hbm_ledger()
+            if self.paged:
+                per_page = self._page_bytes_total()
+                self._resident_name = "decode_kv_pages"
+                ledger.add_resident(
+                    self._resident_name,
+                    lambda: self._alloc.pages_in_use * per_page)
+            else:
+                total = self._cache_bytes_total()
+                self._resident_name = "decode_kv_cache"
+                ledger.add_resident(self._resident_name, lambda: total)
 
     def close(self, drain: bool = True, timeout: float = 60.0):
         """Stop accepting requests and shut down.  ``drain=True`` decodes
@@ -1087,6 +1213,8 @@ class DecodeEngine:
             already, self._closed = self._closed, True
         if already:
             return
+        if self._resident_name is not None:
+            programs.get_hbm_ledger().remove_resident(self._resident_name)
         self._periodic.close()
         self._discard = not drain
         if not self._started:
@@ -1103,11 +1231,15 @@ class DecodeEngine:
             except queue.Empty:
                 break
             if req is not _CLOSE:
+                self.xray.drop(req.rid)
                 req.fut.set_exception(exc)
         for q in (self._pending, self._chunk_pending):
             while q:
-                q.popleft().fut.set_exception(exc)
+                req = q.popleft()
+                self.xray.drop(req.rid)
+                req.fut.set_exception(exc)
         if self._chunking is not None:
+            self.xray.drop(self._chunking["req"].rid)
             self._chunking["req"].fut.set_exception(exc)
             self._chunking = None
 
@@ -1118,6 +1250,7 @@ class DecodeEngine:
         held = [s for s in range(self.slots)
                 if self._slot_state[s] is not None]
         for s in held:
+            self.xray.drop(self._slot_state[s].req.rid)
             self._slot_state[s].req.fut.set_exception(exc)
         for s in held:
             self._free(s, zero_pages=False)
@@ -1167,13 +1300,31 @@ class DecodeEngine:
                     if stopping and self._idle():
                         return
                     continue
+                # the tick's spans on this thread carry its index
+                self._tick_no += 1
+                if self._tracer.enabled:
+                    set_correlation(f"tick:{self._tick_no}")
                 t0 = time.perf_counter()
                 if self._spec:
+                    # the propose and verify round is the spec_verify
+                    # phase; the gaps between rounds stay resident
+                    spec_rids = [st.req.rid for s, st in
+                                 enumerate(self._slot_state)
+                                 if st is not None and self._active[s]] \
+                        if self.xray.enabled else ()
+                    self.xray.to_many(spec_rids, request_xray.PHASE_SPEC,
+                                      now=t0)
                     emitted, n_emit = self._run_verify(self._run_propose())
+                    self.xray.to_many(spec_rids,
+                                      request_xray.PHASE_RESIDENT)
                 else:
                     emitted = self._run_tick()[:, None]
                     n_emit = self._active.astype(np.int32)
                 self.metrics.record_tick(time.perf_counter() - t0)
+                if self._tick_cost is not None:
+                    self.metrics.record_compute(
+                        self._tick_cost.flops,
+                        self._tick_cost.bytes_accessed)
                 n_active = int(self._active.sum())
                 self.metrics.record_slot_occupancy(n_active / self.slots)
                 if self._spec:
@@ -1210,9 +1361,11 @@ class DecodeEngine:
         if req.deadline is None or now <= req.deadline:
             return False
         self.metrics.inc_expired()
+        self._tracer.instant("deadline_reject", CAT_DECODE,
+                             corr=f"req:{req.rid}")
         req.fut.set_exception(DeadlineExceededError(
             f"deadline expired {1e3 * (now - req.deadline):.1f}ms before "
-            f"{what}"))
+            f"{what}", attribution=self.xray.close(req.rid, now=now)))
         return True
 
     def _admit(self):
@@ -1262,11 +1415,14 @@ class DecodeEngine:
             for lo in range(0, len(rs), self.grid.max_batch):
                 chunk = rs[lo:lo + self.grid.max_batch]
                 t0 = time.perf_counter()
+                self.xray.to_many((r.rid for r in chunk),
+                                  request_xray.PHASE_PREFILL, now=t0)
                 try:
                     self._prefill_batch(chunk, dims, free_iter)
                 except Exception as e:  # per-request delivery
                     for r in chunk:
                         if not r.fut.done():
+                            self.xray.drop(r.rid)
                             r.fut.set_exception(e)
                     continue
                 self.metrics.record_prefill(time.perf_counter() - t0)
@@ -1283,6 +1439,7 @@ class DecodeEngine:
         if self._spec:
             caches[True] = self._run_prefill(ids, lengths, draft=True)[1]
         for i, r in enumerate(chunk):
+            self.xray.to(r.rid, request_xray.PHASE_SAMPLE)
             tok0 = _host_sample(logits[i], r)
             if self._done_at_first(r, tok0):
                 continue
@@ -1291,6 +1448,7 @@ class DecodeEngine:
                     slot, int(r.prompt.size) + self._page_slack()):
                 # admission reserved these pages; losing them is
                 # unexpected but recoverable: wait, do not evict
+                self.xray.to(r.rid, request_xray.PHASE_PAGE_STALL)
                 self._pending.appendleft(r)
                 continue
             if self.paged:
@@ -1320,6 +1478,9 @@ class DecodeEngine:
         self._temps[slot] = req.temp
         self._topks[slot] = req.top_k
         self._topps[slot] = req.top_p
+        self._tracer.instant("slot_fill", CAT_DECODE, corr=f"req:{req.rid}",
+                             args={"slot": slot})
+        self.xray.to(req.rid, request_xray.PHASE_RESIDENT)
 
     # ------------------------------------------------------------------
     # chunked prefill: one chunk per loop iteration, so a long prompt
@@ -1332,8 +1493,10 @@ class DecodeEngine:
             free = self._free_slots()
             if free:
                 req = self._chunk_pending.popleft()
-                if self._expire(req, time.perf_counter(), "prefill"):
+                now = time.perf_counter()
+                if self._expire(req, now, "prefill"):
                     return
+                self.xray.to(req.rid, request_xray.PHASE_PREFILL, now=now)
                 self._chunking = {
                     "req": req, "slot": free[0], "offset": 0,
                     "staging": {d: self._staging(d) for d in self._sides()}}
@@ -1362,10 +1525,14 @@ class DecodeEngine:
             staging[True] = self._run_chunk(staging[True], ids, adv,
                                             draft=True)[1]
         self.metrics.inc_prefill_chunks()
+        self.xray.note(req.rid, "prefill_chunks")
         self.metrics.record_prefill(time.perf_counter() - now)
+        self._tracer.instant("prefill_chunk", CAT_DECODE,
+                             corr=f"req:{req.rid}", args={"lo": lo, "hi": hi})
         c["offset"] = hi
         if hi < req.prompt.size:
             return  # more chunks on later loop iterations
+        self.xray.to(req.rid, request_xray.PHASE_SAMPLE)
         tok0 = _host_sample(last[0], req)
         if self._done_at_first(req, tok0):
             self._chunking = None
@@ -1380,6 +1547,7 @@ class DecodeEngine:
         if self.paged:
             if not self._alloc.ensure(
                     slot, int(req.prompt.size) + self._page_slack()):
+                self.xray.to(req.rid, request_xray.PHASE_PAGE_STALL)
                 return  # retry next loop iteration
             self.metrics.record_pages(self._alloc.pages_in_use)
         self._chunking = None
@@ -1412,7 +1580,17 @@ class DecodeEngine:
             if self._slot_state[s] is None:
                 continue  # evicted by an older slot this round
             need = int(self._host_len[s]) + self._page_slack()
-            self._active[s] = self._ensure_pages(s, need)
+            funded = self._ensure_pages(s, need)
+            rid = self._slot_state[s].req.rid
+            if funded and not self._active[s]:
+                # a paused slot resumes: its page stall ends here
+                self.xray.to(rid, request_xray.PHASE_RESIDENT)
+            elif not funded and self._active[s]:
+                self._tracer.instant("page_pause", CAT_DECODE,
+                                     args={"slot": s})
+                self.xray.to(rid, request_xray.PHASE_PAGE_STALL)
+                self.xray.note(rid, "page_pauses")
+            self._active[s] = funded
 
     def _ensure_pages(self, slot: int, tokens: int) -> bool:
         """Grow ``slot`` to cover ``tokens``, evicting the youngest
@@ -1436,7 +1614,14 @@ class DecodeEngine:
         greedy and seeded decoding restart to the same tokens, so an
         eviction costs time, not output."""
         self.metrics.inc_page_evictions()
-        self._pending.appendleft(self._slot_state[victim].req)
+        self._tracer.instant("page_evict", CAT_DECODE,
+                             args={"slot": victim,
+                                   "pages": self._alloc.owned(victim)})
+        req = self._slot_state[victim].req
+        # the whole wait to run again is charged to the eviction
+        self.xray.to(req.rid, request_xray.PHASE_PAGE_STALL)
+        self.xray.note(req.rid, "page_evictions")
+        self._pending.appendleft(req)
         self._free(victim)
 
     # ------------------------------------------------------------------
@@ -1472,6 +1657,7 @@ class DecodeEngine:
             self._tokens[s] = emitted[s, n - 1]
             st = self._slot_state[s]
             req = st.req
+            self.xray.note(req.rid, "spec_rounds" if self._spec else "ticks")
             reason = None
             for tok in emitted[s, :n]:
                 st.generated.append(int(tok))
@@ -1493,10 +1679,14 @@ class DecodeEngine:
         return delivered
 
     def _finish(self, req: _DecodeRequest, tokens: List[int], reason: str):
+        self.xray.to(req.rid, request_xray.PHASE_DELIVER)
         self.metrics.inc_finished(reason)
         self.metrics.inc_completed()
         self.metrics.record_latency(time.perf_counter() - req.t_submit)
+        self._tracer.instant("deliver", CAT_DECODE, corr=f"req:{req.rid}",
+                             args={"reason": reason, "tokens": len(tokens)})
         req.fut.set_result(np.asarray(tokens, np.int32))
+        self.exemplars.offer(self.xray.close(req.rid))
 
     def _free(self, slot: int, zero_pages: bool = True):
         self._active[slot] = False
@@ -1510,6 +1700,10 @@ class DecodeEngine:
             if freed and self._page_zero and zero_pages:
                 self._run_page_reset(freed)
             self.metrics.record_pages(self._alloc.pages_in_use)
+        self._tracer.instant("slot_free", CAT_DECODE, args={"slot": slot})
 
     def log_line(self) -> str:
-        return self.metrics.log_line()
+        line = self.metrics.log_line()
+        if self.xray.enabled:
+            line = f"{line} | {self.xray.log_line()}"
+        return line

@@ -20,12 +20,18 @@
   per-request deadlines checked before dispatch
   (:class:`DeadlineExceededError`), per-request exception delivery, and a
   draining ``close()`` / context manager.
-
-The JAX engine's request X-ray, tracer, program registry and workload
-recorder hooks are telemetry and are not ported yet.
+* Telemetry (``bigdl_tpu_torch.telemetry``), host-side only: tracer
+  instants at each request's edges (``enqueue``, ``queue_full``,
+  ``deadline_reject``, ``dispatch_batch`` with its ``rids``,
+  ``deliver``), the request X-ray's phases (queue, pad, device, deliver)
+  and tail exemplars, each bucket's cost stamp (counted from one eager
+  call before its capture) and compile in the program registry, the
+  flops and bytes of every dispatched batch, and the workload recorder.
+  The debug server and the flight recorder are not ported yet.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -39,7 +45,12 @@ from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.serving.bucketing import Bucket, BucketGrid
 from bigdl_tpu_torch.serving.metrics import (PeriodicMetricsLogger,
                                              ServingMetrics)
-from bigdl_tpu_torch.serving.warmup import build_forward, compile_bucket
+from bigdl_tpu_torch.serving.warmup import (build_forward, bucket_struct,
+                                            compile_bucket)
+from bigdl_tpu_torch.telemetry import costmodel, programs
+from bigdl_tpu_torch.telemetry import requests as request_xray
+from bigdl_tpu_torch.telemetry import workload
+from bigdl_tpu_torch.telemetry.tracer import CAT_SERVE, get_tracer
 from bigdl_tpu_torch.utils import graphs
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -54,7 +65,19 @@ class QueueFullError(ServingError):
 
 
 class DeadlineExceededError(ServingError):
-    """The request's deadline expired before dispatch."""
+    """The request's deadline expired.  While the request X-ray is live,
+    ``attribution`` holds the request's exact per-phase budget and the
+    message names the dominant phase."""
+
+    def __init__(self, msg: str = "",
+                 attribution: Optional[request_xray.Attribution] = None):
+        if attribution is not None:
+            dom, dom_s = attribution.dominant()
+            if dom:
+                msg = (f"{msg} [dominant: {dom} {1e3 * dom_s:.1f}ms of "
+                       f"{1e3 * attribution.latency:.1f}ms]")
+        super().__init__(msg)
+        self.attribution = attribution
 
 
 class EngineClosedError(ServingError):
@@ -115,13 +138,14 @@ class ServingFuture:
 
 
 class _Request:
-    __slots__ = ("x", "fut", "t_submit", "deadline")
+    __slots__ = ("x", "fut", "t_submit", "deadline", "rid")
 
-    def __init__(self, x, fut, t_submit, deadline):
+    def __init__(self, x, fut, t_submit, deadline, rid=0):
         self.x = x
         self.fut = fut
         self.t_submit = t_submit
         self.deadline = deadline
+        self.rid = rid  # correlation ID joining the request's spans
 
 
 _CLOSE = object()  # queue sentinel
@@ -166,6 +190,15 @@ class ServingEngine:
         self.input_dtype = input_dtype
         self._forward = build_forward(self.model)
         self._compiled: dict = {}  # (batch, dims) -> compiled forward
+        self._bucket_costs: dict = {}  # (batch, dims) -> ProgramCost
+        self._warming = False
+        self._tracer = get_tracer()
+        self._registry = programs.get_program_registry()
+        self._rids = itertools.count()
+        # request X-ray: exact per-request budgets and tail exemplars
+        self.xray = request_xray.RequestLedger(tracer=self._tracer)
+        self.exemplars = request_xray.ExemplarReservoir(
+            tracer=self._tracer)
         self._pool = (graphs.new_pool() if self.device.type == "cuda"
                       else None)
         # compiles, replays and the copies of their outputs: one thread
@@ -206,10 +239,15 @@ class ServingEngine:
         sets the shared pool's size); returns how many compiles ran (0
         on a re-warm)."""
         before = self.metrics.recompiles
-        for bucket in sorted(self.grid.declared_buckets(), reverse=True,
-                             key=lambda b: b.batch * int(np.prod(b.dims))):
-            with self._run_lock:
-                self._ensure_bucket(bucket.batch, bucket.dims)
+        # declared buckets are expected compiles: no forensics for them
+        self._warming = True
+        try:
+            for bucket in sorted(self.grid.declared_buckets(), reverse=True,
+                                 key=lambda b: b.batch * int(np.prod(b.dims))):
+                with self._run_lock:
+                    self._ensure_bucket(bucket.batch, bucket.dims)
+        finally:
+            self._warming = False
         return self.metrics.recompiles - before
 
     def _ensure_bucket(self, batch: int, dims: Tuple[int, ...]) -> Callable:
@@ -218,10 +256,28 @@ class ServingEngine:
         key = (batch, tuple(dims))
         fwd = self._compiled.get(key)
         if fwd is None:
+            bucket = Bucket(*key)
+            count = costmodel.new_count()
             t0 = time.perf_counter()
-            fwd = compile_bucket(self._forward, Bucket(*key),
-                                 self.input_dtype, self.device, self._pool)
-            self.metrics.record_recompile(time.perf_counter() - t0)
+            fwd = compile_bucket(self._forward, bucket, self.input_dtype,
+                                 self.device, self._pool, count)
+            dt = time.perf_counter() - t0
+            # the bucket's flops and bytes, which _run accounts per batch
+            cost = costmodel.stamp(
+                f"serving_forward:{batch}x" + "x".join(map(str, dims)),
+                count)
+            if cost is not None:
+                self._bucket_costs[key] = cost
+                self.metrics.record_program_cost(cost)
+            # registered before record_recompile's span, so that the
+            # Watchdog pairs its forensic instant with that span
+            programs.register_program(
+                "serving_forward",
+                programs.signature_of(
+                    {"params": self.model,
+                     "x": bucket_struct(bucket, self.input_dtype)}),
+                fwd, dt, cost=cost, expected=self._warming)
+            self.metrics.record_recompile(dt)
             self._compiled[key] = fwd
         return fwd
 
@@ -236,9 +292,14 @@ class ServingEngine:
         graph, and the next replay writes it while the drain thread may
         not have read this batch yet."""
         x = self._to_device(xp)
+        key = (xp.shape[0], tuple(xp.shape[1:]))
         with self._run_lock:
-            y = self._ensure_bucket(xp.shape[0], tuple(xp.shape[1:]))(x)
-            return y.to(torch.float32, copy=True)
+            fwd = self._ensure_bucket(*key)
+            cost = self._bucket_costs.get(key)
+            if cost is not None:
+                self.metrics.record_compute(cost.flops, cost.bytes_accessed)
+            self._registry.record_call("serving_forward")
+            return fwd(x).to(torch.float32, copy=True)
 
     # ------------------------------------------------------------------
     # client API
@@ -254,14 +315,24 @@ class ServingEngine:
         now = time.perf_counter()
         dl = deadline_ms if deadline_ms is not None \
             else self.default_deadline_ms
-        req = _Request(x, fut, now, now + dl / 1e3 if dl is not None else None)
+        rid = next(self._rids)
+        req = _Request(x, fut, now, now + dl / 1e3 if dl is not None else None,
+                       rid=rid)
         try:
             self._rq.put_nowait(req)
         except queue.Full:
             self.metrics.inc_rejected()
+            self._tracer.instant("queue_full", CAT_SERVE, corr=f"req:{rid}",
+                                 args={"max_queue": self._rq.maxsize})
             raise QueueFullError(
                 f"request queue full ({self._rq.maxsize}); retry later"
             ) from None
+        # the request's ``enqueue`` instant and its X-ray entry are
+        # recorded by the dispatcher, at this submit time, for its whole
+        # batch at once: a traced submit costs the caller nothing more
+        rec = workload.recorder()
+        if rec is not None:
+            rec.record_serve(rid, x.shape, str(x.dtype), deadline_ms=dl)
         return fut
 
     def predict(self, x, deadline_ms: Optional[float] = None,
@@ -365,16 +436,26 @@ class ServingEngine:
         self._fly.put(_CLOSE)
 
     def _dispatch(self, batch: List[_Request]):
+        traced = self._tracer.enabled  # as the batch is dispatched
+        if traced:
+            self._tracer.add_instants(
+                "enqueue", CAT_SERVE, [r.t_submit for r in batch],
+                [f"req:{r.rid}" for r in batch])
+        self.xray.open_many((r.rid, r.t_submit) for r in batch)
         now = time.perf_counter()
         live: List[_Request] = []
         for r in batch:
             if self._discard:
+                self.xray.drop(r.rid)
                 r.fut.set_exception(EngineClosedError("engine closed"))
             elif r.deadline is not None and now > r.deadline:
                 self.metrics.inc_expired()
+                self._tracer.instant("deadline_reject", CAT_SERVE,
+                                     corr=f"req:{r.rid}")
                 r.fut.set_exception(DeadlineExceededError(
                     f"deadline expired {1e3 * (now - r.deadline):.1f}ms "
-                    "before dispatch"))
+                    "before dispatch",
+                    attribution=self.xray.close(r.rid, now=now)))
             else:
                 live.append(r)
         groups: dict = {}
@@ -385,15 +466,31 @@ class ServingEngine:
             for lo in range(0, len(rs), self.grid.max_batch):
                 chunk = rs[lo:lo + self.grid.max_batch]
                 b = self.grid.choose_batch(len(chunk))
+                t0 = time.perf_counter()
                 try:
                     xp = self.grid.pad_batch([r.x for r in chunk], dims, b,
                                              np.float32)
                     y = self._run(xp)
                 except Exception as e:  # per-request delivery, keep serving
                     for r in chunk:
+                        self.xray.drop(r.rid)
                         r.fut.set_exception(e)
                     continue
+                t1 = time.perf_counter()
+                self.metrics.record_dispatch(t1 - t0)
+                # the batch's phases, charged once its forward is on the
+                # device: the bookkeeping overlaps the device's work
+                self.xray.to_many((r.rid for r in chunk),
+                                  request_xray.PHASE_PAD, now=t0)
+                self.xray.to_many((r.rid for r in chunk),
+                                  request_xray.PHASE_DEVICE, now=t1)
                 self.metrics.record_batch(len(chunk), b)
+                if traced:
+                    # one instant per batch, naming its requests
+                    self._tracer.instant(
+                        "dispatch_batch", CAT_SERVE,
+                        args={"bucket": [b, *dims],
+                              "rids": [r.rid for r in chunk]})
                 # bounded: blocks while pipeline_depth batches are in
                 # flight (backpressure instead of unbounded enqueue)
                 self._fly.put((y, dims, chunk))
@@ -407,17 +504,33 @@ class ServingEngine:
             if item is _CLOSE:
                 return
             y, dims, chunk = item
+            t0 = time.perf_counter()
             try:
                 ynp = y.cpu().numpy()  # waits for the device
             except Exception as e:
                 for r in chunk:
+                    self.xray.drop(r.rid)
                     r.fut.set_exception(e)
                 continue
             now = time.perf_counter()
+            self.metrics.record_fetch(now - t0)
+            traced = self._tracer.enabled  # as the batch is delivered
             for i, r in enumerate(chunk):
                 r.fut.set_result(self.grid.unpad(ynp[i], r.x.shape, dims))
                 self.metrics.record_latency(now - r.t_submit)
             self.metrics.inc_completed(len(chunk))
+            # the batch's deliver instants and X-ray closes after its
+            # results: tracing adds nothing to the requests' latency here
+            if traced:
+                self._tracer.add_instants(
+                    "deliver", CAT_SERVE, [now] * len(chunk),
+                    [f"req:{r.rid}" for r in chunk])
+            for att in self.xray.close_many(
+                    [r.rid for r in chunk], request_xray.PHASE_DELIVER, now):
+                self.exemplars.offer(att)
 
     def log_line(self) -> str:
-        return self.metrics.log_line()
+        line = self.metrics.log_line()
+        if self.xray.enabled:
+            line = f"{line} | {self.xray.log_line()}"
+        return line

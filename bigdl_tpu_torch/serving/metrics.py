@@ -1,21 +1,26 @@
-"""Serving metrics (the subset of bigdl_tpu/serving/metrics.py that the
-engines record): request latency percentiles, throughput, batch
-occupancy, queue depth, rejected and expired requests, the compile
-counter ``recompiles`` (bigdl_tpu/serving/metrics.py:27) with its
-seconds; the decode engine's counters (prefill and tick times, decoded
-tokens, slot occupancy, retirements by reason, pages in use, page
-evictions, prefill chunks, speculative draft tokens proposed and
-accepted); the canonical ``log_line()``; and
-:class:`PeriodicMetricsLogger`, which logs an engine's line on a
-cadence.
+"""Serving metrics (counterpart of bigdl_tpu/serving/metrics.py):
+request latency percentiles and its Prometheus-style histogram
+(:data:`LATENCY_BUCKETS`), throughput, batch occupancy, queue depth,
+rejected and expired requests, the compile counter ``recompiles`` with
+its seconds; the decode engine's counters (prefill and tick times,
+decoded tokens, slot occupancy, retirements by reason, pages in use,
+page evictions, prefill chunks, speculative draft tokens proposed and
+accepted); cost and MFU (each stamped program's operations and bytes,
+``telemetry/costmodel.py``, summed per dispatch: GF/s, bytes/s and MFU
+over the wall clock since the start, idle time counted); the canonical
+``log_line()``; ``write_summary`` to TensorBoard through
+``visualization``'s ``ServingSummary``; and
+:class:`PeriodicMetricsLogger`, which logs an engine's line on a cadence
+and samples the HBM ledger with it.
 
-The JAX engine's cost/MFU columns read XLA's ``cost_analysis``; they
-have no counterpart here yet, nor has ``write_summary`` (it writes
-through ``visualization/``); :attr:`ServingMetrics.SUMMARY_TAGS` names
-the tag it gives the speculative acceptance rate.
+The timed phases (``recompile``, ``serve_dispatch``, ``serve_fetch``,
+``decode_prefill``, ``decode_tick``) are also spans of the shared
+tracer, on the thread that records them; latencies and occupancies are
+samples, not spans.
 """
 from __future__ import annotations
 
+import bisect
 import logging
 import os
 import threading
@@ -23,9 +28,18 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
-__all__ = ["PeriodicMetricsLogger", "ServingMetrics", "metrics_log_every_s"]
+from bigdl_tpu_torch.telemetry import costmodel
+from bigdl_tpu_torch.telemetry.tracer import CAT_SERVE, get_tracer
+
+__all__ = ["LATENCY_BUCKETS", "PeriodicMetricsLogger", "ServingMetrics",
+           "metrics_log_every_s"]
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
+
+#: ``le`` bounds (seconds) of the request-latency histogram: cumulative
+#: buckets a scraper can add up across hosts, unlike percentiles
+LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                   0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
 
 class ServingMetrics:
@@ -50,15 +64,34 @@ class ServingMetrics:
         self._recompile_s = 0.0
         self._queue_depth = 0
         self._pages_in_use = 0
+        # raw latency histogram counts; the last cell is +Inf
+        self._lat_buckets = [0] * (len(LATENCY_BUCKETS) + 1)
+        self._lat_sum = 0.0
+        # stamped program costs, and the flops and bytes dispatched
+        self._program_costs: dict = {}
+        self._flops_done = 0.0
+        self._bytes_done = 0.0
+        self._compute_devices = 1
+        self._tracer = get_tracer()
 
     # -- recording (engine-internal) -----------------------------------
     def _inc(self, key: str, n: int = 1):
         with self._lock:
             self._counts[key] += n
 
+    def _span(self, name: str, seconds: float):
+        """The phase that just ended on this thread as a span."""
+        tr = self._tracer
+        if tr.enabled:
+            t1 = time.perf_counter()
+            tr.add_span(name, CAT_SERVE, t1 - seconds, t1)
+
     def record_latency(self, seconds: float):
+        i = bisect.bisect_left(LATENCY_BUCKETS, seconds)  # len: +Inf
         with self._lock:
             self._latency.append(seconds)
+            self._lat_sum += seconds
+            self._lat_buckets[i] += 1
 
     def record_batch(self, n_real: int, bucket_batch: int):
         with self._lock:
@@ -71,6 +104,15 @@ class ServingMetrics:
         with self._lock:
             self._counts["recompiles"] += 1
             self._recompile_s += seconds
+        self._span("recompile", seconds)
+
+    def record_dispatch(self, seconds: float):
+        """One batch padded and its forward enqueued (dispatcher)."""
+        self._span("serve_dispatch", seconds)
+
+    def record_fetch(self, seconds: float):
+        """One batch's wait for its result on the host (drain)."""
+        self._span("serve_fetch", seconds)
 
     def _mean_add(self, key: str, value: float):
         with self._lock:
@@ -87,12 +129,14 @@ class ServingMetrics:
     def record_prefill(self, seconds: float):
         """One prefill batch or prefill chunk, host seconds."""
         self._mean_add("prefill", seconds)
+        self._span("decode_prefill", seconds)
 
     def record_tick(self, seconds: float):
         """One grid tick (one token per active slot), host seconds."""
         with self._lock:
             self._ticks.append(seconds)
         self._mean_add("tick", seconds)
+        self._span("decode_tick", seconds)
 
     def record_decode_tokens(self, n: int):
         self._inc("decoded_tokens", n)
@@ -139,6 +183,21 @@ class ServingMetrics:
     def set_queue_depth(self, depth: int):
         with self._lock:
             self._queue_depth = depth
+
+    # -- cost and MFU (telemetry/costmodel.py) --------------------------
+    def record_program_cost(self, cost) -> None:
+        """Keep the :class:`~bigdl_tpu_torch.telemetry.costmodel.
+        ProgramCost` stamp of a program this engine dispatches."""
+        with self._lock:
+            self._program_costs[cost.name] = cost
+            self._compute_devices = max(self._compute_devices,
+                                        cost.n_devices)
+
+    def record_compute(self, flops: float, bytes_accessed: float):
+        """Account one dispatch of a stamped program."""
+        with self._lock:
+            self._flops_done += flops
+            self._bytes_done += bytes_accessed
 
     # -- reading -------------------------------------------------------
     @property
@@ -187,6 +246,21 @@ class ServingMetrics:
             return 0.0
         i = max(0, min(len(xs) - 1, int(round(q / 100.0 * (len(xs) - 1)))))
         return 1e3 * xs[i]
+
+    def latency_histogram(self) -> dict:
+        """The request-latency histogram in Prometheus form: ``buckets``
+        is the cumulative (le, count) series ending at +Inf, with the
+        ``sum`` and ``count`` pair."""
+        with self._lock:
+            raw = list(self._lat_buckets)
+            total_s = self._lat_sum
+        cum, total = [], 0
+        for i, le in enumerate(LATENCY_BUCKETS):
+            total += raw[i]
+            cum.append((le, total))
+        n = total + raw[-1]
+        cum.append((float("inf"), n))
+        return {"buckets": cum, "sum": total_s, "count": n}
 
     def occupancy(self) -> float:
         """Mean real rows / bucket batch over the sample window."""
@@ -255,6 +329,34 @@ class ServingMetrics:
             p = self._counts["spec_proposed"]
             return self._counts["spec_accepted"] / p if p else 0.0
 
+    def program_costs(self) -> dict:
+        with self._lock:
+            return dict(self._program_costs)
+
+    def gflops_per_sec(self) -> float:
+        """Dispatched model GFLOP/s since the start (the cost model's
+        operations, not hardware counters)."""
+        dt = time.perf_counter() - self._t0
+        with self._lock:
+            f = self._flops_done
+        return f / dt / 1e9 if dt > 0 else 0.0
+
+    def bytes_per_sec(self) -> float:
+        dt = time.perf_counter() - self._t0
+        with self._lock:
+            b = self._bytes_done
+        return b / dt if dt > 0 else 0.0
+
+    def mfu(self) -> float:
+        """Model-flops-utilization over the wall clock since the start:
+        idle time counts against it."""
+        dt = time.perf_counter() - self._t0
+        with self._lock:
+            f, n = self._flops_done, self._compute_devices
+        if dt <= 0 or not f:
+            return 0.0
+        return costmodel.mfu(f, dt, n_devices=n)
+
     def snapshot(self) -> dict:
         return {
             "completed": self.completed,
@@ -280,11 +382,44 @@ class ServingMetrics:
             "page_evictions": self.page_evictions,
             "spec_acceptance_rate": self.spec_acceptance_rate(),
             "prefill_chunks": self.prefill_chunks,
+            "mfu": self.mfu(),
+            "gflops_per_sec": self.gflops_per_sec(),
+            "bytes_per_sec": self.bytes_per_sec(),
         }
 
-    #: the JAX package's summary tag (its ``write_summary``) of the
-    #: speculative snapshot key
-    SUMMARY_TAGS = {"spec_acceptance_rate": "Serving/SpecAcceptanceRate"}
+    #: TensorBoard tag of each snapshot key that :meth:`write_summary`
+    #: exports (the JAX package's tags)
+    SUMMARY_TAGS = {
+        "req_per_sec": "Serving/ThroughputReqPerSec",
+        "tokens_per_sec": "Serving/TokensPerSec",
+        "p50_ms": "Serving/LatencyP50Ms",
+        "p95_ms": "Serving/LatencyP95Ms",
+        "p99_ms": "Serving/LatencyP99Ms",
+        "occupancy": "Serving/BatchOccupancy",
+        "slot_occupancy": "Serving/SlotOccupancy",
+        "queue_depth": "Serving/QueueDepth",
+        "recompiles": "Serving/Recompiles",
+        "completed": "Serving/Completed",
+        "rejected": "Serving/Rejected",
+        "expired": "Serving/Expired",
+        "p50_tick_ms": "Serving/TickP50Ms",
+        "p95_tick_ms": "Serving/TickP95Ms",
+        "mfu": "Serving/MFU",
+        "gflops_per_sec": "Serving/GFlopsPerSec",
+        "pages_in_use": "Serving/PagesInUse",
+        "page_evictions": "Serving/PageEvictions",
+        "spec_acceptance_rate": "Serving/SpecAcceptanceRate",
+        "prefill_chunks": "Serving/PrefillChunks",
+    }
+
+    def write_summary(self, summary, step: int) -> dict:
+        """Write the snapshot's :attr:`SUMMARY_TAGS` through a
+        ``visualization`` summary writer (``ServingSummary``); returns
+        the snapshot written."""
+        snap = self.snapshot()
+        for key, tag in self.SUMMARY_TAGS.items():
+            summary.add_scalar(tag, float(snap[key]), step)
+        return snap
 
     def log_line(self) -> str:
         s = self.snapshot()
@@ -307,6 +442,9 @@ class ServingMetrics:
             line += f" | chunks={s['prefill_chunks']}"
         if s["spec_acceptance_rate"]:
             line += f" | spec acc={100 * s['spec_acceptance_rate']:.0f}%"
+        if s["gflops_per_sec"]:
+            line += (f" | {s['gflops_per_sec']:.1f} GF/s | "
+                     f"mfu={100 * s['mfu']:.2f}%")
         return line
 
 
@@ -323,10 +461,11 @@ def metrics_log_every_s(default: float = 0.0) -> float:
 class PeriodicMetricsLogger:
     """A thread that logs an engine's ``log_line()`` every ``every_s``
     seconds (``None``: :func:`metrics_log_every_s`; 0 is off) to
-    ``sink`` (default: this module's logger at INFO).  ``thread`` is the
-    thread once started (``None`` while off).  ``close()`` stops it and
-    is idempotent; both serving engines call it from their own
-    ``close()``."""
+    ``sink`` (default: this module's logger at INFO), and samples the
+    HBM ledger on the same cadence (rate-limited by its own
+    ``BIGDL_TPU_HBM_EVERY_S``).  ``thread`` is the thread once started
+    (``None`` while off).  ``close()`` stops it and is idempotent; both
+    serving engines call it from their own ``close()``."""
 
     def __init__(self, emit: Callable[[], str],
                  every_s: Optional[float] = None,
@@ -347,7 +486,10 @@ class PeriodicMetricsLogger:
         return self
 
     def _run(self):
+        from bigdl_tpu_torch.telemetry.programs import get_hbm_ledger
+
         while not self._stop.wait(self.every_s):
+            get_hbm_ledger().maybe_sample()  # never raises
             try:
                 self._sink(self._emit())
             except Exception:  # a log line must never stop an engine

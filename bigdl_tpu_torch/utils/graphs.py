@@ -27,6 +27,11 @@ them, and so may a replay of another graph captured into the same memory
 pool (:func:`new_pool`): read or copy them before that.  A ``Compiled``,
 and all graphs of one pool, are called from one thread at a time.
 
+``compile(..., count=c)`` fills ``c`` (a ``telemetry.costmodel.Count``)
+with the operations and bytes of one eager call made before the capture:
+the first warm-up call on the card, a call on copies of the example
+arguments on the CPU; never a capture or a replay.
+
 ``COUNTS`` adds up, over the process, the captures, their seconds and
 the replays, as the kernels' ``LAUNCHES`` count launches.  A kernel
 wrapper counts a launch when the host enqueues it, so a capture counts
@@ -44,8 +49,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 __all__ = ["COUNTS", "Cache", "Compiled", "WARMUP", "clone", "compile",
-           "donate", "leaves", "new_pool", "prepare", "reset_counts",
-           "signature"]
+           "counted", "donate", "leaves", "new_pool", "prepare",
+           "reset_counts", "signature", "unless_capturing"]
 
 #: warm-up calls before a capture (lazy initialisation: cuBLAS handles
 #: and workspaces, cuDNN plans, the kernels' shared-memory attributes,
@@ -193,6 +198,23 @@ def _collector_off():
                 gc.enable()
 
 
+def unless_capturing(fn: Callable[[], Any]) -> Any:
+    """``fn()``, or None while a capture runs in any thread; no capture
+    starts while ``fn`` runs (the HBM ledger's samples)."""
+    with _collector_lock:
+        return None if _capturing else fn()
+
+
+def counted(fn: Callable, args: tuple, count) -> Any:
+    """``fn(*args)``, its operations and bytes counted into ``count``."""
+    from bigdl_tpu_torch.telemetry.costmodel import counting
+
+    with counting(count):
+        out = fn(*args)
+    count.set_io(args, out)
+    return out
+
+
 def _launches() -> Dict[str, int]:
     """The hand-written kernels' launch counters, merged."""
     from bigdl_tpu_torch.ops import flash_attention, fused_matmul, int8_matmul
@@ -206,9 +228,11 @@ class Compiled:
     docstring.  ``captures`` is 1, ``capture_seconds`` the time the
     warm-up and the capture took, ``replays`` the calls since, and
     ``launches`` the hand-written kernels the capture recorded (each
-    replay runs them again), by name."""
+    replay runs them again), by name.  A ``count`` is filled from the first
+    warm-up call."""
 
-    def __init__(self, fn: Callable, example_args: tuple, pool=None):
+    def __init__(self, fn: Callable, example_args: tuple, pool=None,
+                 count=None):
         self._static = leaves(example_args)
         tensors = [t for t in self._static if torch.is_tensor(t)]
         if not tensors:
@@ -220,8 +244,11 @@ class Compiled:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                fn(*example_args)
+            for i in range(WARMUP):
+                if i == 0 and count is not None:
+                    counted(fn, example_args, count)
+                else:
+                    fn(*example_args)
             with torch.no_grad():  # undo the warm-up's writes
                 for t, s in zip(tensors, saved):
                     t.copy_(s)
@@ -272,13 +299,17 @@ class Compiled:
         return self.outputs
 
 
-def compile(fn: Callable, example_args: tuple, pool=None) -> Callable:
+def compile(fn: Callable, example_args: tuple, pool=None,
+            count=None) -> Callable:
     """``fn`` captured at the shapes of ``example_args`` when they lie on
     a CUDA device (a :class:`Compiled`), ``fn`` itself on the CPU.
     ``pool`` is a shared memory pool (:func:`new_pool`) or ``None`` for
-    the graph's own."""
+    the graph's own.  ``count``, when given, is filled from one eager
+    call (see the module's docstring)."""
     first = next((t for t in leaves(example_args)
                   if torch.is_tensor(t)), None)
     if first is None or first.device.type != "cuda":
+        if count is not None:
+            counted(fn, clone(example_args), count)
         return fn
-    return Compiled(fn, example_args, pool)
+    return Compiled(fn, example_args, pool, count)

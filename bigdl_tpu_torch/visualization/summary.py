@@ -134,16 +134,16 @@ class ValidationSummary(Summary):
 
 
 class ServingSummary(Summary):
-    """The event stream of a serving run (its writer comes with the
-    serving metrics' summary export, not ported yet)."""
+    """The event stream of a serving run, written by
+    ``ServingMetrics.write_summary``."""
 
     def __init__(self, log_dir: str, app_name: str):
         super().__init__(log_dir, app_name, "serving")
 
 
 class TelemetrySummary(Summary):
-    """The event stream of telemetry exports (its writer comes with the
-    telemetry watchdog, not ported yet)."""
+    """The event stream of telemetry exports, written by
+    ``Watchdog.write_summary`` and ``telemetry.write_scalars``."""
 
     def __init__(self, log_dir: str, app_name: str):
         super().__init__(log_dir, app_name, "telemetry")

@@ -232,6 +232,23 @@ Phases:
    gradient on CUDA tensors against the same call on the CPU (f32,
    within 1e-5 of |cpu| + max |cpu|), ClassNLL's one-hot targets
    included; the phase's seconds.
+13. telemetry: the fused ResNet-50 served in bf16 by two engines, one
+   built with the tracer off, one with it on: 36 + 13 launches a capture
+   and bit-equal outputs either way, each bucket's cost stamp its batch
+   x the batch-1 stamp; on one engine, the tracing overhead measured as
+   the JAX package's gate measures it (128 chunks of 32 requests from
+   one client, the tracer flipped per chunk, the collector off, the
+   median request latency of each state), held to 3%; then 8 saturated
+   rounds of 1024 requests with the tracer off and 8 with it on, in
+   turns: images/s, p50/p99, the log lines with GF/s and MFU, MFU while
+   serving; the
+   Chrome trace written under --out and parsed back (the dispatcher's
+   and the drain's tracks) and every request's attribution summing to
+   its latency; the bare forward's MFU; the HBM ledger sampling the card;
+   the compiled train step (batch 32, bf16) bit-equal with the tracer on
+   and off, its stamp about 4x the forward an image, and its MFU at
+   batch 256; a decode engine forced past its largest prompt bucket,
+   the changed axis named by forensics and counted by the watchdog.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -241,6 +258,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import logging
 import math
@@ -562,13 +580,13 @@ LM_BF16_TOL = {"loss": 2e-2, "grad": 0.25}
 
 
 def flash_bound(shape, causal, dt):
-    """(bytes ms, operations ms): q, k, v read once, O and the f32 lse
-    written once; 4*B*H*T*S*D operations, halved under causal, over the
-    bf16 tensor-core peak (f32: the f32 peak)."""
-    b, h, t, s, d = shape
-    size = 2 if dt == "bf16" else 4
-    nbytes = size * b * h * (2 * t * d + 2 * s * d) + 4 * b * h * t
-    ops = 4 * b * h * t * s * d / (2 if causal else 1)
+    """(bytes ms, operations ms) of kernel 6's formula in the package
+    (``flash_cost``: q, k, v read once, O and the f32 lse written once;
+    4*B*H*T*S*D operations, halved under causal) over the memory rate
+    and the bf16 tensor-core peak (f32: the f32 peak)."""
+    from bigdl_tpu_torch.ops.flash_attention import flash_cost
+
+    ops, nbytes = flash_cost(*shape, causal, 2 if dt == "bf16" else 4)
     peak = PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS
     return nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
 
@@ -1006,12 +1024,15 @@ def int8_calls(batch: int) -> Counter:
     return calls
 
 
-def int8_bound(shape):
-    """(bytes ms, operations ms): x, w_q and the f32 scale read once, the
-    bf16 y written once; 2*M*N*K int8 operations over the int8 peak."""
-    m, k, n = shape
-    nbytes = m * k + k * n + 4 * n + 2 * m * n
-    return nbytes / PEAK_BYTES * 1e3, 2 * m * n * k / PEAK_INT8_OPS * 1e3
+def int8_bound(shape, out_size=2):
+    """(bytes ms, operations ms) of kernel 7's formula in the package
+    (``int8_cost``: x, w_q and the f32 scale read once, y of
+    ``out_size``-byte elements, bf16 by default, written once; 2*M*N*K
+    int8 operations) over the memory rate and the int8 peak."""
+    from bigdl_tpu_torch.ops.int8_matmul import int8_cost
+
+    ops, nbytes = int8_cost(*shape, out_size)
+    return nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
 
 
 def int8_phase(gen, timing: bool):
@@ -3985,10 +4006,7 @@ def int8_kv_checks(model, rs):
     def library():
         return torch._int_mm(xp, wk)[:DECODE_CHUNK].float() * sc
 
-    nbytes = DECODE_CHUNK * d + INT8_EXTENT * d + 4 * INT8_EXTENT \
-        + 4 * DECODE_CHUNK * INT8_EXTENT
-    ops = 2 * DECODE_CHUNK * d * INT8_EXTENT
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+    bytes_ms, ops_ms = int8_bound((DECODE_CHUNK, d, INT8_EXTENT), 4)
     err = (im.int8_matmul_dequant(x, w, sc, torch.float32)
            - im.int8_matmul_dequant_plain(x, w, sc, torch.float32)).abs(
     ).max().item()
@@ -4587,6 +4605,345 @@ def basic_phase(args, card, kt, dev="cuda"):
     return res
 
 
+# phase 13's tracing-overhead gate, measured as the JAX package's is
+# (bench.py telemetry_ab, tests/test_telemetry.py: < 3%): one client
+# submits a chunk of 32 requests and waits, the tracer flipped per chunk,
+# Python's cyclic collector off (a collection that the spans' allocations
+# trigger would land on the traced chunks by construction), the median
+# request latency of each state
+TELEMETRY_CHUNKS = 128
+TELEMETRY_OVERHEAD = 0.03
+# then saturated rounds of 1024 requests from 4 clients, the tracer on
+# and off in turns after a warm-up round of each: images/s and p50/p99
+# of each state (a round spreads by +-15% on an H100's host)
+TELEMETRY_REQUESTS = 1024
+TELEMETRY_ROUNDS = 8
+TELEMETRY_RES = 224       # the served and trained images' side
+
+
+def telemetry_phase(args, card, out, dev="cuda"):
+    """Phase 13, the telemetry plane (``bigdl_tpu_torch.telemetry``):
+    the fused ResNet-50 served in bf16 by two engines, one built with the
+    tracer off and one with it on: each capture launches kernels 1 and 4
+    36 and 13 times either way, the outputs of one batch are bit-equal,
+    each bucket's cost stamp is its batch x the batch-1 stamp; then the
+    second engine gives the overhead of tracing as the JAX package's gate
+    measures it (``TELEMETRY_CHUNKS`` chunks, held to
+    ``TELEMETRY_OVERHEAD``) and serves ``TELEMETRY_ROUNDS`` saturated
+    rounds of ``TELEMETRY_REQUESTS`` requests with the tracer off and as
+    many with it on, in turns, for images/s, p50/p99 and the log lines
+    with GF/s and MFU; the Chrome trace written
+    under ``out`` and parsed back has the dispatcher's and the drain's
+    tracks, and every request's attribution sums to its latency; the
+    bare forward's MFU (the batch-32 stamp over a replay); the HBM
+    ledger samples the card (source "device"); the compiled train step
+    (batch 32, bf16) gives the same launches and bit-equal losses and
+    trees with the tracer on and off, and its MFU at batch 256; a decode
+    engine forced onto an undeclared prompt bucket has the changed axis
+    named by the registry's forensics and counted by the watchdog.
+    ``dev="cpu"`` serves a rehearsal with the sizes shrunk and the CUDA
+    calls patched.  Returns the results."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn, telemetry
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.optim import SGD, CompiledTrainStep, make_train_step
+    from bigdl_tpu_torch.serving import (DecodeEngine, ServingEngine,
+                                         ServingMetrics)
+    from bigdl_tpu_torch.telemetry import costmodel
+    from bigdl_tpu_torch.utils import (export_variables, graphs,
+                                       load_jax_variables, random_variables)
+
+    t_phase = time.perf_counter()
+    print(f"telemetry phase on {card}", flush=True)
+    tracer = telemetry.get_tracer()
+    registry = telemetry.get_program_registry()
+    peak = costmodel.peak_flops_per_device(dev)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    rs = np.random.RandomState(args.seed + 13)
+    res = {"peak_flops": peak}
+
+    # ---------------------------------- (a) serving, tracer off and on
+    model = ResNet50(1000, stem="space_to_depth", fused=True, device=dev)
+    load_jax_variables(model, random_variables(export_variables(model),
+                                               args.seed))
+    dims = (TELEMETRY_RES, TELEMETRY_RES, 3)
+    engines = {}
+    for on in (False, True):
+        tracer.enabled = on
+        tracer.clear()
+        engines[on] = ServingEngine(model, buckets=[dims],
+                                    batch_sizes=SERVE_BATCHES,
+                                    input_dtype=bf16, device=dev)
+        if dev == "cuda":
+            for key, g in engines[on]._compiled.items():
+                if g.launches != FUSED_FWD:
+                    fail(f"tracer {'on' if on else 'off'}: bucket {key} "
+                         f"captured {g.launches}, expected {FUSED_FWD}")
+    costs = {on: {b: e._bucket_costs[(b, dims)].flops
+                  for b in SERVE_BATCHES} for on, e in engines.items()}
+    per_image = costs[False][1]
+    if costs[True] != costs[False] or any(
+            costs[False][b] != b * per_image for b in SERVE_BATCHES):
+        fail(f"bucket cost stamps {costs}: not batch x {per_image}")
+    images = rs.randn(TELEMETRY_REQUESTS, *dims).astype(np.float32)
+    outs = {on: e.predict_batch(images[:SERVE_BATCHES[-1]])
+            for on, e in engines.items()}
+    if not np.array_equal(outs[False], outs[True]):
+        fail("served outputs differ with the tracer on and off")
+    b32 = engines[False]._compiled[(SERVE_BATCHES[-1], dims)]
+    fwd_ms = replay_ms(b32.graph) if dev == "cuda" else float("nan")
+    engines[False].close()
+    engine = engines[True]
+    tracer.enabled = True
+    tracer.clear()  # the trace holds the rounds served with it on
+    # every attribution the engine closes, held to its latency as it
+    # closes (kept, 17k of them would slow the collector's full passes)
+    closed, close_many = {"n": 0, "worst": 0.0}, engine.xray.close_many
+
+    def close_and_check(*args, **kwargs):
+        atts = close_many(*args, **kwargs)
+        for att in atts:
+            if att is not None:
+                closed["n"] += 1
+                closed["worst"] = max(closed["worst"], abs(
+                    sum(att.phases.values()) - att.latency))
+        return atts
+
+    engine.xray.close_many = close_and_check
+    metrics = {on: ServingMetrics() for on in (False, True)}
+
+    def serve_chunk(latencies):
+        """One client's chunk of a batch of requests, each request's
+        latency to its done callback (bench.py serve_one_chunk)."""
+        pending = []
+        for j in range(SERVE_BATCHES[-1]):
+            slot = [time.perf_counter(), None, threading.Event()]
+
+            def stamp(f, s=slot):
+                s[1] = time.perf_counter()
+                s[2].set()
+
+            fut = engine.submit(images[j])
+            fut.add_done_callback(stamp)
+            pending.append((fut, slot))
+        for fut, slot in pending:
+            fut.result(300)
+            # the callback runs just after the result is set: wait for it
+            if not slot[2].wait(300):
+                fail("a served request's done callback never ran")
+            latencies.append(slot[1] - slot[0])
+
+    tracer.enabled = False
+    serve_chunk([])
+    lats = {False: [], True: []}
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        for i in range(TELEMETRY_CHUNKS):
+            tracer.enabled = i % 2 == 1
+            engine.metrics = metrics[tracer.enabled]
+            serve_chunk(lats[tracer.enabled])
+    finally:
+        tracer.enabled = False
+        if gc_was:
+            gc.enable()
+    med_lat = {on: statistics.median(v) for on, v in lats.items()}
+    overhead = med_lat[True] / med_lat[False] - 1.0
+    res["overhead"] = {"value": overhead,
+                       "median_latency_ms": {"off": 1e3 * med_lat[False],
+                                             "on": 1e3 * med_lat[True]},
+                       "chunks": TELEMETRY_CHUNKS}
+    print(f"telemetry: tracing overhead {100 * overhead:.2f}% of the median "
+          f"request latency ({1e3 * med_lat[False]:.3f} ms off, "
+          f"{1e3 * med_lat[True]:.3f} ms on; {TELEMETRY_CHUNKS} chunks of "
+          f"{SERVE_BATCHES[-1]} requests from one client, the tracer "
+          f"flipped per chunk, the collector off, as the JAX package's "
+          f"gate; limit {100 * TELEMETRY_OVERHEAD:.0f}%); {card}",
+          flush=True)
+    if overhead > TELEMETRY_OVERHEAD:
+        fail(f"tracing costs {100 * overhead:.2f}% of the request latency")
+
+    def serve_round(on):
+        """One round's images/s with the tracer ``on`` (or off), into
+        that state's own metrics."""
+        tracer.enabled = on
+        engine.metrics = metrics[on]
+        return TELEMETRY_REQUESTS / serve_images(engine, images)[1]
+
+    warm = {on: serve_round(on) for on in (True, False)}
+    ips = {False: [], True: []}
+    for r in range(TELEMETRY_ROUNDS):
+        for on in ((False, True) if r % 2 == 0 else (True, False)):
+            ips[on].append(serve_round(on))
+    tracer.enabled = False
+    ratios = [a / b for a, b in zip(ips[True], ips[False])]
+    serve = {"images_per_s_on_off_median_ratio": statistics.median(ratios)}
+    for on, m in metrics.items():
+        med = statistics.median(ips[on])
+        # while serving, from the rounds' own rate: the log line's MFU
+        # also counts the time since the metrics started that the
+        # engine spent on the other state's rounds
+        round_mfu = med * per_image / peak
+        serve["on" if on else "off"] = {
+            "images_per_s": ips[on], "median_images_per_s": med,
+            "warm_up_images_per_s": warm[on], "round_mfu": round_mfu,
+            "p50_ms": m.latency_ms(50), "p99_ms": m.latency_ms(99),
+            "gflops_per_sec": m.gflops_per_sec(), "mfu": m.mfu(),
+            "log_line": m.log_line()}
+        print(f"telemetry: serve, tracer {'on' if on else 'off'}: median "
+              f"{med:.1f} images/s over {TELEMETRY_ROUNDS} rounds of "
+              f"{TELEMETRY_REQUESTS} ({[round(v, 1) for v in ips[on]]}; "
+              f"warm-up round {warm[on]:.1f}), MFU {100 * round_mfu:.2f}% "
+              f"while serving, p50 {m.latency_ms(50):.2f} ms, p99 "
+              f"{m.latency_ms(99):.2f} ms; {card}", flush=True)
+        print(f"telemetry: {m.log_line()}", flush=True)
+    res["serve"] = serve
+    print(f"telemetry: saturated, traced / untraced images/s "
+          f"{serve['images_per_s_on_off_median_ratio']:.4f} (the median "
+          f"ratio of {TELEMETRY_ROUNDS} adjacent rounds)", flush=True)
+
+    # (b) the Chrome trace, parsed back, and the attributions
+    path = telemetry.write_chrome_trace(str(out / "telemetry_trace.json"))
+    blob = json.loads(Path(path).read_text())
+    tracks = {e["args"]["name"] for e in blob["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    if not {"bigdl-serve-dispatch", "bigdl-serve-drain"} <= tracks:
+        fail(f"the trace's tracks {sorted(tracks)} lack the dispatcher's "
+             "or the drain's")
+    xray = engine.xray
+    n_att, worst = closed["n"], closed["worst"]
+    traced = (TELEMETRY_ROUNDS + 1) * TELEMETRY_REQUESTS \
+        + TELEMETRY_CHUNKS // 2 * SERVE_BATCHES[-1]
+    if n_att != traced or worst > 1e-6:
+        fail(f"{n_att} attributions, largest |phases - latency| "
+             f"{worst:.3g} s")
+    res["trace"] = {"events": len(blob["traceEvents"]),
+                    "tracks": sorted(tracks), "attributions": n_att,
+                    "max_sum_err_s": worst, "xray": xray.summary()}
+    print(f"telemetry: trace {path}: {len(blob['traceEvents'])} events on "
+          f"{len(tracks)} tracks {sorted(tracks)}; {n_att} attributions, "
+          f"largest |sum of phases - latency| {worst:.3g} s; "
+          f"{xray.log_line()}", flush=True)
+
+    # (c) the bare forward's MFU and the HBM ledger
+    res["forward"] = {"batch": SERVE_BATCHES[-1],
+                      "flops": costs[False][SERVE_BATCHES[-1]],
+                      "gflop_per_image": per_image / 1e9, "ms": fwd_ms,
+                      "mfu": costs[False][SERVE_BATCHES[-1]]
+                      / (fwd_ms / 1e3) / peak}
+    sample = telemetry.get_hbm_ledger().sample()
+    res["hbm"] = sample
+    print(f"telemetry: forward at batch {SERVE_BATCHES[-1]}: "
+          f"{per_image / 1e9:.4f} GFLOP an image, replay {fwd_ms:.3f} ms, "
+          f"MFU {100 * res['forward']['mfu']:.2f}%; HBM ledger: "
+          f"{sample and sample['source']} {sample and sample['bytes_in_use']}"
+          f" of {sample and sample['bytes_limit']} bytes, top "
+          f"{sample and [t['program'] for t in sample['top']]}; {card}",
+          flush=True)
+    if dev == "cuda" and (sample is None or sample["source"] != "device"):
+        fail(f"the HBM ledger did not sample the card: {sample}")
+    engine.close()
+    del engines, engine, b32
+    torch.cuda.empty_cache()
+
+    # ------------------ (d) the train step, tracer off and on, and MFU
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    crit = nn.ClassNLLCriterion(logits=True)
+    step = make_train_step(model, crit, {"__all__": SGD(0.1, momentum=0.9)},
+                           compute_dtype=bf16)
+
+    def fresh():
+        params = {k: p.detach().clone() for k, p in model.named_parameters()}
+        state = {k: b.detach().clone() for k, b in model.named_buffers()}
+        return params, state, {"__all__": SGD(0.1, momentum=0.9)
+                               .init_state(params)}
+
+    x = torch.rand((BATCH,) + dims, generator=gen, device=dev).to(bf16)
+    t = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    runs = {}
+    for on in (False, True):
+        tracer.enabled = on
+        compiled = CompiledTrainStep(step)
+        trees, losses = fresh(), []
+        for i in range(2):
+            *trees, loss = compiled(*trees, i + 1, None, x, t, [0.1])
+            losses.append(loss.item())
+        runs[on] = (losses, graphs.leaves(trees),
+                    next(iter(compiled.graphs.values())), compiled.cost)
+    tracer.enabled = False
+    torch.backends.cudnn.deterministic = deterministic
+    (l0, t0_, g0, c0), (l1, t1_, g1, c1) = runs[False], runs[True]
+    differ = sum(not torch.equal(a, b) for a, b in zip(t0_, t1_))
+    if dev == "cuda" and (g0.launches != g1.launches
+                          or g0.launches != STEP_LAUNCHES[True]):
+        fail(f"train step launches {g0.launches} (tracer off), "
+             f"{g1.launches} (on); expected {STEP_LAUNCHES[True]}")
+    if l0 != l1 or differ or c0.flops != c1.flops:
+        fail(f"train step with the tracer on and off: losses {l0} vs {l1}, "
+             f"{differ} tree leaves differ, stamps {c0.flops} vs {c1.flops}")
+    # forward, remat recompute and a backward of twice the forward's
+    # operations (less the input's gradient): a count that missed the
+    # backward (run on autograd's device thread) would read near 2
+    if not 3.5 < c0.flops / BATCH / per_image < 4.5:
+        fail(f"train step stamp {c0.flops} is {c0.flops / BATCH / per_image:.3f}"
+             f" x the forward's {per_image} an image, not about 4")
+    print(f"telemetry: train step at batch {BATCH}, tracer off and on: "
+          f"losses {l0} bit-equal, {len(t0_)} leaves bit-equal, launches "
+          f"{getattr(g0, 'launches', None)}; stamp {c0.flops / 1e9:.3f} "
+          f"GFLOP ({c0.flops / BATCH / per_image:.3f} x the forward an "
+          f"image)", flush=True)
+    del runs, g0, g1
+    xb = torch.rand((TRAIN_BATCH,) + dims, generator=gen,
+                    device=dev).to(bf16)
+    tb = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+    compiled = CompiledTrainStep(step)
+    r = step_ms(compiled, fresh(), 1, lambda i: None, xb, tb, [0.1])
+    r["flops"] = compiled.cost.flops
+    r["mfu"] = compiled.cost.flops / (r["ms_per_step"] / 1e3) / peak
+    r["bytes_per_s"] = compiled.cost.bytes_per_s(r["ms_per_step"] / 1e3)
+    res["train"] = {"batch32_flops": c0.flops, "batch256": r}
+    print(f"telemetry: train step at batch {TRAIN_BATCH}: "
+          f"{r['ms_per_step']:.2f} ms, {r['flops'] / 1e12:.4f} TFLOP "
+          f"counted, MFU {100 * r['mfu']:.2f}%, "
+          f"{r['bytes_per_s'] / 1e9:.1f} GB/s counted; {card}", flush=True)
+    del compiled, xb, tb, step, model
+    torch.cuda.empty_cache()
+
+    # ------------- (e) a decode engine forced onto an undeclared bucket
+    lm = nn.Transformer(**{**LM, "num_layers": 1}, dropout=0.0).to(dev)
+    load_jax_variables(lm, lm_variables(lm, args.seed))
+    registry.clear()
+    tracer.enabled = True  # the forensic instant and the spans it pairs
+    eng = DecodeEngine(lm, slots=2, max_len=64, prompt_buckets=(8, 16),
+                       prefill_batch_sizes=(1, 2), device=dev)
+    try:
+        with telemetry.Watchdog(log=None).attach() as wd:
+            prompt = rs.randint(0, LM["vocab_size"], (24,))
+            eng.generate(prompt, 4, timeout=300)
+        forensics = registry.forensic_records()
+    finally:
+        eng.close(timeout=300)
+        tracer.enabled = False
+    want = "arg `ids` dim 1 — 16 → 24, dtype unchanged"
+    if [f["cause"] for f in forensics if f["program"] == "decode_prefill"] \
+            != [want] or wd.counters["steady_state_recompiles"] != 2 \
+            or want not in wd.anomalies[0]["message"]:
+        fail(f"decode forensics {forensics}, watchdog {wd.counters} "
+             f"{[a['message'] for a in wd.anomalies]}")
+    res["decode_forensic"] = {"forensics": forensics,
+                              "watchdog": wd.report()}
+    print(f"telemetry: decode engine on an undeclared prompt of 24: "
+          f"{wd.anomalies[0]['message']!r}; watchdog {wd.log_line()}",
+          flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"telemetry phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def kernel_tools(gen, dev):
     """The kernel checks' helpers over the generator ``gen`` on
     ``dev``: random operands of kernels 1-5 (``operands``), their
@@ -4740,37 +5097,15 @@ def kernel_tools(gen, dev):
         return all(same(u, v) for u, v in zip(a, b))
 
     def bound(op, shape, prologue, f32=False):
-        """(bytes ms, operations ms): each input read once, each output
-        written once, over the card's memory rate and bf16 peak (with
-        ``f32``: 4-byte elements over the f32 peak outside the tensor
-        cores).  Without a prologue a dgrad reads no x and a kernel no
-        ps, pb (dx = g)."""
-        pro = int(prologue)
-        if op.startswith("mm"):
-            m, k, n = shape
-            flops = 2 * m * k * n
-            # x, w, y / dy, y, w, dx (+ x) / x, dy, y; ps, pb and the
-            # column vectors (ssum, ssq / dssum, dssq, d_ps, d_pb)
-            elems = {"mm": m * k + k * n + m * n,
-                     "mm_dgrad": 2 * m * n + k * n + m * k + pro * m * k,
-                     "mm_wgrad": m * k + 2 * m * n}[op]
-            vec = 2 * pro * k + 2 * n + (2 * pro * k if op == "mm_dgrad"
-                                         else 0)
-            nbytes = (4 if f32 else 2) * elems + 4 * vec + (4 * k * n if op == "mm_wgrad"
-                                            else 0)
-        else:
-            b, h, wd, c, co = shape
-            m = b * h * wd
-            flops = 18 * m * c * co
-            if op == "cv":  # x, w, y; ps, pb, ssum, ssq
-                elems = m * c + 9 * c * co + m * co
-                vec = 2 * pro * c + 2 * co
-            else:  # dy, y, dx, w (+ x); dssum, dssq (+ ps, pb, d_ps, d_pb)
-                elems = 2 * m * co + m * c + 9 * c * co + pro * m * c
-                vec = 4 * pro * c + 2 * co
-            nbytes = (4 if f32 else 2) * elems + 4 * vec
+        """(bytes ms, operations ms) of the kernel's formula in the
+        package (``fm.COSTS``: each input read once, each output written
+        once) over the card's memory rate and bf16 peak (with ``f32``:
+        4-byte elements over the f32 peak outside the tensor cores).
+        Without a prologue a dgrad reads no x and a kernel no ps, pb."""
+        ops, nbytes = fm.COSTS[kernels[op][0]](*shape, prologue,
+                                               4 if f32 else 2)
         return (nbytes / PEAK_BYTES * 1e3,
-                flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS) * 1e3)
+                ops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS) * 1e3)
 
     return types.SimpleNamespace(
         kernels=kernels, src=src, rand=rand, operands=operands, ytot=ytot,
@@ -5413,6 +5748,11 @@ def main():
     # ----------------------------------------------------------- 12. basic
     device_memory("before phase 12 (basic)")
     basic = basic_phase(args, card, kt)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 13. telemetry
+    device_memory("before phase 13 (telemetry)")
+    tel = telemetry_phase(args, card, out)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -5430,7 +5770,7 @@ def main():
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
          "recipe": recipe, "data": data, "basic": basic,
-         "width12": width12},
+         "telemetry": tel, "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary

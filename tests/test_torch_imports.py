@@ -34,7 +34,11 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "dataset.record_io", "dataset.sharded", "dataset.seqfile",
               "dataset.cifar", "utils.file_io", "utils.protowire",
               "visualization", "visualization.tensorboard",
-              "visualization.summary", "nn.fused_block", "nn.norm"):
+              "visualization.summary", "nn.fused_block", "nn.norm",
+              "telemetry", "telemetry.tracer", "telemetry.export",
+              "telemetry.watchdog", "telemetry.costmodel",
+              "telemetry.programs", "telemetry.requests",
+              "telemetry.workload", "telemetry.kernels"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
