@@ -107,8 +107,26 @@ line adds ``mfu`` and ``bytes_per_sec`` to the metrics' values (so to
 ``summary()``) and samples the HBM ledger; a divergence read by a drain
 emits a ``loss_divergence`` instant and a retry a
 ``divergence_recovery`` one; a checkpoint's write is a span on the
-writer thread correlated with its step.  Numerics (``GradNorm``/
-``UpdateRatio``, NaN provenance) are not ported yet.
+writer thread correlated with its step.
+
+Numerics (``telemetry/numerics.py``; optimizer.py:181-186, 426-457,
+583-614, 742-748, 895-954): with ``set_numerics(True)`` or
+``BIGDL_TPU_NUMERICS=1`` the step returns a fifth output, per-layer
+gradient, parameter and update norms, non-finite gradient counts and
+histograms, computed in the step (so in its CUDA graph) from the
+parameters, the clipped gradients and the new parameters.  The loop
+copies them into a pinned ring beside the losses' and reads them at the
+drain, each before its own iteration's loss (``numerics``, so a
+``numerics_anomaly`` precedes the ``loss_divergence``); the log line
+gains ``grad_norm`` and ``update_ratio``, the train summary
+``GradNorm``, ``UpdateRatio`` and the per-layer ``Parameters``
+histograms.  The last ``BIGDL_TPU_SYNC_WINDOW + 2`` batches stay
+referenced (the tensors the prefetcher handed over, never the graph's
+static inputs), and a retry re-runs the diverged one eagerly on the
+restored parameters (``nan_provenance``).  With stats off the step is
+the four-output one.  The loop attaches to the debug server
+(``BIGDL_TPU_DEBUG_PORT``) and registers its metrics and the numerics
+tail with the flight recorder, which a retry also dumps.
 """
 from __future__ import annotations
 
@@ -137,7 +155,9 @@ from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult, _numpy)
-from bigdl_tpu_torch.telemetry import costmodel, programs
+from bigdl_tpu_torch.telemetry import (costmodel, debug_server,
+                                       flightrecorder, programs)
+from bigdl_tpu_torch.telemetry import numerics as numerics_mod
 from bigdl_tpu_torch.telemetry.tracer import (CAT_TRAIN, correlate,
                                               get_tracer, set_correlation)
 from bigdl_tpu_torch.utils import file_io, graphs
@@ -198,7 +218,9 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
                     grad_clip_const: Optional[Tuple[float, float]] = None,
                     grad_clip_norm: Optional[float] = None,
                     compute_dtype: Optional[torch.dtype] = None,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1,
+                    numerics: Optional[numerics_mod.NumericsSpec] = None
+                    ) -> Callable:
     """The train step of bigdl_tpu/optim/optimizer.py:266-373.
 
     ``train_step(params, model_state, opt_states, step, rng, features,
@@ -213,9 +235,14 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
     model's ``forward`` when it takes one, so dropout draws from it.  It
     returns new dicts and the detached f32 loss; the inputs are not
     changed.  A batch that ``accum_steps`` does not divide raises
-    ``ValueError``.
+    ``ValueError``.  With a ``numerics`` spec
+    (``telemetry.numerics.NumericsSpec``) it returns a fifth output, the
+    stats tree of ``numerics.collect`` over ``params``, the clipped
+    gradients and the new parameters (optimizer.py:275-291, 367-369).
     """
     method_items = sorted(optim_methods.items())
+    collector = (numerics_mod.Collector(numerics) if numerics is not None
+                 else None)
     takes_rng = "rng" in inspect.signature(model.forward).parameters
 
     def loss_and_grads(params, state, rng, features, targets):
@@ -276,6 +303,9 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
                 new_params = upd
             else:
                 new_params.update(upd)
+        if collector is not None:
+            return (new_params, new_state, new_opt_states, loss,
+                    collector(params, grads, new_params))
         return new_params, new_state, new_opt_states, loss
 
     return train_step
@@ -284,8 +314,8 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
 class CompiledTrainStep:
     """``step_fn`` (a :func:`make_train_step` step) compiled per batch
     shape with its trees donated; called as the step is, it returns the
-    trees it was given, updated in place, and the loss (valid until the
-    next call).  ``step``, ``rng`` and ``lrs`` may be Python numbers:
+    trees it was given, updated in place, and the loss (and with numerics
+    the stats tree; both valid until the next call).  ``step``, ``rng`` and ``lrs`` may be Python numbers:
     they are written into device scalars that the graphs read.
     ``graphs`` maps each batch's signature to its compiled call;
     ``captures`` and ``replays`` add them up.  The graphs share one
@@ -341,16 +371,16 @@ class CompiledTrainStep:
                 self._pool, None if eager else count)
             compile_s = time.perf_counter() - t0
         if first and eager and count is not None:
-            loss = graphs.counted(fn, args, count)[3]
+            rest = graphs.counted(fn, args, count)[3:]
         else:
-            loss = fn(*args)[3]
+            rest = fn(*args)[3:]
         if first:
             self.cost = costmodel.stamp(self.program, count) or self.cost
             programs.register_program(self.program, sig, fn, compile_s,
                                       cost=self.cost, expected=True)
         else:
             programs.get_program_registry().record_call(self.program)
-        return params, model_state, opt_states, loss
+        return (params, model_state, opt_states) + tuple(rest)
 
     @property
     def captures(self) -> int:
@@ -451,6 +481,12 @@ class Optimizer:
         self._resume_from: Optional[str] = None
         self._initial_variables: Optional[Dict[str, Any]] = None
         self._stop_requested = False
+        # numerics: None follows BIGDL_TPU_NUMERICS; the spec when the
+        # step carries stats (optimizer.py:112-117)
+        self._numerics_requested: Optional[bool] = None
+        self._numerics: Optional[numerics_mod.NumericsSpec] = None
+        self._numerics_monitor: Optional[numerics_mod.NumericsMonitor] = None
+        self._recent_batches: Optional[deque] = None
         # the background checkpoint writer (the async loop starts it)
         self._ckpt_pool: Optional[ThreadPoolExecutor] = None
         self._ckpt_future = None
@@ -542,6 +578,12 @@ class Optimizer:
         self.compute_dtype = dtype
         return self
 
+    def set_numerics(self, on: bool = True) -> "Optimizer":
+        """Turn the step's numerics stats on (or off), over the
+        ``BIGDL_TPU_NUMERICS`` knob (optimizer.py:181-186)."""
+        self._numerics_requested = bool(on)
+        return self
+
     def set_initial_variables(self, variables: Dict[str, Any]
                               ) -> "Optimizer":
         """Start from a JAX-shaped ``{"params", "state"}`` tree of numpy
@@ -553,12 +595,24 @@ class Optimizer:
     def optimize(self) -> torch.nn.Module:
         raise NotImplementedError
 
+    def _numerics_spec(self, model: torch.nn.Module
+                       ) -> Optional[numerics_mod.NumericsSpec]:
+        """Whether the step carries stats: ``set_numerics`` wins over
+        ``BIGDL_TPU_NUMERICS`` (optimizer.py:696-704); kept in
+        ``_numerics``."""
+        on = self._numerics_requested
+        if on is None:
+            on = numerics_mod.enabled()
+        self._numerics = numerics_mod.spec_for(model) if on else None
+        return self._numerics
+
     def _build_step_fn(self, model: torch.nn.Module) -> CompiledTrainStep:
         """The compiled, donated train step (optimizer.py:706-715)."""
         return CompiledTrainStep(make_train_step(
             model, self.criterion, self.optim_methods, self.grad_clip_const,
             self.grad_clip_norm, self.compute_dtype,
-            accum_steps=self.accum_steps))
+            accum_steps=self.accum_steps,
+            numerics=self._numerics_spec(model)))
 
     @staticmethod
     def apply(model, dataset, criterion, end_trigger=None, batch_size=None,
@@ -600,6 +654,42 @@ class _LossRing:
         if self.cuda:
             self.events[slot].synchronize()
         return float(self.host[slot])
+
+
+class _StatsRing:
+    """The numerics stats beside :class:`_LossRing`: iteration ``it``'s
+    stats tree (the graph's static outputs, which the next replay
+    overwrites) is copied into slot ``it % size``, a pinned host tree
+    made at the slot's first use, with an event behind the copies;
+    ``get`` waits for that event and returns the tree as numpy arrays."""
+
+    def __init__(self, size: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host: List[Any] = [None] * size
+        self.events: List[Optional[torch.cuda.Event]] = [None] * size
+
+    def put(self, it: int, stats: Any) -> int:
+        slot = it % len(self.host)
+        if self.host[slot] is None:
+            self.host[slot] = _host_like(stats)
+        with torch.no_grad():
+            _copy_to_host(self.host[slot], stats)
+        if self.cuda:
+            ev = self.events[slot] = self.events[slot] or torch.cuda.Event()
+            ev.record()
+        return slot
+
+    def get(self, slot: int) -> Any:
+        if self.cuda:
+            self.events[slot].synchronize()
+        return _numpy_tree(self.host[slot])
+
+
+def _numpy_tree(tree: Any) -> Any:
+    """A tree of tensors as numpy arrays of their own."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy().copy()
 
 
 def _host_like(tree: Any) -> Any:
@@ -663,6 +753,15 @@ class LocalOptimizer(Optimizer):
             1, int(os.environ.get("BIGDL_TPU_SYNC_WINDOW", "10")))
         self._pending = deque()  # (iteration, ring slot, records)
         self._ring = _LossRing(self.sync_window + 1, self.device)
+        self._numerics_monitor = self._recent_batches = None
+        self._stats_ring = None
+        if self._numerics is not None:
+            self._numerics_monitor = numerics_mod.NumericsMonitor(
+                self._numerics)
+            self._stats_ring = _StatsRing(self.sync_window + 1, self.device)
+            # the batches a provenance replay may need, kept by reference
+            # (optimizer.py:116, 435)
+            self._recent_batches = deque(maxlen=self.sync_window + 2)
         self._host = None  # the checkpoints' host buffers
         self._retries = 0
         self._last_failure = 0.0
@@ -681,6 +780,21 @@ class LocalOptimizer(Optimizer):
                 self.dataset.data(train=True), place=self._prefetch_place,
                 timer=lambda dt: metrics.add("data", dt), device=self.device)
         ckpt_dir = self._prepare_ckpt_dir()
+        # the live plane: host-side registration only, nothing reaches
+        # the step (optimizer.py:441-457)
+        detach_debug = debug_server.attach_engine(
+            "train", role="train", metrics=lambda: self.metrics,
+            status=self.train_log_line)
+        dbg = debug_server.get_debug_server(create=False)
+        if dbg is not None and self._numerics_monitor is not None:
+            dbg.set_numerics(self._numerics_monitor)
+        flight = flightrecorder.get_flight_recorder()
+        if flight is not None:
+            flight.add_metrics("train", lambda: self.metrics)
+            if self._numerics_monitor is not None:
+                mon = self._numerics_monitor
+                flight.add_blob("numerics", lambda: {
+                    "last": dict(getattr(mon, "last", None) or {})})
         try:
             while not self._stop_requested \
                     and not self.end_trigger(loop_state):
@@ -711,6 +825,7 @@ class LocalOptimizer(Optimizer):
             except FloatingPointError as e:
                 self._recover_or_reraise(e, ckpt_dir, trees, loop_state)
         finally:
+            detach_debug()
             if prefetcher is not None:
                 prefetcher.close()
             # an exception already on its way is not masked by the
@@ -950,13 +1065,54 @@ class LocalOptimizer(Optimizer):
                        "at iteration %d", e, self._retries,
                        loop_state["neval"])
         diverged_at, self._diverged_at = self._diverged_at, None
+        if diverged_at is not None:
+            # one-shot and off the loop's path: the diverged batch on the
+            # restored parameters
+            self._maybe_diagnose_divergence(trees, diverged_at)
         get_tracer().instant(
-            "divergence_recovery", CAT_TRAIN,
+            numerics_mod.RECOVERY_EVENT, CAT_TRAIN,
             corr=f"step:{detected_at if diverged_at is None else diverged_at}",
             args={"iteration": diverged_at, "detected_at": detected_at,
                   "restored_iteration": loop_state["neval"],
                   "replayed_steps": detected_at - loop_state["neval"],
                   "checkpoint_dir": ckpt_dir, "retry": self._retries})
+        # the failure's window into a bundle before the retry overwrites
+        # it (rate-limited: the loss_divergence instant may have dumped)
+        flight = flightrecorder.get_flight_recorder()
+        if flight is not None:
+            flight.dump(trigger="loss_divergence" if diverged_at is not None
+                        else "train_retry",
+                        note=f"retry {self._retries}: {e}"[:400])
+
+    def _maybe_diagnose_divergence(self, trees, diverged_at: int):
+        """NaN provenance (optimizer.py:583-614): with numerics on and the
+        diverged batch still kept, re-run it eagerly on the restored
+        trees with its own seed and emit the ``nan_provenance`` instant.
+        Never raises into the recovery."""
+        if self._numerics is None or not self._recent_batches:
+            return
+        batch = next((b for b in self._recent_batches
+                      if b[0] == diverged_at), None)
+        self._recent_batches.clear()
+        if batch is None:
+            return
+        _, features, targets = batch
+        params, model_state, _ = trees
+        try:
+            report = numerics_mod.nan_provenance(
+                self.model, params, model_state, features, targets,
+                criterion=self.criterion, compute_dtype=self.compute_dtype,
+                rng=split_rng(_LOOP_SEED, diverged_at - 1))
+        except Exception:
+            logger.warning("nan provenance diagnostic failed",
+                           exc_info=True)
+            return
+        numerics_mod.emit_provenance(report, diverged_at)
+        if report.get("layer") is not None:
+            logger.warning(
+                "nan provenance: first offending layer %r (site=%s) for "
+                "the divergence at iteration %d", report["layer"],
+                report.get("site"), diverged_at)
 
     def train_log_line(self) -> str:
         """One-line training status (bigdl_tpu/optim/optimizer.py:683)."""
@@ -1001,6 +1157,13 @@ class LocalOptimizer(Optimizer):
         naming its iteration and the one it was read at."""
         while len(self._pending) > keep:
             it, slot, _ = self._pending.popleft()
+            if self._stats_ring is not None:
+                # the stats of iteration it before its loss: a
+                # non-finite gradient count raises numerics_anomaly ahead
+                # of the loss_divergence below
+                with self.metrics.time("numerics"):
+                    self._numerics_monitor.observe(
+                        it, self._stats_ring.get(slot))
             with self.metrics.time("sync"):
                 loss = self._ring.get(slot)
             if math.isnan(loss) or math.isinf(loss):
@@ -1040,17 +1203,26 @@ class LocalOptimizer(Optimizer):
                 features, targets, n_records = next(data_iter)
         lrs = [m.current_rate() for _, m in sorted(self.optim_methods.items())]
         it = loop_state["neval"] + 1
+        if self._recent_batches is not None:
+            # the tensors handed over, not the graph's static inputs,
+            # which the next step overwrites
+            self._recent_batches.append((it, features, targets))
         # async: 'dispatch' only enqueues the step; sync: 'compute' waits
         # for its loss
         with metrics.time("compute" if self._sync_loop else "dispatch"):
-            params, model_state, opt_states, loss = step_fn(
+            params, model_state, opt_states, loss, *stats = step_fn(
                 *trees, it, split_rng(_LOOP_SEED, loop_state["neval"]),
                 features, targets, lrs)
             if self._sync_loop:
                 loss = float(loss)
             else:  # a slot of its own before the next step overwrites it
                 slot = self._ring.put(it, loss)
+                if stats:
+                    self._stats_ring.put(it, stats[0])
         if self._sync_loop:
+            if stats:
+                self._numerics_monitor.observe(it, self._stats_ring.get(
+                    self._stats_ring.put(it, stats[0])))
             if math.isnan(loss) or math.isinf(loss):
                 self._diverged_at = it
                 raise FloatingPointError(f"loss diverged: {loss}")
@@ -1084,6 +1256,13 @@ class LocalOptimizer(Optimizer):
                 self._last_throughput = throughput
             self._log_records = 0
             metrics.set_value("throughput", round(throughput, 1))
+            mon = self._numerics_monitor
+            if mon is not None and mon.last is not None:
+                # the log line, the metrics records and the shipped
+                # segments (the cluster's grad-norm skew) read these
+                metrics.set_value("grad_norm", round(mon.last["grad_norm"], 6))
+                metrics.set_value("update_ratio",
+                                  round(mon.last["update_ratio"], 8))
             cost = step_fn.cost
             if cost is not None and throughput > 0 and n_records:
                 step_s = n_records / throughput
@@ -1112,7 +1291,9 @@ class LocalOptimizer(Optimizer):
         """The iteration's training scalars (optimizer.py:928-954): the
         sync loop's Loss, Throughput (the sync loop's step, the async
         loop's rate at its last log line), the first method's
-        LearningRate, and the Parameters histogram when it is due."""
+        LearningRate, with numerics the latest drained GradNorm and
+        UpdateRatio, and the Parameters histograms when they are due
+        (per layer from the drained stats)."""
         summary, it = self.train_summary, loop_state["neval"]
         if self._sync_loop:
             summary.add_scalar("Loss", loop_state["loss"], it)
@@ -1123,6 +1304,13 @@ class LocalOptimizer(Optimizer):
         summary.add_scalar(
             "LearningRate",
             sorted(self.optim_methods.items())[0][1].current_rate(), it)
+        mon = self._numerics_monitor
+        if mon is not None and mon.last is not None:
+            summary.add_scalar("GradNorm", mon.last["grad_norm"],
+                               mon.last["iteration"])
+            summary.add_scalar("UpdateRatio", mon.last["update_ratio"],
+                               mon.last["iteration"])
         maybe = getattr(summary, "maybe_add_parameters", None)
         if maybe is not None:
-            maybe(params, it)
+            maybe(params, it,
+                  stats=mon.last_stats if mon is not None else None)

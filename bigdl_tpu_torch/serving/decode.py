@@ -51,7 +51,10 @@ bytes and accounted per round; tracer instants mark each request's
 edges and each tick carries ``tick:<n>``; the request X-ray charges each
 request's phases (queue, prefill, sample, resident, page stall,
 spec_verify, deliver) and keeps tail exemplars; the KV cache is an HBM
-ledger resident (the pages in use, or the dense grid's reservation).
+ledger resident (the pages in use, or the dense grid's reservation);
+``start()`` attaches the engine to the debug server and registers its
+metrics and exemplars with the flight recorder, ``close()`` detaches it
+(bigdl_tpu/serving/decode.py:1249-1297).
 """
 from __future__ import annotations
 
@@ -77,7 +80,8 @@ from bigdl_tpu_torch.serving.engine import (DeadlineExceededError,
                                             QueueFullError, ServingFuture)
 from bigdl_tpu_torch.serving.metrics import (PeriodicMetricsLogger,
                                              ServingMetrics)
-from bigdl_tpu_torch.telemetry import costmodel, programs
+from bigdl_tpu_torch.telemetry import (costmodel, debug_server,
+                                       flightrecorder, programs)
 from bigdl_tpu_torch.telemetry import requests as request_xray
 from bigdl_tpu_torch.telemetry import workload
 from bigdl_tpu_torch.telemetry.tracer import (CAT_DECODE, get_tracer,
@@ -1189,6 +1193,18 @@ class DecodeEngine:
             self._started = True
             self._loop_thread.start()
             self._periodic.start()
+            # the live plane: host-side registration only (see
+            # ServingEngine.start)
+            self._detach_debug = debug_server.attach_engine(
+                "decode", role="decode", metrics=lambda: self.metrics,
+                status=lambda: {"queue_depth": self._rq.qsize(),
+                                "xray": self.xray.summary(),
+                                "exemplars": self.exemplars.summary()},
+                exemplars=lambda: self.exemplars)
+            flight = flightrecorder.get_flight_recorder()
+            if flight is not None:
+                flight.add_metrics("decode", lambda: self.metrics)
+                flight.add_blob("exemplars-decode", self.exemplars.as_blob)
             # the KV cache as an HBM ledger resident: a paged engine's
             # pages in use (retirement shows as memory returned), a dense
             # engine's fixed reservation
@@ -1213,6 +1229,9 @@ class DecodeEngine:
             already, self._closed = self._closed, True
         if already:
             return
+        detach = getattr(self, "_detach_debug", None)
+        if detach is not None:
+            detach()
         if self._resident_name is not None:
             programs.get_hbm_ledger().remove_resident(self._resident_name)
         self._periodic.close()

@@ -26,8 +26,12 @@
   ``deliver``), the request X-ray's phases (queue, pad, device, deliver)
   and tail exemplars, each bucket's cost stamp (counted from one eager
   call before its capture) and compile in the program registry, the
-  flops and bytes of every dispatched batch, and the workload recorder.
-  The debug server and the flight recorder are not ported yet.
+  flops and bytes of every dispatched batch, and the workload recorder;
+  ``start()`` attaches the engine to the debug server (``/metricsz``
+  reads its metrics, ``/statusz`` its queue and X-ray, ``/tracez`` its
+  exemplars) and registers its metrics and exemplars with the flight
+  recorder, and ``close()`` detaches it (bigdl_tpu/serving/engine.py:
+  353-387).
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ from bigdl_tpu_torch.serving.metrics import (PeriodicMetricsLogger,
                                              ServingMetrics)
 from bigdl_tpu_torch.serving.warmup import (build_forward, bucket_struct,
                                             compile_bucket)
-from bigdl_tpu_torch.telemetry import costmodel, programs
+from bigdl_tpu_torch.telemetry import (costmodel, debug_server,
+                                       flightrecorder, programs)
 from bigdl_tpu_torch.telemetry import requests as request_xray
 from bigdl_tpu_torch.telemetry import workload
 from bigdl_tpu_torch.telemetry.tracer import CAT_SERVE, get_tracer
@@ -364,6 +369,18 @@ class ServingEngine:
             self._dispatcher.start()
             self._drainer.start()
             self._periodic.start()
+            # the live plane: host-side registration only (no-ops while
+            # it is off)
+            self._detach_debug = debug_server.attach_engine(
+                "serve", role="serve", metrics=lambda: self.metrics,
+                status=lambda: {"queue_depth": self._rq.qsize(),
+                                "xray": self.xray.summary(),
+                                "exemplars": self.exemplars.summary()},
+                exemplars=lambda: self.exemplars)
+            flight = flightrecorder.get_flight_recorder()
+            if flight is not None:
+                flight.add_metrics("serve", lambda: self.metrics)
+                flight.add_blob("exemplars-serve", self.exemplars.as_blob)
 
     @property
     def _logger(self) -> Optional[threading.Thread]:
@@ -379,6 +396,9 @@ class ServingEngine:
             already, self._closed = self._closed, True
         if already:
             return
+        detach = getattr(self, "_detach_debug", None)
+        if detach is not None:
+            detach()
         self._periodic.close(timeout)
         self._discard = not drain
         if not self._started:

@@ -5,20 +5,36 @@ JSON for ``ui.perfetto.dev``, TensorBoard scalars through
 ``visualization``, newline-JSON metrics), a :class:`Watchdog` over the
 span stream, cost and MFU accounting, the program X-ray (registry,
 recompile forensics, HBM ledger), the request X-ray (exact per-request
-latency attribution, tail exemplars) and the workload recorder.
+latency attribution, tail exemplars), the workload recorder, the
+numerics observatory (in-step gradient statistics, NaN provenance), the
+flight recorder, the live debug server and the cluster shipper,
+aggregator and federated watchdog.
 
-Instrumentation is host-side only: a captured CUDA graph launches the
-same kernels and gives bit-equal outputs with tracing on or off, and a
-disabled tracer costs one attribute check per record site.  The
-numerics observatory, the flight recorder, the debug server and the
-cluster aggregation are not ported yet.
+Instrumentation is host-side only, but for the numerics stats, which the
+train step computes when asked to: a captured CUDA graph launches the
+same kernels and gives bit-equal outputs with tracing, the recorder and
+the server on or off, and a disabled tracer costs one attribute check
+per record site.
 """
+from bigdl_tpu_torch.telemetry.cluster import (
+    ClusterAggregator,
+    FederatedWatchdog,
+    TelemetryShipper,
+)
 from bigdl_tpu_torch.telemetry.costmodel import (
     CostTable,
     ProgramCost,
     get_cost_table,
     mfu,
     peak_flops_per_device,
+)
+from bigdl_tpu_torch.telemetry.debug_server import (
+    DebugServer,
+    attach_engine,
+    bound_address,
+    debug_port,
+    get_debug_server,
+    prometheus_text,
 )
 from bigdl_tpu_torch.telemetry.export import (
     chrome_trace,
@@ -27,6 +43,21 @@ from bigdl_tpu_torch.telemetry.export import (
     write_chrome_trace,
     write_metrics_jsonl,
     write_scalars,
+)
+from bigdl_tpu_torch.telemetry.flightrecorder import (
+    FlightRecorder,
+    flight_enabled,
+    get_flight_recorder,
+)
+from bigdl_tpu_torch.telemetry.numerics import (
+    NUMERICS_EVENT,
+    NUMERICS_SAMPLE,
+    PROVENANCE_EVENT,
+    RECOVERY_EVENT,
+    NumericsMonitor,
+    NumericsSpec,
+    nan_provenance,
+    subsample_tree,
 )
 from bigdl_tpu_torch.telemetry.programs import (
     HbmLedger,
@@ -70,6 +101,13 @@ from bigdl_tpu_torch.telemetry.workload import (
 
 __all__ = [
     "Span", "Tracer", "Watchdog",
+    "TelemetryShipper", "ClusterAggregator", "FederatedWatchdog",
+    "DebugServer", "get_debug_server", "attach_engine",
+    "bound_address", "debug_port", "prometheus_text",
+    "FlightRecorder", "get_flight_recorder", "flight_enabled",
+    "NumericsMonitor", "NumericsSpec", "nan_provenance",
+    "subsample_tree", "NUMERICS_SAMPLE", "NUMERICS_EVENT",
+    "PROVENANCE_EVENT", "RECOVERY_EVENT",
     "CostTable", "ProgramCost", "get_cost_table", "mfu",
     "peak_flops_per_device",
     "ProgramRegistry", "ProgramRecord", "ProgramSignature",

@@ -6,8 +6,9 @@ bigdl_tpu/telemetry/export.py).
   per span, ``"i"`` per instant and ``"M"`` events naming every thread,
   so the loop, prefetch, checkpoint writer, dispatcher and drain threads
   each get a labelled track, with the correlation ID in each slice's
-  args; the HBM ledger's samples add a counter lane, and each request's
-  slices are joined by flow arrows across threads.
+  args; the HBM ledger's samples add a counter lane, the numerics
+  monitor's samples a grad-norm one, and each request's slices are
+  joined by flow arrows across threads.
 * :func:`write_scalars`: TensorBoard scalars through the port's
   ``visualization`` writer.
 * :func:`metrics_record` / :func:`write_metrics_jsonl` /
@@ -77,6 +78,16 @@ def chrome_trace(tracer: Optional[Tracer] = None,
                 "args": {
                     "in_use": s.args.get("bytes_in_use", 0),
                     "peak": s.args.get("peak_bytes_in_use", 0),
+                },
+            })
+        if s.instant and s.name == "numerics" and s.args:
+            # the drained numerics samples as a grad-norm counter lane
+            events.append({
+                "ph": "C", "name": "grad norm", "cat": s.cat,
+                "pid": pid, "tid": 0, "ts": ev["ts"],
+                "args": {
+                    "grad_norm": s.args.get("grad_norm", 0.0),
+                    "update_ratio": s.args.get("update_ratio", 0.0),
                 },
             })
     # flow arrows join each request's slices across threads (dispatcher

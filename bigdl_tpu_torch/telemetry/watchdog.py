@@ -20,7 +20,13 @@ the trace that explains it is still in the ring:
   ``queue_full`` and ``deadline_reject`` instants;
 * **deferred-NaN drains**: the loop's ``loss_divergence`` instant, with
   the iteration that produced the NaN and the one that read it;
-* **numerics warnings**: ``numerics_anomaly`` instants, counted by kind.
+* **numerics warnings**: ``numerics_anomaly`` instants, counted by kind;
+* **peers**: :meth:`Watchdog.peer_event` (the cluster's federated
+  watchdog: stalled, straggling or saturated hosts).
+
+``on_anomaly(counter, message)`` is called after each anomaly (the
+flight recorder's :meth:`~bigdl_tpu_torch.telemetry.flightrecorder.
+FlightRecorder.on_anomaly` chains there).
 
 Counters export to TensorBoard through :meth:`Watchdog.write_summary`
 and to the JSONL dump through :meth:`Watchdog.report`.
@@ -114,7 +120,8 @@ class Watchdog:
                  stall_window: int = 32,
                  armed: bool = True,
                  log=logger.warning,
-                 max_anomalies: int = 256):
+                 max_anomalies: int = 256,
+                 on_anomaly=None):
         self.counters: Dict[str, int] = {k: 0 for k in self.COUNTERS}
         self.anomalies: List[Dict] = []
         self._step_spans = tuple(step_spans)
@@ -148,6 +155,7 @@ class Watchdog:
         # the next recompile span so the anomaly names the cause
         self._last_forensic: Optional[Dict] = None
         self._tracer: Optional[Tracer] = None
+        self._on_anomaly = on_anomaly
 
     # -- lifecycle -----------------------------------------------------
     def attach(self, tracer: Optional[Tracer] = None) -> "Watchdog":
@@ -279,20 +287,41 @@ class Watchdog:
                         f"BIGDL_TPU_PREFETCH_DEPTH or speed up host "
                         f"transforms)")
 
-    def _raise(self, counter: str, span: Span, message: str):
+    def _raise(self, counter: str, span: Optional[Span], message: str):
+        # span None: an event from outside the span stream (a peer)
+        thread = span.thread if span is not None \
+            else threading.current_thread().name
+        corr = span.corr if span is not None else None
+        t = span.t1 if span is not None else time.perf_counter()
         with self._lock:
             self.counters[counter] += 1
             if len(self.anomalies) < self._max_anomalies:
                 self.anomalies.append({
                     "kind": counter, "message": message,
-                    "thread": span.thread, "corr": span.corr,
-                    "t": span.t1, "unix_time": round(time.time(), 3),
+                    "thread": thread, "corr": corr,
+                    "t": t, "unix_time": round(time.time(), 3),
                 })
         if self._log is not None:
             try:
                 self._log("watchdog: %s", message)
             except Exception:
                 pass
+        if self._on_anomaly is not None:
+            try:  # outside the lock: the hook may call back into us
+                self._on_anomaly(counter, message)
+            except Exception:
+                logger.warning("watchdog on_anomaly hook failed",
+                               exc_info=True)
+
+    def peer_event(self, host: str, kind: str = "dead",
+                   age_s: float = 0.0):
+        """A dead, stalled, joining, straggling or saturated peer
+        (``kind``), counted as ``peer_failures``."""
+        self._raise(
+            "peer_failures", None,
+            f"peer {host!r} {kind}"
+            + (f" (heartbeat {age_s:.1f}s stale)" if kind == "dead"
+               else ""))
 
     # -- reading / export ---------------------------------------------
     def total(self) -> int:

@@ -27,7 +27,7 @@ import torch
 
 from bigdl_tpu_torch.nn.module import Container
 
-__all__ = ["load_jax_variables", "export_variables", "flatten",
+__all__ = ["load_jax_variables", "export_variables", "flatten", "subtree",
            "random_variables", "load_jax_opt_state", "export_opt_state"]
 
 
@@ -41,6 +41,13 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
         else:
             out[key] = v
     return out
+
+
+def subtree(flat: Mapping, key: str) -> Dict[str, object]:
+    """The entries of a flat dict under ``key.``, the prefix cut: the
+    flat form of the JAX subtree ``key``."""
+    pre = key + "."
+    return {n[len(pre):]: v for n, v in flat.items() if n.startswith(pre)}
 
 
 def _table(model: torch.nn.Module):

@@ -8,70 +8,23 @@ tag``.  The optimizer takes them through ``set_train_summary`` and
 ``LearningRate`` and the validation methods' scores; the optional
 ``Parameters`` histogram is written when the trigger set by
 ``set_summary_trigger("Parameters", n)`` fires (every ``n``
-iterations).  Without numerics statistics (not ported yet) the histogram
-is :func:`subsample_tree` of the parameters: a strided subsample reduced
-on the parameters' device, so only that vector is copied to the host.
+iterations): with the loop's numerics statistics on, a histogram and the
+norms per layer, from the drained stats; without, :func:`subsample_tree`
+of the parameters, a strided subsample reduced on the parameters'
+device, so only that vector is copied to the host.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
-import torch
 
+from bigdl_tpu_torch.telemetry.numerics import DEFAULT_HIST, subsample_tree
 from bigdl_tpu_torch.visualization.tensorboard import FileWriter, read_events
 
 __all__ = ["DEFAULT_HIST", "ServingSummary", "Summary", "TelemetrySummary",
            "TrainSummary", "ValidationSummary", "subsample_tree"]
-
-#: points of the Parameters histogram (bigdl_tpu/telemetry/numerics.py:67)
-DEFAULT_HIST = 1024
-
-
-def _nest(tree: Any) -> Any:
-    """A dict whose keys are dotted paths (``named_parameters`` names) as
-    nested dicts, so that its leaves order as the JAX tree's."""
-    if not isinstance(tree, dict):
-        return tree
-    out: Dict[str, Any] = {}
-    for k, v in tree.items():
-        *head, last = str(k).split(".")
-        node = out
-        for part in head:
-            node = node.setdefault(part, {})
-        node[last] = _nest(v)
-    return out
-
-
-def _leaves(tree: Any) -> List[Any]:
-    """The leaves in ``jax.tree_util.tree_leaves`` order: dict keys
-    sorted, lists and tuples in order."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _leaves(v)]
-    return [tree]
-
-
-def subsample_tree(tree: Any, budget: int = DEFAULT_HIST) -> np.ndarray:
-    """A deterministic strided subsample of about ``budget`` f32 points
-    over a tree's leaves (bigdl_tpu/telemetry/numerics.py:133-149): every
-    ``total // budget``-th element of the leaves raveled in the JAX
-    tree's order, cut to ``budget``.  ``tree`` is nested dicts, lists and
-    tuples of tensors or arrays, or a flat dict keyed by dotted paths.
-    The subsample is gathered where the tensors live; only it is copied
-    to the host."""
-    leaves = [torch.as_tensor(leaf) for leaf in _leaves(_nest(tree))]
-    total = sum(leaf.numel() for leaf in leaves)
-    if total == 0:
-        return np.zeros((0,), np.float32)
-    stride = max(1, total // max(1, budget))
-    with torch.no_grad():
-        parts = [leaf.detach().reshape(-1)[::stride].float()
-                 for leaf in leaves if leaf.numel()]
-        out = torch.cat(parts)[:budget]
-    return out.cpu().numpy()
 
 
 class Summary:
@@ -119,13 +72,26 @@ class TrainSummary(Summary):
     def __init__(self, log_dir: str, app_name: str):
         super().__init__(log_dir, app_name, "train")
 
-    def maybe_add_parameters(self, params, step: int):
-        """The ``Parameters`` histogram, :func:`subsample_tree` of
-        ``params``, when its trigger fires (the per-layer histograms of
-        JAX's numerics statistics come with the numerics monitor)."""
-        if self.trigger_fires("Parameters", step):
-            self.add_histogram("Parameters/subsample",
-                               subsample_tree(params), step)
+    def maybe_add_parameters(self, params, step: int, stats=None):
+        """When the ``Parameters`` trigger fires: with ``stats`` (a
+        drained numerics tree, ``telemetry/numerics.py collect``, already
+        on the host) each layer's histogram ``Parameters/<layer>`` and its
+        ``ParamNorm/<layer>`` and ``GradNorm/<layer>`` scalars, with no
+        copy from the device here; without, the histogram
+        ``Parameters/subsample``, :func:`subsample_tree` of ``params``
+        (bigdl_tpu/visualization/summary.py:66-90)."""
+        if not self.trigger_fires("Parameters", step):
+            return
+        if stats is not None and stats.get("layers"):
+            for name in sorted(stats["layers"]):
+                layer = stats["layers"][name]
+                self.add_histogram(f"Parameters/{name}",
+                                   np.asarray(layer["hist"]), step)
+                self.add_scalar(f"ParamNorm/{name}", float(layer["p"]), step)
+                self.add_scalar(f"GradNorm/{name}", float(layer["g"]), step)
+            return
+        self.add_histogram("Parameters/subsample", subsample_tree(params),
+                           step)
 
 
 class ValidationSummary(Summary):

@@ -249,6 +249,24 @@ Phases:
    and off, its stamp about 4x the forward an image, and its MFU at
    batch 256; a decode engine forced past its largest prompt bucket,
    the changed axis named by forensics and counted by the watchdog.
+14. observability: the compiled fused ResNet-50 step (bf16, batch 256)
+   with numerics off and on: one capture each, kernels 1-5
+   72/36/36/26/13 a step in both (capture and profiler), every kernel of
+   a replay counted, trees bit-equal after 3 steps, a replay's drained
+   stats within 1e-5 of the same step run eagerly and of per-leaf f64
+   norms, and the stats' overhead timed as bench.py numerics_ab does
+   (bursts of 10 steps in turns, the median; held to 3%); a trap layer
+   before the ResNet-50 turning one batch NaN in optimize() (batch 32,
+   a checkpoint each epoch): the numerics_anomaly before the
+   loss_divergence, nan_provenance naming the trap (site forward), the
+   recovery record, one capture and a seven-file flight bundle (the
+   provenance's and a dump's seconds and bytes printed); the served
+   ResNet-50 with BIGDL_TPU_DEBUG_PORT=0 (/metricsz against the engine's
+   metrics, with the card's HBM gauges; /statusz, /tracez, /xrayz,
+   /flightz); profiling.trace around a batch-32 forward and optimize():
+   kernels 1-5 named in the device trace, the loop's spans in
+   host_trace.json, get_times' per-layer table; the served and trained
+   parts shipped as two hosts and merged into two lanes.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -4944,6 +4962,583 @@ def telemetry_phase(args, card, out, dev="cuda"):
     return res
 
 
+# phase 14, the rest of the telemetry plane: numerics in the step, the
+# seeded divergence, the live plane, the profiling tools and the cluster
+# merge.  (a) times stats on against off as bench.py numerics_ab does:
+# two compiled steps from one model, bursts of OBS_BURST steps in turns,
+# the stats never fetched, the median of each arm's per-step times (the
+# first of each burst dropped), held to JAX's 3% (tests/test_numerics.py)
+OBS_RES = 224
+OBS_TRAIN_BATCH = 256
+OBS_BIT_STEPS = 3         # steps held bit-equal, stats off and on
+OBS_BURSTS = 6
+OBS_BURST = 10
+OBS_OVERHEAD = 0.03
+NUMERICS_RTOL = 1e-5      # drained stats against the eager step's
+OBS_DIV_BATCH = 32        # (b): 4 batches an epoch, a checkpoint each
+OBS_DIV_AT = 6            # the batch whose images turn NaN at the trap
+OBS_SERVE_REQUESTS = 256  # (c)
+OBS_PROFILE_ITERS = 2     # (d): optimize() iterations under the profiler
+
+
+def _numpy_tree(tree):
+    """A tree of tensors copied to host numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def _stats_err(a, b):
+    """Largest relative difference of two numerics trees' norms and
+    histograms, and whether their non-finite counts agree."""
+    import numpy as np
+
+    worst, counts = 0.0, True
+
+    def rel(x, y):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        if x.size == 0:
+            return 0.0
+        return float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30)))
+
+    for k in ("grad_norm", "param_norm", "update_norm"):
+        worst = max(worst, rel(a[k], b[k]))
+    counts &= int(a["nonfinite"]) == int(b["nonfinite"])
+    if list(a["layers"]) != list(b["layers"]):
+        return float("inf"), False
+    for name, la in a["layers"].items():
+        lb = b["layers"][name]
+        for k in ("g", "p", "u"):
+            worst = max(worst, rel(la[k], lb[k]))
+        worst = max(worst, rel(la["hist"], lb["hist"]))
+        counts &= int(la["nf"]) == int(lb["nf"])
+    return worst, counts
+
+
+def device_kernel_count(fn):
+    """The CUDA kernels and the copies and sets one call of ``fn`` runs on
+    the card (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+    return kernels, copies
+
+
+def observability_phase(args, card, out, dev="cuda"):
+    """Phase 14, the rest of the telemetry plane
+    (``bigdl_tpu_torch.telemetry`` numerics, flight recorder, debug
+    server, cluster, and ``utils/profiling.py``): (a) the compiled fused
+    ResNet-50 step (bf16, batch ``OBS_TRAIN_BATCH``) with numerics off
+    and on: one capture each, kernels 1-5 72/36/36/26/13 a step in both,
+    every kernel of a replay counted by the profiler, the trees after
+    ``OBS_BIT_STEPS`` steps bit-equal, the drained stats of a replay
+    against the same step run eagerly on the same trees and the layers'
+    parameter and update norms against a plain per-leaf recomputation
+    (``NUMERICS_RTOL``), and the stats' overhead timed as bench.py
+    numerics_ab times it, held to ``OBS_OVERHEAD``; (b) a trap layer
+    before the ResNet-50 turns one batch NaN in ``Optimizer.optimize()``
+    with numerics on and a checkpoint each epoch: the watchdog counts the
+    ``numerics_anomaly`` (kind nonfinite) before the ``loss_divergence``,
+    ``nan_provenance`` names the trap with site forward, the recovery
+    books the rewind, the step stays one capture, and the flight bundle
+    holds JAX's seven files (the provenance's seconds and a dump's
+    seconds and bytes printed); (c) the served ResNet-50 with
+    ``BIGDL_TPU_DEBUG_PORT=0``: ``/metricsz`` parses and agrees with the
+    engine's ``ServingMetrics``, with HBM gauges from the card,
+    ``/tracez`` loads, ``/xrayz`` lists the buckets and ``/flightz``
+    dumps; (d) ``profiling.trace`` around a batch-32 forward and
+    ``optimize()``: the device trace names kernels 1-5, ``host_trace.json``
+    holds the loop's spans, and ``get_times`` prints the per-layer table;
+    (e) the served and the trained parts shipped as two hosts and merged
+    by ``ClusterAggregator`` into two lanes.  ``dev="cpu"`` serves a
+    rehearsal with the sizes shrunk and the CUDA calls patched.  Returns
+    the results."""
+    import contextlib
+    import io
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn, telemetry
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.minibatch import MiniBatch
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.ops import fused_matmul as fm
+    from bigdl_tpu_torch.optim import (SGD, CompiledTrainStep, Optimizer,
+                                       Trigger, make_train_step)
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.telemetry import (cluster, debug_server,
+                                           flightrecorder, numerics)
+    from bigdl_tpu_torch.tools import blackbox, cluster_top
+    from bigdl_tpu_torch.utils import (export_variables, graphs,
+                                       load_jax_variables, profiling,
+                                       random_variables)
+
+    t_phase = time.perf_counter()
+    print(f"observability phase on {card}", flush=True)
+    tracer = telemetry.get_tracer()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+    rs = np.random.RandomState(args.seed + 14)
+    run_dir = out / "cluster_phase"
+    flight_dir = out / "flight_phase"
+    scratch = ROOT / "build" / "obs_phase"
+    for d in (run_dir, flight_dir, scratch):
+        shutil.rmtree(d, ignore_errors=True)
+    knobs = {"BIGDL_TPU_FLIGHT": "1", "BIGDL_TPU_FLIGHT_DIR": str(flight_dir),
+             "BIGDL_TPU_FLIGHT_MIN_INTERVAL_S": "0",
+             "BIGDL_TPU_DEBUG_PORT": "0"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    flightrecorder.set_global(None)
+    debug_server.set_global(None)
+    res = {}
+    dims = (OBS_RES, OBS_RES, 3)
+
+    model = ResNet50(1000, stem="space_to_depth", fused=True, device=dev)
+    load_jax_variables(model, random_variables(export_variables(model),
+                                               args.seed))
+    crit = nn.ClassNLLCriterion(logits=True)
+    spec = numerics.spec_for(model)
+
+    def fresh():
+        params = {k: p.detach().clone() for k, p in model.named_parameters()}
+        state = {k: b.detach().clone() for k, b in model.named_buffers()}
+        return params, state, {"__all__": SGD(0.1, momentum=0.9)
+                               .init_state(params)}
+
+    def step_fn(on):
+        return make_train_step(model, crit, {"__all__": SGD(0.1, momentum=0.9)},
+                               compute_dtype=bf16,
+                               numerics=spec if on else None)
+
+    # --------------------------------------- (a) numerics in the step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    xb = torch.rand((OBS_TRAIN_BATCH,) + dims, generator=gen,
+                    device=dev).to(bf16)
+    tb = torch.randint(0, 1000, (OBS_TRAIN_BATCH,), generator=gen,
+                       device=dev)
+    lrs = [0.1]
+    arms = {on: {"step": CompiledTrainStep(step_fn(on)), "trees": fresh()}
+            for on in (False, True)}
+    on_arm = arms[True]
+    before = graphs.clone(on_arm["trees"])
+    *trees, _, stats = on_arm["step"](*on_arm["trees"], 1, None, xb, tb, lrs)
+    drained = _numpy_tree(stats)  # before the next replay overwrites it
+    eager = step_fn(True)(*before, 1, None, xb, tb, lrs)
+    eager_err, eager_counts = _stats_err(drained, _numpy_tree(eager[4]))
+    # each layer's parameter and update norms, leaf by leaf, in f64
+    plain_err = 0.0
+    for name, names in numerics._layer_groups(before[0], spec.layers):
+        p = sum(float(torch.linalg.vector_norm(before[0][n].double())) ** 2
+                for n in names) ** 0.5
+        u = sum(float(torch.linalg.vector_norm(
+            (trees[0][n] - before[0][n]).double())) ** 2
+            for n in names) ** 0.5
+        for got, want in ((drained["layers"][name]["p"], p),
+                          (drained["layers"][name]["u"], u)):
+            plain_err = max(plain_err, abs(float(got) - want)
+                            / max(abs(want), 1e-30))
+    del eager, before
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    if not eager_counts or eager_err > NUMERICS_RTOL \
+            or plain_err > NUMERICS_RTOL:
+        fail(f"drained stats against the eager step: largest relative "
+             f"difference {eager_err:.3g} (counts equal: {eager_counts}), "
+             f"against the plain per-leaf norms {plain_err:.3g}; limit "
+             f"{NUMERICS_RTOL}")
+    print(f"observability: numerics of a replayed batch-{OBS_TRAIN_BATCH} "
+          f"step against the same step eager: largest relative difference "
+          f"{eager_err:.3g}, non-finite counts equal; the layers' parameter "
+          f"and update norms against a per-leaf f64 recomputation "
+          f"{plain_err:.3g} ({len(drained['layers'])} layers, grad norm "
+          f"{float(drained['grad_norm']):.4g}, {int(drained['nonfinite'])} "
+          f"non-finite)", flush=True)
+    for i in range(2, OBS_BIT_STEPS + 1):
+        on_arm["step"](*on_arm["trees"], i, None, xb, tb, lrs)
+    off_arm = arms[False]
+    for i in range(1, OBS_BIT_STEPS + 1):
+        off_arm["step"](*off_arm["trees"], i, None, xb, tb, lrs)
+    differ = sum(not torch.equal(a, b) for a, b in zip(
+        graphs.leaves(on_arm["trees"]), graphs.leaves(off_arm["trees"])))
+    if differ:
+        fail(f"numerics on and off: {differ} tree leaves differ after "
+             f"{OBS_BIT_STEPS} steps")
+    res["numerics"] = {"eager_max_rel": eager_err,
+                       "plain_norms_max_rel": plain_err,
+                       "layers": len(drained["layers"]),
+                       "bit_equal_steps": OBS_BIT_STEPS}
+    if dev == "cuda":
+        counts = {}
+        for on, arm in arms.items():
+            (g,) = arm["step"].graphs.values()
+            if arm["step"].captures != 1 or g.launches != STEP_LAUNCHES[True]:
+                fail(f"numerics {'on' if on else 'off'}: "
+                     f"{arm['step'].captures} captures launching "
+                     f"{g.launches}, expected one with "
+                     f"{STEP_LAUNCHES[True]}")
+            got, _ = replay_kernels(lambda: arm["step"](
+                *arm["trees"], 100, None, xb, tb, lrs))
+            if got != STEP_LAUNCHES[True]:
+                fail(f"numerics {'on' if on else 'off'}: a replay runs "
+                     f"{got} (profiler)")
+            counts[on] = device_kernel_count(lambda: arm["step"](
+                *arm["trees"], 101, None, xb, tb, lrs))
+        res["numerics"]["launches_per_step"] = dict(g.launches)
+        res["numerics"]["graph_kernels"] = {"off": counts[False],
+                                            "on": counts[True]}
+        print(f"observability: one capture each, kernels 1-5 "
+              f"{STEP_LAUNCHES[True]} a step stats off and on; a replay "
+              f"runs {counts[False][0]} kernels and {counts[False][1]} "
+              f"copies/sets off, {counts[True][0]} and {counts[True][1]} on "
+              f"(+{counts[True][0] - counts[False][0]} kernels for the "
+              f"stats); trees bit-equal after {OBS_BIT_STEPS} steps",
+              flush=True)
+        times = {False: [], True: []}
+        base = 200
+        for _ in range(OBS_BURSTS):
+            for on in (False, True):
+                arm = arms[on]
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(OBS_BURST + 1)]
+                ev[0].record()
+                for i in range(OBS_BURST):
+                    arm["step"](*arm["trees"], base + i, None, xb, tb, lrs)
+                    ev[i + 1].record()
+                ev[-1].synchronize()
+                times[on] += [ev[i].elapsed_time(ev[i + 1])
+                              for i in range(1, OBS_BURST)]
+                base += OBS_BURST
+        med = {on: statistics.median(t) for on, t in times.items()}
+        overhead = med[True] / med[False] - 1.0
+        res["numerics"]["timing"] = {
+            "ms_per_step_off": med[False], "ms_per_step_on": med[True],
+            "overhead": overhead, "steps_per_arm": len(times[True])}
+        print(f"observability: step at batch {OBS_TRAIN_BATCH}, median of "
+              f"{len(times[True])} steps a state (bursts of {OBS_BURST} in "
+              f"turns, CUDA events): {med[False]:.3f} ms stats off, "
+              f"{med[True]:.3f} ms on, overhead {100 * overhead:.2f}% "
+              f"(limit {100 * OBS_OVERHEAD:.0f}%); {card}", flush=True)
+        if overhead > OBS_OVERHEAD:
+            fail(f"numerics cost {100 * overhead:.2f}% of the step")
+    torch.backends.cudnn.deterministic = deterministic
+    del arms, on_arm, off_arm, trees, stats, xb, tb
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # ------------------------------------ (b) a seeded divergence
+    class Trap(nn.Module):
+        """Pass-through that goes NaN where |x| > limit."""
+
+        def __init__(self, limit=1e6):
+            super().__init__()
+            self.limit = limit
+
+        def forward(self, x):
+            return torch.where(x.abs() > self.limit,
+                               torch.full_like(x, float("nan")), x)
+
+    class SentinelOnce:
+        """The ``at``-th training batch pulled gets a large finite
+        value in every feature."""
+
+        def __init__(self, base, at, value=1e8):
+            self.base, self.at, self.value, self.count = base, at, value, 0
+
+        def batches_per_epoch(self):
+            return self.base.batches_per_epoch()
+
+        def data(self, train):
+            for b in self.base.data(train):
+                if train:
+                    self.count += 1
+                    if self.count == self.at:
+                        b = MiniBatch(np.full_like(b.get_input(),
+                                                   self.value),
+                                      b.get_target())
+                yield b
+
+    feats = rs.rand(4 * OBS_DIV_BATCH, *dims).astype(np.float32)
+    labels = rs.randint(0, 1000, 4 * OBS_DIV_BATCH)
+    trapped = nn.Sequential(Trap(), model)
+    tracer.enable()
+    tracer.clear()
+    wd = telemetry.Watchdog(log=None).attach()
+    flight = flightrecorder.get_flight_recorder()
+    flight.set_watchdog(wd)
+    ckdir = scratch / "ckpt"
+    opt = (Optimizer.apply(trapped, SentinelOnce(DataSet.from_arrays(
+        feats, labels, batch_size=OBS_DIV_BATCH), OBS_DIV_AT),
+        crit, end_trigger=Trigger.max_epoch(3), device=dev)
+        .set_optim_method(SGD(0.1, momentum=0.9))
+        .set_compute_dtype(bf16)
+        .set_checkpoint(str(ckdir), Trigger.every_epoch())
+        .set_numerics(True))
+    prov_s = []
+    diagnose = opt._maybe_diagnose_divergence
+
+    def timed_diagnosis(*a, **kw):
+        t0 = time.perf_counter()
+        diagnose(*a, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        prov_s.append(time.perf_counter() - t0)
+
+    opt._maybe_diagnose_divergence = timed_diagnosis
+    fm.reset_launches()
+    t0 = time.perf_counter()
+    opt.optimize()
+    div_s = time.perf_counter() - t0
+    div_launches = dict(fm.LAUNCHES)
+    wd.close()
+    spans = tracer.spans()
+    names = [s.name for s in spans]
+    prov = [s.args for s in spans if s.name == "nan_provenance"]
+    rec = [s.args for s in spans if s.name == "divergence_recovery"]
+    first = next((s.args for s in spans if s.name == "numerics_anomaly"), {})
+    early = ("numerics_anomaly" in names and "loss_divergence" in names
+             and names.index("numerics_anomaly")
+             < names.index("loss_divergence"))
+    if not early or first.get("kind") != "nonfinite":
+        fail(f"seeded divergence: numerics_anomaly {first} is not a "
+             f"nonfinite warning before the loss_divergence")
+    if len(prov) != 1 or (prov[0]["layer"], prov[0]["site"],
+                          prov[0]["iteration"]) != ("0", "forward",
+                                                    OBS_DIV_AT):
+        fail(f"seeded divergence: provenance {prov}")
+    if len(rec) != 1 or rec[0]["iteration"] != OBS_DIV_AT \
+            or rec[0]["restored_iteration"] != 4 or opt._retries != 1:
+        fail(f"seeded divergence: recovery {rec}, retries {opt._retries}")
+    captures = opt.train_step.captures if dev == "cuda" else 1
+    if captures != 1 or not math.isfinite(opt._loop_state["loss"]):
+        fail(f"seeded divergence: {captures} captures, final loss "
+             f"{opt._loop_state['loss']}")
+    if wd.counters["nonfinite_grads"] < 1 or wd.counters["nan_windows"] < 1:
+        fail(f"seeded divergence: watchdog {wd.counters}")
+    manifests = {b: json.loads((Path(b) / "manifest.json").read_text())
+                 for b in flight.bundles()}
+    bundle = next((b for b, m in manifests.items()
+                   if m["trigger"] == "loss_divergence"), None)
+    seven = {"trace.json", "metrics.jsonl", "xray.json", "watchdog.json",
+             "numerics.json", "threads.txt", "manifest.json"}
+    if bundle is None or set(os.listdir(bundle)) != seven:
+        fail(f"seeded divergence: bundles "
+             f"{ {b: m['trigger'] for b, m in manifests.items()} }")
+    t0 = time.perf_counter()
+    dumped = flight.dump(trigger="flightz", note="timed", force=True)
+    dump_s = time.perf_counter() - t0
+    dump_bytes = sum(f.stat().st_size for f in Path(dumped).iterdir())
+    summary = blackbox.summarize(blackbox.load_bundle(bundle))
+    if dev == "cuda" and any(div_launches.get(k, 0) == 0
+                             for k in STEP_LAUNCHES[True]):
+        fail(f"seeded divergence: launches {div_launches}")
+    res["divergence"] = {
+        "seconds": div_s, "provenance_s": prov_s[0],
+        "provenance": prov[0], "recovery": rec[0],
+        "watchdog": dict(wd.counters), "launches": div_launches,
+        "bundle_files": sorted(os.listdir(bundle)),
+        "bundle_bytes": sum(f.stat().st_size for f in Path(bundle).iterdir()),
+        "dump_s": dump_s, "dump_bytes": dump_bytes,
+        "blackbox_trigger": summary["trigger"]}
+    print(f"observability: seeded divergence at iteration {OBS_DIV_AT} "
+          f"(batch {OBS_DIV_BATCH}, fused ResNet-50 behind a trap): "
+          f"numerics_anomaly {first.get('kind')} before the loss_divergence;"
+          f" nan_provenance layer {prov[0]['layer']!r} site "
+          f"{prov[0]['site']!r} in {prov_s[0]:.3f} s; recovery from "
+          f"iteration {rec[0]['restored_iteration']} (detected at "
+          f"{rec[0]['detected_at']}); {captures} capture; watchdog "
+          f"{wd.log_line()}; bundle of {len(seven)} files, "
+          f"{res['divergence']['bundle_bytes']} bytes; a forced dump "
+          f"{dump_s:.3f} s, {dump_bytes} bytes; launches {div_launches}; "
+          f"{div_s:.1f} s; {card}", flush=True)
+    del opt, trapped
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------- (c) the live plane
+    tracer.clear()
+    serve_ship = cluster.TelemetryShipper(str(run_dir), "serve",
+                                          interval_s=0)
+    engine = ServingEngine(model, buckets=[dims], batch_sizes=SERVE_BATCHES,
+                           input_dtype=bf16, device=dev)
+    serve_ship.add_metrics("serve", lambda: engine.metrics)
+    srv = debug_server.get_debug_server()
+    try:
+        images = rs.randn(OBS_SERVE_REQUESTS, *dims).astype(np.float32)
+        serve_images(engine, images)
+        hbm = telemetry.get_hbm_ledger().sample()
+
+        def get(path):
+            with urllib.request.urlopen(srv.local_url(path),
+                                        timeout=60) as r:
+                return r.read().decode()
+
+        text = get("/metricsz")
+        prom = cluster_top.parse_prometheus(text)
+        m = engine.metrics
+        snap = {dict(lbl)["key"]: v for (n, lbl), v in prom.items()
+                if n == "bigdl_tpu_snapshot" and dict(lbl)["source"]
+                == "serve"}
+        hist_n = prom.get(("bigdl_tpu_request_latency_seconds_count",
+                           (("source", "serve"),)))
+        hbm_use = cluster_top._prom_pick(prom, "bigdl_tpu_hbm_bytes",
+                                         kind="in_use")
+        hbm_limit = cluster_top._prom_pick(prom, "bigdl_tpu_hbm_bytes",
+                                           kind="limit")
+        want_limit = (torch.cuda.get_device_properties(0).total_memory
+                      if dev == "cuda" else None)
+        if snap.get("completed") != m.completed \
+                or m.completed != OBS_SERVE_REQUESTS \
+                or hist_n != OBS_SERVE_REQUESTS \
+                or snap.get("recompiles") != m.recompiles:
+            fail(f"/metricsz: completed {snap.get('completed')}, histogram "
+                 f"count {hist_n}, recompiles {snap.get('recompiles')}; "
+                 f"the engine's {m.completed}, {m.recompiles}")
+        if dev == "cuda" and (hbm is None or hbm["source"] != "device"
+                              or not hbm_use or hbm_limit != want_limit):
+            fail(f"/metricsz HBM gauges in_use {hbm_use}, limit "
+                 f"{hbm_limit} (the card's {want_limit}); sample {hbm}")
+        status = json.loads(get("/statusz"))
+        trace = json.loads(get("/tracez?secs=0"))
+        xray = json.loads(get("/xrayz"))
+        flightz = json.loads(get("/flightz?note=phase14"))
+        tracks = {e["args"]["name"] for e in trace["traceEvents"]
+                  if e.get("ph") == "M" and e["name"] == "thread_name"}
+        progs = [p["name"] for p in xray["programs"]]
+        if [e["name"] for e in status["engines"]] != ["serve"] \
+                or "bigdl-serve-drain" not in tracks \
+                or not any(p.startswith("serving") for p in progs) \
+                or not Path(flightz.get("bundle", "")).is_dir():
+            fail(f"live plane: engines {status['engines']}, tracks "
+                 f"{sorted(tracks)}, programs {progs}, flightz {flightz}")
+        res["live"] = {"metricsz_lines": len(text.splitlines()),
+                       "families": len({n for n, _ in prom}),
+                       "hbm_in_use": hbm_use, "hbm_limit": hbm_limit,
+                       "trace_events": len(trace["traceEvents"]),
+                       "programs": progs, "flightz": flightz["bundle"]}
+        print(f"observability: live plane on {srv.address}: /metricsz "
+              f"{len(text.splitlines())} lines in "
+              f"{res['live']['families']} families (completed "
+              f"{int(snap['completed'])} = the engine's, histogram count "
+              f"{int(hist_n)}, HBM in use {hbm_use:.0f} of {hbm_limit} "
+              f"bytes); /tracez {len(trace['traceEvents'])} events on "
+              f"tracks {sorted(tracks)}; /xrayz {len(progs)} programs; "
+              f"/flightz {Path(flightz['bundle']).name}", flush=True)
+    finally:
+        engine.close()
+        serve_ship.close()
+
+    # --------------------------------------- (d) the profiling tools
+    train_ship = cluster.TelemetryShipper(str(run_dir), "train",
+                                          interval_s=0)
+    x32 = torch.rand((BATCH,) + dims, generator=gen, device=dev).to(bf16)
+    model.eval()
+    with torch.no_grad():
+        model(x32)  # built and warm outside the trace
+    opt = (Optimizer.apply(model, DataSet.from_arrays(
+        feats[:2 * BATCH], labels[:2 * BATCH], batch_size=BATCH), crit,
+        end_trigger=Trigger.max_iteration(OBS_PROFILE_ITERS), device=dev)
+        .set_optim_method(SGD(0.1, momentum=0.9)).set_compute_dtype(bf16))
+    train_ship.add_metrics("train", lambda: opt.metrics)
+    logdir = scratch / "profile"
+    tracer.clear()
+    t0 = time.perf_counter()
+    with profiling.trace(str(logdir)):
+        with profiling.annotate("phase14_forward"), torch.no_grad():
+            model.eval()
+            model(x32)
+        opt.optimize()
+    trace_s = time.perf_counter() - t0
+    train_ship.close()
+    (dev_trace,) = logdir.glob("*.pt.trace.json")
+    events = json.loads(dev_trace.read_text())["traceEvents"]
+    by_kernel = Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            w = kernel_of(e.get("name", ""))
+            if w is not None:
+                by_kernel[w] += 1
+    host = json.loads((logdir / "host_trace.json").read_text())
+    loop = {e["name"] for e in host["traceEvents"] if e.get("ph") == "X"}
+    steps = {e.get("args", {}).get("corr") for e in host["traceEvents"]
+             if e.get("name") == "dispatch"}
+    if dev == "cuda" and not set(STEP_LAUNCHES[True]) <= set(by_kernel):
+        fail(f"the device trace names {dict(by_kernel)}, not kernels 1-5")
+    if not {"dispatch", "data_stall"} <= loop or "step:1" not in steps:
+        fail(f"host_trace.json: spans {sorted(loop)}, steps {steps}")
+    rows = profiling.get_times(model, x=x32)
+    table = profiling.format_times(rows)
+    print(table, flush=True)
+    blocks = sum(1 for _, t, _, _ in rows if t == "FusedBottleneck")
+    if blocks != 16 or len(rows) != len(model.child_keys):
+        fail(f"get_times: {len(rows)} rows, {blocks} fused blocks")
+    res["profiling"] = {
+        "device_trace_bytes": dev_trace.stat().st_size,
+        "device_trace_kernels": dict(by_kernel), "host_spans": sorted(loop),
+        "seconds": trace_s, "get_times_rows": len(rows),
+        "get_times_fwd_ms": 1e3 * sum(r[2] for r in rows),
+        "get_times_bwd_ms": 1e3 * sum(r[3] for r in rows)}
+    print(f"observability: profiling.trace of a batch-{BATCH} forward and "
+          f"{OBS_PROFILE_ITERS} optimize() iterations ({trace_s:.1f} s): "
+          f"device trace {dev_trace.stat().st_size} bytes naming "
+          f"{dict(by_kernel)}; host_trace.json spans {sorted(loop)}; "
+          f"get_times {len(rows)} rows, forward "
+          f"{res['profiling']['get_times_fwd_ms']:.1f} ms, backward "
+          f"{res['profiling']['get_times_bwd_ms']:.1f} ms in all (eager, "
+          f"synchronised per layer); {card}", flush=True)
+    del opt
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    # ---------------------------------------- (e) the cluster merge
+    agg = cluster.ClusterAggregator(str(run_dir)).load()
+    merged = agg.merge_trace()
+    lanes = sorted(e["args"]["name"] for e in merged["traceEvents"]
+                   if e.get("ph") == "M" and e["name"] == "process_name")
+    summary = agg.cluster_summary()
+    with contextlib.redirect_stdout(io.StringIO()) as top_out:
+        top_rc = cluster_top.main([str(run_dir), "--json"])
+    top = json.loads(top_out.getvalue())
+    if len(lanes) != 2 or set(summary["per_host"]) != {"serve", "train"} \
+            or summary["per_host"]["train"]["n_steps"] < 1 or top_rc != 0 \
+            or set(top["summary"]["per_host"]) != {"serve", "train"}:
+        fail(f"cluster: lanes {lanes}, hosts {sorted(summary['per_host'])}, "
+             f"cluster_top rc {top_rc}")
+    res["cluster"] = {"lanes": lanes, "events": len(merged["traceEvents"]),
+                      "summary": summary["cluster"]}
+    print(f"observability: cluster merge of {len(lanes)} shipped hosts "
+          f"{lanes}: {len(merged['traceEvents'])} events, train steps "
+          f"{summary['per_host']['train']['n_steps']}, debug address "
+          f"{summary['per_host']['serve']['debug_addr']}", flush=True)
+
+    tracer.disable()
+    tracer.clear()
+    srv.close()
+    flightrecorder.set_global(None)
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"observability phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def kernel_tools(gen, dev):
     """The kernel checks' helpers over the generator ``gen`` on
     ``dev``: random operands of kernels 1-5 (``operands``), their
@@ -5753,6 +6348,11 @@ def main():
     # ------------------------------------------------------- 13. telemetry
     device_memory("before phase 13 (telemetry)")
     tel = telemetry_phase(args, card, out)
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- 14. observability
+    device_memory("before phase 14 (observability)")
+    obs = observability_phase(args, card, out)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -5770,7 +6370,7 @@ def main():
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
          "recipe": recipe, "data": data, "basic": basic,
-         "telemetry": tel, "width12": width12},
+         "telemetry": tel, "observability": obs, "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -5807,7 +6407,13 @@ def main():
                 "resnet34_per_step":
                     basic["resnet34_step"]["launches_per_step"].get(name, 0),
                 "cifar20_per_step":
-                    basic["cifar20"]["launches_per_step"].get(name, 0)},
+                    basic["cifar20"]["launches_per_step"].get(name, 0),
+                "numerics_train_step_per_step":
+                    obs["numerics"]["launches_per_step"][name],
+                "seeded_divergence_optimize":
+                    obs["divergence"]["launches"][name],
+                "profiling_trace_device":
+                    obs["profiling"]["device_trace_kernels"][name]},
             "no_prologue": {
                 f"{r['model']} {r['dtype']}": {key: sum(
                     q["calls_per_forward"] * q[key]

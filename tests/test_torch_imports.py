@@ -38,7 +38,11 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "telemetry", "telemetry.tracer", "telemetry.export",
               "telemetry.watchdog", "telemetry.costmodel",
               "telemetry.programs", "telemetry.requests",
-              "telemetry.workload", "telemetry.kernels"):
+              "telemetry.workload", "telemetry.kernels",
+              "telemetry.numerics", "telemetry.flightrecorder",
+              "telemetry.debug_server", "telemetry.cluster",
+              "utils.profiling", "tools", "tools.blackbox",
+              "tools.cluster_top"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

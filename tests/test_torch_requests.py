@@ -17,15 +17,30 @@ from bigdl_tpu import telemetry as jtel
 from bigdl_tpu.serving import DeadlineExceededError as JaxDeadline
 from bigdl_tpu.serving import ServingEngine as JaxServingEngine
 from bigdl_tpu.telemetry import requests as jreq
+from bigdl_tpu.telemetry import tracer as jtr
 from bigdl_tpu.telemetry.tracer import Span as JSpan
 from bigdl_tpu_torch import telemetry as ttel
 from bigdl_tpu_torch.serving import (DeadlineExceededError, DecodeEngine,
                                      ServingEngine)
+from bigdl_tpu_torch.telemetry import flightrecorder
 from bigdl_tpu_torch.telemetry import requests as treq
+from bigdl_tpu_torch.telemetry import tracer as ttr
 from bigdl_tpu_torch.telemetry.tracer import Span
 
 FEAT = 16
 WAIT = 60
+
+
+@pytest.fixture(autouse=True)
+def no_ambient_correlation():
+    """Each test starts with no ambient correlation in either package: a
+    training loop run earlier in the process (another test file) leaves
+    its last ``step:<n>`` set on this thread, as the JAX loop does."""
+    jtr.set_correlation(None)
+    ttr.set_correlation(None)
+    yield
+    jtr.set_correlation(None)
+    ttr.set_correlation(None)
 
 
 @pytest.fixture(autouse=True)
@@ -39,6 +54,8 @@ def traced():
     for tr in trs:
         tr.disable()
         tr.clear()
+    # the engines arm the flight recorder while tracing
+    flightrecorder.set_global(None)
 
 
 def _script(seed, n_req=12, n_ops=160):

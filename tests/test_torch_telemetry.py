@@ -34,7 +34,7 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.serving.metrics import (LATENCY_BUCKETS,
                                              PeriodicMetricsLogger,
                                              ServingMetrics)
-from bigdl_tpu_torch.telemetry import costmodel, workload
+from bigdl_tpu_torch.telemetry import costmodel, flightrecorder, workload
 from bigdl_tpu_torch.telemetry.tracer import Span
 from bigdl_tpu_torch.telemetry.watchdog import Watchdog
 from bigdl_tpu_torch.visualization import (ServingSummary, TelemetrySummary,
@@ -52,6 +52,8 @@ def clean_tracer():
     for tr in trs:
         tr.disable()
         tr.clear()
+    # the loop and the engines arm the flight recorder while tracing
+    flightrecorder.set_global(None)
 
 
 def _stream(seed=0, n=400):

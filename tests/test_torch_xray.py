@@ -16,7 +16,7 @@ from bigdl_tpu.telemetry import programs as jprog
 from bigdl_tpu_torch import telemetry as ttel
 from bigdl_tpu_torch.ops import fused_matmul as fm
 from bigdl_tpu_torch.serving import DecodeEngine, ServingEngine
-from bigdl_tpu_torch.telemetry import programs
+from bigdl_tpu_torch.telemetry import flightrecorder, programs
 from bigdl_tpu_torch.telemetry.watchdog import Watchdog
 from bigdl_tpu_torch.utils import graphs
 
@@ -36,6 +36,8 @@ def clean():
         mod.get_tracer().disable()
         mod.get_tracer().clear()
         mod.get_program_registry().clear()
+    # the engines arm the flight recorder while tracing
+    flightrecorder.set_global(None)
 
 
 def _trees(seed):
