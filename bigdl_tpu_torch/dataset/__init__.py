@@ -2,6 +2,7 @@
 from bigdl_tpu_torch.dataset.cifar import (TRAIN_MEAN, TRAIN_STD,
                                            load_cifar10, synthetic_cifar10)
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
+                                             DistributedDataSet,
                                              LocalArrayDataSet)
 from bigdl_tpu_torch.dataset.minibatch import MiniBatch
 from bigdl_tpu_torch.dataset.record_io import (PrefetchingRecordReader,
@@ -23,7 +24,8 @@ from bigdl_tpu_torch.dataset.sharded import (ShardedFileDataSet,
                                              parse_tf_example,
                                              write_image_shards)
 
-__all__ = ["AbstractDataSet", "DataSet", "LocalArrayDataSet", "MiniBatch",
+__all__ = ["AbstractDataSet", "DataSet", "DistributedDataSet",
+           "LocalArrayDataSet", "MiniBatch",
            "PrefetchingRecordReader", "SequenceFileWriter",
            "ShardedFileDataSet", "TFRecordWriter", "TRAIN_MEAN", "TRAIN_STD",
            "count_sequence_file_records", "count_tfrecords", "crc32c",

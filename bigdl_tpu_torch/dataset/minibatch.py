@@ -20,3 +20,12 @@ class MiniBatch:
 
     def get_target(self):
         return self.targets
+
+    def slice(self, offset: int, length: int) -> "MiniBatch":
+        """Rows ``[offset, offset + length)`` of every array."""
+        def cut(a):
+            if isinstance(a, list):
+                return [cut(v) for v in a]
+            return None if a is None else a[offset:offset + length]
+
+        return MiniBatch(cut(self.features), cut(self.targets))

@@ -52,12 +52,12 @@ def prefetch_depth(default: int = DEFAULT_DEPTH) -> int:
 
 
 def to_device(a: Any, device: torch.device, non_blocking: bool = False):
-    """A batch's numpy array (or list of them) as tensors on ``device``;
-    with ``non_blocking`` on a CUDA device, copied from pinned host
-    memory without waiting for the copy."""
+    """A batch's numpy array or host tensor (or a list of them) as
+    tensors on ``device``; with ``non_blocking`` on a CUDA device, copied
+    from pinned host memory without waiting for the copy."""
     if isinstance(a, (list, tuple)):
         return [to_device(v, device, non_blocking) for v in a]
-    t = torch.as_tensor(np.asarray(a))
+    t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
     if non_blocking and device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)

@@ -12,7 +12,7 @@ forward runs the flash kernel (``csrc/flash_attention.cu``).
 per line); without it a synthetic Zipf corpus stands in.  ``--summary
 DIR`` writes the training scalars to a TensorBoard event file.  Pipeline,
 expert, tensor and sequence parallelism (``--pp/--ep/--tp/--sp``,
-``--moeExperts``) are not ported yet and raise ``NotImplementedError``.
+``--moeExperts``) are port slice 20 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,18 +79,18 @@ def main(argv: Optional[list] = None) -> dict:
     p.add_argument("--gradClip", type=float, default=1.0)
     for flag in ("--pp", "--ep", "--tp", "--sp"):
         p.add_argument(flag, type=int, default=1,
-                       help="parallel degree (not ported yet)")
+                       help="parallel degree (port slice 20)")
     p.add_argument("--moeExperts", type=int, default=0,
-                   help="MoE experts (not ported yet)")
+                   help="MoE experts (port slice 20)")
     p.add_argument("--microBatches", type=int, default=0,
-                   help="pipeline microbatches (not ported yet)")
+                   help="pipeline microbatches (port slice 20)")
     args = p.parse_args(argv)
     parallel = {f: getattr(args, f) for f in ("pp", "ep", "tp", "sp")
                 if getattr(args, f) > 1}
     if parallel or args.moeExperts:
         raise NotImplementedError(
             f"{parallel or {'moeExperts': args.moeExperts}}: pipeline, "
-            "expert, tensor and sequence parallelism are not ported yet")
+            "expert, tensor and sequence parallelism are port slice 20")
 
     train_ids, valid_ids, vocab = _load_corpus(
         args.folder, args.vocabSize,

@@ -40,7 +40,7 @@ from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution,
                                           load_quantized, quantize,
                                           quantize_weight, save_quantized)
-from bigdl_tpu_torch.nn.reshape import SpaceToDepth
+from bigdl_tpu_torch.nn.reshape import Mean, SpaceToDepth
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = [
@@ -57,7 +57,7 @@ __all__ = [
     "KullbackLeiblerDivergenceCriterion", "L1Cost",
     "L1HingeEmbeddingCriterion", "LayerNormalization", "Linear",
     "LookupTable", "MSECriterion", "MarginCriterion",
-    "MarginRankingCriterion", "MeanAbsolutePercentageCriterion",
+    "MarginRankingCriterion", "Mean", "MeanAbsolutePercentageCriterion",
     "MeanSquaredLogarithmicCriterion", "Module", "MsraFiller",
     "MultiCriterion", "MultiHeadAttention", "MultiLabelMarginCriterion",
     "MultiLabelSoftMarginCriterion", "MultiMarginCriterion", "Node",

@@ -57,6 +57,7 @@ from bigdl_tpu_torch.nn.norm import SpatialBatchNormalization
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution)
 from bigdl_tpu_torch.ops import fused_matmul as fm
+from bigdl_tpu_torch.ops.partition import current_kernel_mesh, reduce_stats
 
 __all__ = ["FusedBasicBlock", "FusedBottleneck", "use_plain_ops"]
 
@@ -109,12 +110,14 @@ class _FusedResBlock(Module):
             return fm.fused_matmul_bn_plain, fm.fused_conv3x3_bn_plain
         return fm.fused_matmul_bn, fm.fused_conv3x3_bn
 
-    def _bn_consts(self, key, p, ssum, ssq, count, training):
+    def _bn_consts(self, key, p, ssum, ssq, count, training, mesh=None):
         """``(scale, bias, batch_stats)`` with ``y * scale + bias`` equal
         to BN(y) (fused_block.py:79-101): from the batch statistics in
-        training, from the running statistics in eval."""
+        training (summed over ``mesh``'s data axis when there is one),
+        from the running statistics in eval."""
         gamma, beta = p[f"{key}.weight"], p[f"{key}.bias"]
         if training:
+            ssum, ssq, count = reduce_stats(ssum, ssq, count, mesh)
             scale, bias, mean, var = fm.bn_constants(ssum, ssq, count, gamma,
                                                      beta, self.eps)
             return scale, bias, (mean, var, count)
@@ -122,9 +125,10 @@ class _FusedResBlock(Module):
         scale = torch.rsqrt(bn.running_var + self.eps) * gamma.float()
         return scale, beta.float() - bn.running_mean * scale, None
 
-    def _body(self, x, *leaves, training: bool):
+    def _body(self, x, *leaves, training: bool, mesh=None):
         """The block; returns the output and, in training,
-        ``{bn key: (mean, var, count)}``."""
+        ``{bn key: (mean, var, count)}``, the statistics reduced over
+        ``mesh``'s data axis when there is one."""
         raise NotImplementedError
 
     def forward(self, x):
@@ -133,7 +137,8 @@ class _FusedResBlock(Module):
                              f"got {tuple(x.shape)}")
         if not self.training:
             return self._body(x, *self._leaves(), training=False)[0]
-        body = functools.partial(self._body, training=True)
+        body = functools.partial(self._body, training=True,
+                                 mesh=current_kernel_mesh())
         if self.remat:
             out, stats = checkpoint(body, x, *self._leaves(),
                                     use_reentrant=False,
@@ -175,7 +180,7 @@ class FusedBottleneck(_FusedResBlock):
         return (["conv1", "conv2", "conv3", "bn1", "bn2", "bn3"]
                 + (["conv_sc", "bn_sc"] if self.project else []))
 
-    def _body(self, x, *leaves, training: bool):
+    def _body(self, x, *leaves, training: bool, mesh=None):
         """The block (fused_block.py:187-247)."""
         p = {f"{k}.{leaf}": t for (k, leaf), t in zip(self._names(), leaves)}
         matmul, conv3x3 = self._kernels()
@@ -186,7 +191,7 @@ class FusedBottleneck(_FusedResBlock):
 
         def consts(key, ssum, ssq, count):
             scale, bias, stats[key] = self._bn_consts(key, p, ssum, ssq,
-                                                      count, training)
+                                                      count, training, mesh)
             return scale, bias
 
         x2d = x.reshape(-1, c)
@@ -301,7 +306,7 @@ class FusedBasicBlock(_FusedResBlock):
         return (["conv1", "conv2", "bn1", "bn2"]
                 + (["conv_sc", "bn_sc"] if self.project else []))
 
-    def _body(self, x, *leaves, training: bool):
+    def _body(self, x, *leaves, training: bool, mesh=None):
         """The block (fused_block.py:299-345)."""
         p = {f"{k}.{leaf}": t for (k, leaf), t in zip(self._names(), leaves)}
         matmul, conv3x3 = self._kernels()
@@ -312,7 +317,7 @@ class FusedBasicBlock(_FusedResBlock):
 
         def consts(key, ssum, ssq, count):
             scale, bias, stats[key] = self._bn_consts(key, p, ssum, ssq,
-                                                      count, training)
+                                                      count, training, mesh)
             return scale, bias
 
         w1 = p["conv1.weight"].to(dtype)

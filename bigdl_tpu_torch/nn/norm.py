@@ -8,7 +8,11 @@ constants are cast to x's type and applied in x's type.
 Training takes one-pass f32 batch statistics (``E[x^2] - E[x]^2``,
 clamped at 0) and moves the running statistics once per forward with
 ``momentum`` and the unbiased variance.  The JAX layer returns them as
-new state; here they are updated in place, outside autograd.
+new state; here they are updated in place, outside autograd.  Inside a
+data-parallel step (``ops/partition.py``'s ``kernel_mesh_scope``) the
+per-rank ``[E[x], E[x^2]]`` are averaged over the data axis in one
+differentiable collective and the count is the global batch's:
+``jnp.mean`` over the data-sharded batch under GSPMD (norm.py:76-77).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.ops.partition import current_kernel_mesh, global_means
 
 
 class BatchNormalization(Module):
@@ -72,9 +77,14 @@ class BatchNormalization(Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             xf = x.float()
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
-            self.update_running_stats(mean, var, x.numel() // x.shape[-1])
+            mean, msq = xf.mean(axes), (xf * xf).mean(axes)
+            count = x.numel() // x.shape[-1]
+            mesh = current_kernel_mesh()
+            if mesh is not None:
+                mean, msq = global_means(torch.stack([mean, msq]), mesh)
+                count *= mesh.shape["data"]
+            var = torch.clamp_min(msq - mean * mean, 0.0)
+            self.update_running_stats(mean, var, count)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)

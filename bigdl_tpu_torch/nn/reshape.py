@@ -22,3 +22,16 @@ class SpaceToDepth(Module):
                              "must be divisible by the block size")
         x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(n, h // b, w // b, b * b * c)
+
+
+class Mean(Module):
+    """The mean over ``dimension``, kept as a size-1 axis unless
+    ``squeeze`` (bigdl_tpu/nn/reshape.py:264-270)."""
+
+    def __init__(self, dimension: int = 0, squeeze: bool = True,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.dimension, self.squeeze = dimension, squeeze
+
+    def forward(self, x):
+        return x.mean(self.dimension, keepdim=not self.squeeze)

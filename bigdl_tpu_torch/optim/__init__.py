@@ -9,6 +9,7 @@ from bigdl_tpu_torch.optim.optimizer import (CompiledTrainStep,
                                              evaluate, make_train_step,
                                              predict)
 from bigdl_tpu_torch.optim.prediction_service import PredictionService
+from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.schedules import (Default, EpochDecay,
                                              EpochDecayWithWarmUp, EpochStep,
                                              Exponential, LearningRateSchedule,
@@ -28,6 +29,7 @@ from bigdl_tpu_torch.optim.validation import (NDCG, AccuracyResult,
 
 __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
            "AdamW", "CompiledTrainStep", "Default", "DetectionResult",
+           "DistriOptimizer",
            "EpochDecay", "EpochDecayWithWarmUp", "EpochStep", "Exponential",
            "Ftrl", "HitRatio", "LBFGS", "LarsSGD", "LearningRateSchedule",
            "LocalOptimizer", "Loss", "LossResult", "MeanAveragePrecision",

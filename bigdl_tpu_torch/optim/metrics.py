@@ -11,7 +11,9 @@ the prefetch thread (a batch's production and copy to the device),
 ``dispatch`` (the step enqueued, not run) and ``sync`` (the deferred
 loss reads, the loop's only waits on the device); its checkpoints add
 ``checkpoint_snapshot`` (the trees copied to the host on the loop
-thread).  The prefetch thread adds its times while the loop thread adds
+thread).  A gauge (:meth:`set_gauge`) is a phase time computed out of
+band, such as ``DistriOptimizer``'s ``allreduce``: ``get`` and
+``summary()`` read it as they read a phase.  The prefetch thread adds its times while the loop thread adds
 its own, so every update takes a lock.
 
 Every ``Metrics`` is a span sink (bigdl_tpu/optim/metrics.py:31-84):
@@ -39,6 +41,7 @@ class Metrics:
         self._counts: Dict[str, int] = {}
         self._last: Dict[str, float] = {}
         self._values: Dict[str, float] = {}
+        self._gauges: Dict[str, float] = {}
         self._no_span: Set[str] = set()
         self._lock = threading.Lock()
         self._tracer = get_tracer()
@@ -71,8 +74,11 @@ class Metrics:
             self.add(name, time.perf_counter() - t0)
 
     def get(self, name: str) -> float:
-        """Average seconds per sample of phase ``name``."""
+        """Average seconds per sample of phase ``name`` (a gauge's
+        value)."""
         with self._lock:
+            if name in self._gauges:
+                return self._gauges[name]
             c = self._counts.get(name, 0)
             return self._sums.get(name, 0.0) / c if c else 0.0
 
@@ -83,6 +89,11 @@ class Metrics:
         """The latest sample of ``name`` (free of the first call's
         capture time, unlike the average)."""
         return self._last.get(name, 0.0)
+
+    def set_gauge(self, name: str, seconds: float):
+        """Set a phase time computed out of band (seconds)."""
+        with self._lock:
+            self._gauges[name] = float(seconds)
 
     def set_value(self, name: str, value: float):
         """Set a non-time scalar (throughput); ``summary()`` prints it
@@ -105,7 +116,7 @@ class Metrics:
     def summary(self, unit_scale: float = 1e3) -> str:
         """One line, average ms per phase, then the values."""
         with self._lock:
-            names = sorted(self._sums)
+            names = sorted(set(self._sums) | set(self._gauges))
             values = sorted(self._values.items())
         parts = [f"{k}: {self.get(k) * unit_scale:.2f}ms" for k in names]
         parts += [f"{k}: {v:.4g}" for k, v in values]

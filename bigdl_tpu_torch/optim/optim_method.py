@@ -70,6 +70,13 @@ class OptimMethod:
                ) -> Tuple[Params, State]:
         raise NotImplementedError
 
+    def leaf_norms(self, grads: Params, params: Params) -> Optional[Dict]:
+        """What the update needs of each whole leaf beyond its elements,
+        or ``None`` when it is elementwise.  ZeRO-1
+        (``parallel/data_parallel.py``) takes it from the whole leaves
+        and hands it to :meth:`update` of a row shard as ``norms=``."""
+        return None
+
     # -- host-side helpers (optim_method.py:61-95) ----------------------
     def current_rate(self) -> float:
         """LR for the current host step (schedule applied; an additive
@@ -392,14 +399,23 @@ class LarsSGD(OptimMethod):
         return {"velocity": _zeros(params)}
 
     @torch.no_grad()
-    def update(self, grads, opt_state, params, lr, step=None):
+    def leaf_norms(self, grads, params):
+        """``{key: (||w||, ||g||)}`` of the whole leaves, in f32."""
+        return {k: (_norm(params[k].float()), _norm(g.float()))
+                for k, g in grads.items()}
+
+    @torch.no_grad()
+    def update(self, grads, opt_state, params, lr, step=None, norms=None):
+        """``norms`` (from :meth:`leaf_norms`) stands for the norms of
+        the leaves when ``grads``/``params`` are row shards of them."""
         wd = self.weight_decay
         new_p, new_v = {}, {}
         for k, g in grads.items():
             p = params[k]
             g = g.float()
             p32 = p.float()
-            w_norm, g_norm = _norm(p32), _norm(g)
+            w_norm, g_norm = (norms[k] if norms is not None
+                              else (_norm(p32), _norm(g)))
             denom = g_norm + wd * w_norm
             ratio = torch.where((w_norm > 0) & (denom > 0),
                                 self.trust * w_norm / (denom + 1e-12),

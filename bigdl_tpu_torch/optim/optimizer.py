@@ -130,6 +130,8 @@ tail with the flight recorder, which a retry also dumps.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import inspect
 import logging
 import math
@@ -219,8 +221,8 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
                     grad_clip_norm: Optional[float] = None,
                     compute_dtype: Optional[torch.dtype] = None,
                     accum_steps: int = 1,
-                    numerics: Optional[numerics_mod.NumericsSpec] = None
-                    ) -> Callable:
+                    numerics: Optional[numerics_mod.NumericsSpec] = None,
+                    data_parallel=None) -> Callable:
     """The train step of bigdl_tpu/optim/optimizer.py:266-373.
 
     ``train_step(params, model_state, opt_states, step, rng, features,
@@ -239,6 +241,11 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
     (``telemetry.numerics.NumericsSpec``) it returns a fifth output, the
     stats tree of ``numerics.collect`` over ``params``, the clipped
     gradients and the new parameters (optimizer.py:275-291, 367-369).
+    ``data_parallel`` (``parallel.data_parallel.DataParallel``) makes it
+    the data-parallel step: the forward and backward run in its scope,
+    the loss, the gradients and the new model state go through its
+    ``reduce`` before the clipping, and each method's
+    update through its ``update`` (ZeRO-1).
     """
     method_items = sorted(optim_methods.items())
     collector = (numerics_mod.Collector(numerics) if numerics is not None
@@ -262,7 +269,34 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
     def train_step(params, model_state, opt_states, step, rng, features,
                    targets, lrs):
         model.train()
-        # the modules update their running statistics in place: on copies
+        with (data_parallel.scope() if data_parallel is not None
+              else contextlib.nullcontext()):
+            loss, grads, new_state = forward_backward(
+                params, model_state, rng, features, targets)
+        if data_parallel is not None:
+            loss, grads, new_state = data_parallel.reduce(loss, grads,
+                                                          new_state)
+        grads = _clip_grads(grads, grad_clip_const, grad_clip_norm)
+        update = (data_parallel.update if data_parallel is not None
+                  else _update)
+        new_params = dict(params)
+        new_opt_states = {}
+        for (name, method), lr in zip(method_items, lrs):
+            upd, new_opt_states[name] = update(
+                method, _subset(grads, name), opt_states[name],
+                _subset(params, name), lr, step)
+            if name == "__all__":  # as JAX: "__all__" replaces the tree
+                new_params = upd
+            else:
+                new_params.update(upd)
+        if collector is not None:
+            return (new_params, new_state, new_opt_states, loss,
+                    collector(params, grads, new_params))
+        return new_params, new_state, new_opt_states, loss
+
+    def forward_backward(params, model_state, rng, features, targets):
+        """The loss, the gradients and the new model state (on copies:
+        the modules update their running statistics in place)."""
         new_state = {k: v.clone() for k, v in model_state.items()}
         if accum_steps <= 1:
             loss, grads = loss_and_grads(params, new_state, rng, features,
@@ -292,23 +326,13 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
             grads = {n: (g * (1.0 / k)).to(params[n].dtype)
                      for n, g in gsum.items()}
             loss = lsum * (1.0 / k)
-        grads = _clip_grads(grads, grad_clip_const, grad_clip_norm)
-        new_params = dict(params)
-        new_opt_states = {}
-        for (name, method), lr in zip(method_items, lrs):
-            upd, new_opt_states[name] = method.update(
-                _subset(grads, name), opt_states[name],
-                _subset(params, name), lr, step)
-            if name == "__all__":  # as JAX: "__all__" replaces the tree
-                new_params = upd
-            else:
-                new_params.update(upd)
-        if collector is not None:
-            return (new_params, new_state, new_opt_states, loss,
-                    collector(params, grads, new_params))
-        return new_params, new_state, new_opt_states, loss
+        return loss, grads, new_state
 
     return train_step
+
+
+def _update(method: OptimMethod, grads, opt_state, params, lr, step):
+    return method.update(grads, opt_state, params, lr, step)
 
 
 class CompiledTrainStep:
@@ -321,12 +345,16 @@ class CompiledTrainStep:
     ``captures`` and ``replays`` add them up.  The graphs share one
     memory pool: the first batch, the largest, is captured first.  Each
     compile is registered as :attr:`program` in the program registry,
-    and ``cost`` is the latest one's stamp (``telemetry/costmodel.py``)."""
+    and ``cost`` is the latest one's stamp (``telemetry/costmodel.py``).
+    ``capture=False`` runs the donated step eagerly on the card too (a
+    step whose collectives are host calls, as gloo's are, cannot be
+    captured)."""
 
     program = "train_step"
 
-    def __init__(self, step_fn: Callable):
+    def __init__(self, step_fn: Callable, capture: bool = True):
         self.step_fn = step_fn
+        self.capture = capture
         self.cost: Optional[costmodel.ProgramCost] = None
         self.graphs: Dict[Any, Callable] = {}
         self._pool = None
@@ -355,20 +383,22 @@ class CompiledTrainStep:
         fn = self.graphs.get(key)
         first = fn is None
         if first:
-            if device.type == "cuda" and self._pool is None:
+            # on the CPU, or uncaptured, the first call itself is the
+            # counted eager call
+            eager = device.type != "cuda" or not self.capture
+            if not eager and self._pool is None:
                 self._pool = graphs.new_pool()
             sig = programs.signature_of(
                 dict(zip(("params", "model_state", "opt_states", "step",
                           "rng", "features", "targets", "lrs"), args)),
                 donated=("params", "model_state", "opt_states"))
             count = costmodel.new_count()
-            # on the CPU the first call itself is the counted eager call
-            eager = device.type != "cuda"
             t0 = time.perf_counter()
-            fn = self.graphs[key] = graphs.compile(
-                graphs.donate(self.step_fn, (0, 1, 2)),
+            donated = graphs.donate(self.step_fn, (0, 1, 2))
+            fn = self.graphs[key] = donated if eager else graphs.compile(
+                donated,
                 args[:5] + graphs.clone((features, targets)) + (lrs_t,),
-                self._pool, None if eager else count)
+                self._pool, count)
             compile_s = time.perf_counter() - t0
         if first and eager and count is not None:
             rest = graphs.counted(fn, args, count)[3:]
@@ -616,12 +646,34 @@ class Optimizer:
 
     @staticmethod
     def apply(model, dataset, criterion, end_trigger=None, batch_size=None,
-              device: DeviceLike = None) -> "LocalOptimizer":
-        """Factory matching the reference Optimizer.apply; the port has
-        the single-device loop only, so this is a :class:`LocalOptimizer`
-        (async unless ``BIGDL_TPU_SYNC_LOOP=1``).  ``batch_size`` is
-        accepted for the reference signature: the dataset's batches are
-        what the loop reads."""
+              device: DeviceLike = None, **distri_kwargs) -> "Optimizer":
+        """Factory matching the reference Optimizer.apply
+        (Optimizer.scala:660-681; optimizer.py:211-237): a
+        ``DistriOptimizer`` when a mesh is passed, or when the world has
+        more than one rank (an initialised process group, or
+        ``torchrun``'s ``WORLD_SIZE``) and the dataset's batch (looked
+        up through ``base`` wrappers when ``batch_size`` is not given)
+        divides evenly over it; else a :class:`LocalOptimizer` (async
+        unless ``BIGDL_TPU_SYNC_LOOP=1``).  ``distri_kwargs`` go to
+        ``DistriOptimizer`` only."""
+        from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+        from bigdl_tpu_torch.parallel.mesh import world_size
+
+        if distri_kwargs.get("mesh") is not None:
+            return DistriOptimizer(model, dataset, criterion, end_trigger,
+                                   batch_size, device=device,
+                                   **distri_kwargs)
+        n_dev = world_size()
+        ds_batch = batch_size
+        probe = dataset
+        while ds_batch is None and probe is not None:
+            # a DistributedDataSet's global batch is its base's
+            ds_batch = getattr(probe, "batch_size", None)
+            probe = getattr(probe, "base", None)
+        if n_dev > 1 and ds_batch is not None and ds_batch % n_dev == 0:
+            return DistriOptimizer(model, dataset, criterion, end_trigger,
+                                   batch_size, device=device,
+                                   **distri_kwargs)
         return LocalOptimizer(model, dataset, criterion, end_trigger,
                               batch_size, device)
 
@@ -731,10 +783,9 @@ class LocalOptimizer(Optimizer):
         params = {k: p.detach().clone() for k, p in model.named_parameters()}
         model_state = {k: b.detach().clone()
                        for k, b in model.named_buffers()}
-        # each method's state starts from its subtree (optimizer.py:387-391)
-        opt_states = {name: m.init_state(_subset(params, name))
-                      for name, m in self.optim_methods.items()}
         step_fn = self.train_step = self._build_step_fn(model)
+        self._sync_replicas(params, model_state)
+        opt_states = self._init_opt_states(params)
         loop_state: Dict[str, Any] = {
             "epoch": 0, "neval": 0, "loss": float("nan"),
             "score": float("-inf"), "records_processed": 0,
@@ -777,7 +828,8 @@ class LocalOptimizer(Optimizer):
             # only waits on an empty queue ('data_stall')
             metrics.no_span("data")
             prefetcher = data_iter = DevicePrefetcher(
-                self.dataset.data(train=True), place=self._prefetch_place,
+                self.dataset.data(train=True),
+                place=functools.partial(self._place_batch, non_blocking=True),
                 timer=lambda dt: metrics.add("data", dt), device=self.device)
         ckpt_dir = self._prepare_ckpt_dir()
         # the live plane: host-side registration only, nothing reaches
@@ -840,10 +892,23 @@ class LocalOptimizer(Optimizer):
         self.final_params, self.final_state = params, model_state
         return model
 
-    def _prefetch_place(self, batch):
-        """The prefetch thread's placement of one batch on the device."""
-        return (to_device(batch.get_input(), self.device, non_blocking=True),
-                to_device(batch.get_target(), self.device, non_blocking=True),
+    def _sync_replicas(self, params: Tensors, model_state: Tensors):
+        """Make every replica's starting trees equal (one device: no
+        replica to sync)."""
+
+    def _init_opt_states(self, params: Tensors) -> Dict[str, Any]:
+        """Each method's state, started from its subtree
+        (optimizer.py:387-391)."""
+        return {name: m.init_state(_subset(params, name))
+                for name, m in self.optim_methods.items()}
+
+    def _place_batch(self, batch, non_blocking: bool = False):
+        """``(features, targets, records)`` of one batch, the tensors on
+        the device (the prefetch thread's placement: ``non_blocking``)."""
+        return (to_device(batch.get_input(), self.device,
+                          non_blocking=non_blocking),
+                to_device(batch.get_target(), self.device,
+                          non_blocking=non_blocking),
                 batch.size)
 
     # -- checkpoints (bigdl_tpu/optim/optimizer.py:529-581, 616-676,
@@ -900,11 +965,20 @@ class LocalOptimizer(Optimizer):
                 and self.checkpoint_trigger(loop_state))):
             return
         self._drain_losses(loop_state)
-        # no bools: a saved epoch_finished would fire the epoch triggers
-        # again right after a resume
-        driver_state = {k: v for k, v in loop_state.items()
-                        if isinstance(v, (int, float))
-                        and not isinstance(v, bool)}
+        self._save_checkpoint(ckpt_dir, model, trees, loop_state)
+
+    @staticmethod
+    def _driver_state(loop_state) -> Dict[str, Any]:
+        """The loop's int and float bookkeeping; no bools: a saved
+        epoch_finished would fire the epoch triggers again right after a
+        resume."""
+        return {k: v for k, v in loop_state.items()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+    def _save_checkpoint(self, ckpt_dir, model, trees, loop_state):
+        """Write the blob: on the loop thread (sync loop) or through the
+        writer thread (async loop)."""
+        driver_state = self._driver_state(loop_state)
         it = loop_state["neval"]
         path = self._ckpt_file(ckpt_dir, it)
         if self._sync_loop:
@@ -1133,8 +1207,7 @@ class LocalOptimizer(Optimizer):
                 or not self.val_methods or not self.val_trigger(loop_state)):
             return
         self._drain_losses(loop_state)
-        results = evaluate(model, params, model_state, self.val_dataset,
-                           self.val_methods)
+        results = self._evaluate(model, params, model_state)
         if any(res is None for _, res in results):
             logger.warning("validation produced no batches "
                            "(val set < batch size); skipping")
@@ -1149,6 +1222,11 @@ class LocalOptimizer(Optimizer):
             record = getattr(m.schedule, "record", None)
             if record is not None:
                 record(loop_state["score"], m.learning_rate)
+
+    def _evaluate(self, model, params, model_state):
+        """The validation methods over one pass of the validation set."""
+        return evaluate(model, params, model_state, self.val_dataset,
+                        self.val_methods)
 
     def _drain_losses(self, loop_state, keep: int = 0):
         """Read pending losses, the oldest first, until at most ``keep``
@@ -1194,10 +1272,8 @@ class LocalOptimizer(Optimizer):
             set_correlation(f"step:{loop_state['neval'] + 1}")
         if self._sync_loop:
             with metrics.time("data"):
-                batch = next(data_iter)
-                features = to_device(batch.get_input(), self.device)
-                targets = to_device(batch.get_target(), self.device)
-                n_records = batch.size
+                features, targets, n_records = self._place_batch(
+                    next(data_iter))
         else:  # placed on the prefetch thread; this is the wait for it
             with metrics.time("data_stall"):
                 features, targets, n_records = next(data_iter)

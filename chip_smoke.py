@@ -267,6 +267,25 @@ Phases:
    kernels 1-5 named in the device trace, the loop's spans in
    host_trace.json, get_times' per-layer table; the served and trained
    parts shipped as two hosts and merged into two lanes.
+15. dp: (a) the fused ResNet-50 bench step (bf16 images and compute,
+   batch 256, remat on) through DistriOptimizer(mesh=data_parallel_mesh())
+   with ZeRO-1 on a one-rank NCCL group, one CUDA graph with its
+   collectives inside, against LocalOptimizer from the same weights and
+   batches: losses and parameters bit-equal over 3 iterations, kernels
+   1-5 72/36/36/26/13 in the captured step, each step's time; (b) the
+   compressed step at the bf16 wire against the plain dp step (f32,
+   batch 32): each leaf's first update within 1e-2, both timed; (c) two
+   ranks sharing the card over gloo, eager: the dp step of the fused
+   CIFAR ResNet-20 (randomised BatchNorm, sync-BN, ZeRO-1) within 1e-4
+   of one rank on the global batch in each of 3 runs, while the same step
+   with per-replica BatchNorm (the control) must land outside 1e-4,
+   kernels 1-5 4/2/2/32/16 a step, and
+   a sharded checkpoint written at world 2 restored at world 1 bit for
+   bit and resumed; (d) the elastic kill -9 scenario with the port's
+   worker on the card (two agents, one worker killed after the first
+   commit, the survivor re-formed at world 1 from the last COMMIT):
+   losses and final parameters within rtol 1e-4 / atol 1e-5 of the
+   uninterrupted world-1 run.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -5539,6 +5558,635 @@ def observability_phase(args, card, out, dev="cuda"):
     return res
 
 
+# ------------------------------------------------------------- phase 15
+# the data-parallel phase: (a) the bench step through DistriOptimizer
+# (world 1, NCCL) against LocalOptimizer, (b) the bf16 wire, (c) two gloo
+# ranks on the one card, (d) the elastic kill -9 scenario
+DP_BATCH = 256           # the bench step's batch (bf16 images, remat on)
+DP_RES = 224
+DP_STEPS = 3             # optimize() iterations held bit-equal
+DP_TIMED = 10            # replays timed per step
+DP_WIRE_BATCH = 32       # the bf16 wire against the plain dp step (f32)
+DP_WIRE_TOL = 1e-2       # relative L2 of each leaf's first update (the
+#                          gradients' bf16 rounding, 2^-8 an element; a
+#                          randomised-BN ResNet-50 is chaotic past a step)
+DP_GLOO_BATCH = 16       # the global batch of the two gloo ranks
+DP_GLOO_DEPTH = 20       # fused CIFAR ResNet-20: kernels 1-5 all launch
+DP_GLOO_TOL = 1e-4       # world 2 against one rank: |diff| / max |leaf|;
+#                          the per-replica-BN control must exceed it
+DP_GLOO_REPEATS = 3      # the held two steps, each run this often
+DP_GLOO_TIMED = 3        # warm eager steps timed after the held two
+DP_CKPT_ITERS = (4, 2)   # the gloo world's iterations, checkpoint cadence
+ELASTIC_ITERS = 400      # the kill -9 scenario's MLP iterations
+ELASTIC_EVERY = 20       # its commit cadence
+ELASTIC_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_multihost.py's
+DP_DIR = ROOT / "build" / "dp_phase"
+
+
+class _Batches:
+    """A dataset of fixed host batches (bf16 images), cycled: the bench
+    step's inputs through the optimizers' loop."""
+
+    def __init__(self, batches):
+        from bigdl_tpu_torch.dataset import MiniBatch
+
+        self._batches = [MiniBatch(x, y) for x, y in batches]
+        self.batch_size = batches[0][0].shape[0]
+
+    def size(self):
+        return self.batch_size * len(self._batches)
+
+    def batches_per_epoch(self):
+        return len(self._batches)
+
+    def data(self, train):
+        while True:
+            yield from self._batches
+            if not train:
+                return
+
+
+class _LossLog:
+    """A train summary that keeps the drained losses by iteration."""
+
+    def __init__(self):
+        self.losses = {}
+
+    def add_scalar(self, tag, value, step):
+        if tag == "Loss":
+            self.losses[int(step)] = float(value)
+
+
+def per_replica_bn_step(model, criterion, methods, mesh, **kw):
+    """The control of the sync-BN checks: the dp step (ZeRO-1, the
+    gradients averaged over the data axis) with every BatchNorm
+    normalising with its own rank's statistics, the fault those checks
+    must catch.  Captured under NCCL, eager under gloo, as
+    ``build_dp_train_step``'s.  Returns the step and its DataParallel."""
+    import contextlib
+
+    from bigdl_tpu_torch.optim import CompiledTrainStep, make_train_step
+    from bigdl_tpu_torch.parallel.data_parallel import (DataParallel,
+                                                        warm_communicator)
+
+    class PerReplicaBN(DataParallel):
+        def scope(self):
+            return contextlib.nullcontext()
+
+    dp = PerReplicaBN(mesh)
+    step = CompiledTrainStep(
+        make_train_step(model, criterion, methods, data_parallel=dp, **kw),
+        capture=mesh.backend == "nccl")
+    warm_communicator(mesh)
+    return step, dp
+
+
+def _dp_gloo_rank(rank, world, tmp, dev):
+    """Phase 15 (c) in one of two ranks sharing the card over gloo: the
+    dp step (sync-BN, ZeRO-1) of the fused CIFAR ResNet, eager, two steps
+    DP_GLOO_REPEATS times from the same weights, its launches, the
+    per-replica-BN control's two steps, the warm step's time; rank 0 then
+    runs the one-rank step on the global batch as often; then a
+    DistriOptimizer with sharded checkpoints.  Results in
+    ``tmp``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.ops import fused_matmul as fm
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, Trigger,
+                                       make_train_step)
+    from bigdl_tpu_torch.parallel.data_parallel import build_dp_train_step
+    from bigdl_tpu_torch.parallel.mesh import (data_parallel_mesh,
+                                               init_process_group, put_batch)
+    from bigdl_tpu_torch.utils import (export_variables, load_jax_variables,
+                                       random_variables)
+    from bigdl_tpu_torch.utils.serialization import load_pytree, save_pytree
+
+    backend, _ = init_process_group(dev, init_method=f"file://{tmp}/pg",
+                                    rank=rank, world_size=world,
+                                    local_world_size=world, timeout_s=120)
+    mesh = data_parallel_mesh(device=dev)
+    inputs = load_pytree(f"{tmp}/inputs")
+    crit = nn.ClassNLLCriterion(logits=True)
+
+    def model():
+        m = ResNet(10, DP_GLOO_DEPTH, "cifar10", fused=True, device=dev)
+        load_jax_variables(m, inputs["variables"])
+        return m
+
+    def trees(m):
+        return ({k: p.detach().clone() for k, p in m.named_parameters()},
+                {k: b.detach().clone() for k, b in m.named_buffers()})
+
+    def held(step, dp):
+        """The two held steps from ``m``'s weights: the parameters."""
+        params, state = trees(m)
+        opt = {"__all__": dp.local_state(method.init_state(params), params)}
+        for i in range(2):
+            params, state, opt, loss = step(params, state, opt, i + 1, None,
+                                            x, y, [0.1])
+        return export_variables(m, params, state)["params"], (
+            params, state, opt, loss)
+
+    m = model()
+    method = SGD(0.1, momentum=0.9)
+    step, placement = build_dp_train_step(m, crit, {"__all__": method},
+                                          mesh, zero1=True)
+    x, y = put_batch(mesh, inputs["x"]), put_batch(mesh, inputs["y"])
+    fm.reset_launches()
+    runs = [held(step, placement["data_parallel"])]
+    res = {"backend": backend, "loss": float(runs[0][1][3]),
+           "launches_per_step": {k: v // 2 for k, v in fm.LAUNCHES.items()}}
+    runs += [held(step, placement["data_parallel"])
+             for _ in range(DP_GLOO_REPEATS - 1)]
+    res["params"] = [p for p, _ in runs]
+    control, dp = per_replica_bn_step(m, crit, {"__all__": method}, mesh)
+    res["control_params"] = held(control, dp)[0]
+    # then the warm eager step's time, collectives included (the trees
+    # move on; what is held was exported above)
+    *timed, loss = runs[-1][1]
+    t0 = time.perf_counter()
+    for i in range(DP_GLOO_TIMED):
+        *timed, loss = step(*timed, i + 3, None, x, y, [0.1])
+    float(loss)  # the steps done
+    res["seconds_per_step"] = (time.perf_counter() - t0) / DP_GLOO_TIMED
+    if rank == 0:  # one rank on the global batch, no collective
+        # DP_GLOO_REPEATS times, then once more on the batch's rows
+        # reversed: the same function, another summation order (the
+        # rounding floor of the comparison)
+        xg = torch.from_numpy(inputs["x"]).to(dev)
+        yg = torch.from_numpy(inputs["y"]).to(dev)
+        ones = []
+        for rev in [False] * DP_GLOO_REPEATS + [True]:
+            xo, yo = (xg.flip(0), yg.flip(0)) if rev else (xg, yg)
+            m1 = model()
+            local = make_train_step(m1, crit,
+                                    {"__all__": SGD(0.1, momentum=0.9)})
+            p1, s1 = trees(m1)
+            o1 = {"__all__": SGD(0.1, momentum=0.9).init_state(p1)}
+            for i in range(2):
+                p1, s1, o1, _ = local(p1, s1, o1, i + 1, None, xo, yo, [0.1])
+            ones.append(export_variables(m1, p1, s1)["params"])
+        res["one_rank_params"], res["one_rank_reversed_params"] = (
+            ones[:-1], ones[-1])
+    # the sharded checkpoints, written by both ranks
+    iters, every = DP_CKPT_ITERS
+    opt2 = DistriOptimizer(model(), _Batches([(inputs["x"], inputs["y"])]),
+                           crit, Trigger.max_iteration(iters), mesh=mesh,
+                           sharded_checkpoint=True)
+    opt2.set_optim_method(SGD(0.1, momentum=0.9))
+    opt2.set_checkpoint(f"{tmp}/ckpt", Trigger.several_iteration(every))
+    opt2.optimize()
+    res["ckpt_params"] = export_variables(
+        opt2.model, opt2.final_params)["params"]
+    save_pytree(f"{tmp}/rank{rank}", res)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _elastic_env(dev):
+    """The elastic workers' environment (the card unless ``dev`` is
+    the CPU)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               BIGDL_ELASTIC_ITERS=str(ELASTIC_ITERS),
+               BIGDL_ELASTIC_CKPT_EVERY=str(ELASTIC_EVERY),
+               BIGDL_TPU_ELASTIC_HEARTBEAT_S="0.25",
+               BIGDL_TPU_ELASTIC_STALE_S="10")
+    if dev == "cpu":
+        env["BIGDL_ELASTIC_DEVICE"] = "cpu"
+    return env
+
+
+def _elastic_scenario(wd, env):
+    """Phase 15 (d): two agents, one worker killed with -9 after the
+    first commit; the survivor's agent re-forms at world 1.  Returns the
+    commits at the kill and the seconds."""
+    from bigdl_tpu_torch.distributed.elastic import ElasticAgent
+
+    for k in ("BIGDL_TPU_ELASTIC_HEARTBEAT_S", "BIGDL_TPU_ELASTIC_STALE_S"):
+        os.environ[k] = env[k]
+    t0 = time.perf_counter()
+    results = {}
+    agents = [ElasticAgent(str(wd), "h0", policy="restart", env=env,
+                           grace_s=5.0, rendezvous_timeout_s=120.0),
+              ElasticAgent(str(wd), "h1", policy="shrink", env=env,
+                           grace_s=5.0, rendezvous_timeout_s=120.0)]
+
+    def run(agent):
+        try:
+            results[agent.host_id] = agent.run()
+        except Exception as e:  # reported below
+            results[agent.host_id] = f"error: {e!r}"
+
+    threads = [threading.Thread(target=run, args=(a,), daemon=True)
+               for a in agents]
+    for t in threads:
+        t.start()
+    ckpt, pid_file = wd / "ckpt", wd / "worker-g1-h1.pid"
+    deadline = time.monotonic() + 120
+    try:
+        while not (pid_file.exists() and ckpt.is_dir() and any(
+                (d / "COMMIT").exists() for d in ckpt.iterdir())):
+            if time.monotonic() > deadline or not all(
+                    t.is_alive() for t in threads):
+                raise RuntimeError(f"no first commit with a live h1 "
+                                   f"worker ({results})")
+            time.sleep(0.05)
+        killed_at = len(list(ckpt.iterdir()))
+        os.kill(int(pid_file.read_text()), 9)
+        for t in threads:
+            t.join(timeout=max(1.0, deadline + 120 - time.monotonic()))
+        if any(t.is_alive() for t in threads) or results != {
+                "h0": "done", "h1": "left"}:
+            raise RuntimeError(f"agents ended {results} (alive: "
+                               f"{[t.is_alive() for t in threads]})")
+    except RuntimeError as e:
+        _kill_workers(wd)
+        fail(f"elastic: {e}")
+    for k in ("BIGDL_TPU_ELASTIC_HEARTBEAT_S", "BIGDL_TPU_ELASTIC_STALE_S"):
+        os.environ.pop(k, None)
+    return killed_at, time.perf_counter() - t0
+
+
+def _kill_workers(wd):
+    """SIGKILL every worker an agent under ``wd`` started (each is a
+    session leader): nothing outlives a failed scenario."""
+    for pid_file in wd.glob("worker-g*.pid"):
+        try:
+            os.killpg(int(pid_file.read_text()), 9)
+        except (OSError, ValueError):
+            pass
+
+
+def _elastic_losses(wd):
+    out = {}
+    for path in sorted(wd.glob("losses-g*.jsonl")):
+        for line in path.read_text().splitlines():
+            rec = json.loads(line)
+            if rec["rank"] == 0:
+                out[rec["it"]] = (rec["gen"], rec["loss"])
+    return {it: loss for it, (_, loss) in out.items()}
+
+
+def dp_phase(args, card, out, dev="cuda"):
+    """Phase 15, data-parallel and elastic training: (a) the fused
+    ResNet-50 bench step (bf16 images and compute, batch 256, remat on)
+    through DistriOptimizer(mesh=data_parallel_mesh()) with ZeRO-1 on a
+    one-rank NCCL group, one CUDA graph with its collectives inside,
+    against LocalOptimizer from the same weights and batches: losses and
+    parameters bit-equal over DP_STEPS iterations, kernels 1-5
+    72/36/36/26/13 in the captured step, each step's time; (b) the
+    compressed step at the bf16 wire against the plain dp step (f32,
+    batch DP_WIRE_BATCH): every leaf's first update within DP_WIRE_TOL,
+    both timed; (c) two ranks on the card over gloo, eager: the dp step of a
+    fused CIFAR ResNet-20 (randomised BatchNorm, sync-BN, ZeRO-1) against
+    one rank on the global batch within DP_GLOO_TOL in DP_GLOO_REPEATS
+    runs, the per-replica-BN control outside it, its launches, and a
+    sharded checkpoint written at world 2 restored at world 1 bit for bit
+    and resumed; (d) the elastic kill -9 scenario (the port's worker on
+    the card): the survivor re-forms at world 1 from the last COMMIT and
+    its losses and final parameters match the uninterrupted world-1 run.
+    ``dev="cpu"`` serves a rehearsal with the sizes shrunk (gloo in place
+    of NCCL, no graph).  Returns the results."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.distributed.checkpoint import (latest_committed,
+                                                        restore_checkpoint)
+    from bigdl_tpu_torch.distributed.compression import \
+        build_compressed_dp_train_step
+    from bigdl_tpu_torch.models import ResNet, ResNet50
+    from bigdl_tpu_torch.ops import fused_matmul as fm
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, LocalOptimizer,
+                                       Trigger)
+    from bigdl_tpu_torch.parallel.data_parallel import build_dp_train_step
+    from bigdl_tpu_torch.parallel.mesh import (data_parallel_mesh,
+                                               init_process_group, put_batch)
+    from bigdl_tpu_torch.utils import (export_variables, flatten, graphs,
+                                       load_jax_variables, random_variables)
+    from bigdl_tpu_torch.utils.serialization import load_pytree, save_pytree
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-12))
+
+    t_phase = time.perf_counter()
+    print(f"dp phase on {card}", flush=True)
+    res = {"card": card}
+    if DP_DIR.exists():
+        shutil.rmtree(DP_DIR)
+    DP_DIR.mkdir(parents=True)
+    prev_loop = os.environ.pop("BIGDL_TPU_SYNC_LOOP", None)
+    bf16 = torch.bfloat16
+    cuda = dev == "cuda"
+
+    # (a) world 1 on NCCL: the bench step, DistriOptimizer against local
+    backend, rank_dev = init_process_group(dev)
+    mesh = data_parallel_mesh(device=dev)
+    if cuda and backend != "nccl":
+        fail(f"dp: one rank with its own card chose {backend}, not nccl")
+    template = export_variables(ResNet50(1000, stem="space_to_depth",
+                                         fused=True, device="cpu"))
+    variables = random_variables(template, args.seed + 15)
+    gen = torch.Generator().manual_seed(args.seed + 15)
+    batches = [(torch.rand((DP_BATCH, DP_RES, DP_RES, 3),
+                           generator=gen).to(bf16),
+                torch.randint(0, 1000, (DP_BATCH,), generator=gen))
+               for _ in range(DP_STEPS)]
+    runs = {}
+    for name in ("local", "distri"):
+        m = ResNet50(1000, stem="space_to_depth", fused=True, device=dev)
+        load_jax_variables(m, variables)
+        log = _LossLog()
+        if name == "local":
+            opt = LocalOptimizer(m, _Batches(batches),
+                                 nn.ClassNLLCriterion(logits=True),
+                                 Trigger.max_iteration(DP_STEPS), device=dev)
+        else:
+            opt = DistriOptimizer(m, _Batches(batches),
+                                  nn.ClassNLLCriterion(logits=True),
+                                  Trigger.max_iteration(DP_STEPS), mesh=mesh)
+        opt.set_optim_method(SGD(0.1, momentum=0.9)).set_compute_dtype(bf16)
+        opt.set_train_summary(log)
+        fm.reset_launches()
+        graphs.reset_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        seconds = time.perf_counter() - t0
+        step = opt.train_step
+        fn = next(iter(step.graphs.values()))
+        r = {"losses": [log.losses[i] for i in range(1, DP_STEPS + 1)],
+             "seconds": seconds, "captures": step.captures,
+             "replays": step.replays,
+             "launches": dict(fm.LAUNCHES),
+             "capture_launches": dict(getattr(fn, "launches", {})),
+             "params": {k: v.detach().clone()
+                        for k, v in opt.final_params.items()}}
+        if cuda:
+            if not isinstance(fn, graphs.Compiled):
+                fail(f"dp: {name}'s step is not one CUDA graph")
+            if (r["captures"], r["replays"]) != (1, DP_STEPS):
+                fail(f"dp: {name}: {r['captures']} captures, "
+                     f"{r['replays']} replays over {DP_STEPS} iterations")
+            if r["capture_launches"] != STEP_LAUNCHES[True] or \
+                    r["launches"] != host_launches(STEP_LAUNCHES[True], 1):
+                fail(f"dp: {name}: launches {r['launches']} (the capture "
+                     f"{r['capture_launches']}), expected "
+                     f"{STEP_LAUNCHES[True]} a step")
+            r["ms_per_step"] = replay_ms(fn.graph, DP_TIMED)
+        runs[name] = r
+        del opt, m, step, fn
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    local, distri = runs["local"], runs["distri"]
+    if local["losses"] != distri["losses"]:
+        fail(f"dp: losses {distri['losses']} != LocalOptimizer's "
+             f"{local['losses']}")
+    differ = [k for k in local["params"]
+              if not torch.equal(local["params"][k], distri["params"][k])]
+    if differ:
+        fail(f"dp: {len(differ)} parameters differ from LocalOptimizer's "
+             f"after {DP_STEPS} steps, e.g. {differ[:3]}")
+    res["world1"] = {k: {kk: vv for kk, vv in v.items() if kk != "params"}
+                     for k, v in runs.items()}
+    print(f"dp (a): world 1 on {backend}, fused ResNet-50 bf16 at batch "
+          f"{DP_BATCH}: DistriOptimizer (ZeRO-1) and LocalOptimizer "
+          f"bit-equal over {DP_STEPS} steps (losses "
+          f"{' '.join(f'{v:.4f}' for v in distri['losses'])}); one capture "
+          f"each, kernels 1-5 {distri['capture_launches']} a step; "
+          f"ms per step: dp {distri.get('ms_per_step', float('nan')):.3f}, "
+          f"local {local.get('ms_per_step', float('nan')):.3f} ({card})",
+          flush=True)
+    del runs, local, distri, batches
+
+    # (b) the bf16 wire against the plain dp step, f32 at DP_WIRE_BATCH
+    wx = torch.rand((DP_WIRE_BATCH, DP_RES, DP_RES, 3), generator=gen
+                    ).to(rank_dev)
+    wy = torch.randint(0, 1000, (DP_WIRE_BATCH,), generator=gen).to(rank_dev)
+    wire = {}
+    for name in ("plain", "bf16"):
+        m = ResNet50(1000, stem="space_to_depth", fused=True, device=dev)
+        load_jax_variables(m, variables)
+        method = SGD(0.1, momentum=0.9)
+        crit = nn.ClassNLLCriterion(logits=True)
+        if name == "plain":
+            step, pl = build_dp_train_step(m, crit, {"__all__": method},
+                                           mesh, zero1=False)
+        else:
+            step, pl = build_compressed_dp_train_step(
+                m, crit, {"__all__": method}, mesh, wire_dtype="bf16")
+        params = {k: p.detach().clone() for k, p in m.named_parameters()}
+        state = {k: b.detach().clone() for k, b in m.named_buffers()}
+        opt = {"__all__": method.init_state(params)}
+        losses, update = [], None
+        for i in range(DP_STEPS):
+            params, state, opt, loss = step(params, state, opt, i + 1, None,
+                                            wx, wy, [0.1])
+            losses.append(float(loss))
+            if update is None:  # the first step's, from the same trees
+                update = {k: (params[k] - p0).detach().clone()
+                          for k, p0 in m.named_parameters()}
+        w = {"losses": losses, "update": update}
+        if cuda:
+            w["ms_per_step"] = replay_ms(
+                next(iter(step.graphs.values())).graph, DP_TIMED)
+        wire[name] = w
+        del step, params, state, opt, m
+        gc.collect()
+    worst = max(rel(wire["bf16"]["update"][k], wire["plain"]["update"][k])
+                for k in wire["plain"]["update"])
+    if not worst <= DP_WIRE_TOL or not all(
+            math.isfinite(v) for v in wire["bf16"]["losses"]):
+        fail(f"dp (b): the bf16 wire's first updates differ from the "
+             f"plain dp step's by {worst:.3g} (limit {DP_WIRE_TOL})")
+    res["wire"] = {k: {kk: vv for kk, vv in v.items() if kk != "update"}
+                   for k, v in wire.items()}
+    res["wire"]["worst_update_rel"] = worst
+    print(f"dp (b): bf16 wire against the plain dp step (f32, batch "
+          f"{DP_WIRE_BATCH}): the first step's updates within {worst:.3g} "
+          f"(limit {DP_WIRE_TOL}), losses over {DP_STEPS} steps "
+          f"{wire['bf16']['losses']} against {wire['plain']['losses']}; "
+          f"ms per step: bf16 wire "
+          f"{wire['bf16'].get('ms_per_step', float('nan')):.3f}, plain "
+          f"{wire['plain'].get('ms_per_step', float('nan')):.3f} ({card})",
+          flush=True)
+    del wire, wx, wy
+    dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) two ranks sharing the card over gloo
+    tmp = DP_DIR / "gloo"
+    tmp.mkdir()
+    cifar = export_variables(ResNet(10, DP_GLOO_DEPTH, "cifar10",
+                                    fused=True, device="cpu"))
+    rs = np.random.RandomState(args.seed + 16)
+    save_pytree(str(tmp / "inputs"), {
+        "variables": random_variables(cifar, args.seed + 16),
+        "x": rs.rand(DP_GLOO_BATCH, 32, 32, 3).astype(np.float32),
+        "y": rs.randint(0, 10, DP_GLOO_BATCH).astype(np.int64)})
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_gloo_rank, args=(2, str(tmp), dev),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                fail("dp (c): the gloo ranks still ran after 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    gloo_s = time.perf_counter() - t0
+    r0, r1 = (load_pytree(str(tmp / f"rank{r}")) for r in (0, 1))
+    if str(r0["backend"]) != "gloo":
+        fail(f"dp (c): two ranks on one card chose {r0['backend']}")
+
+    def err(got, want):  # the worst leaf's |diff| over its max |value|
+        got, want = flatten(got), flatten(want)
+        return max(float(np.abs(got[k] - want[k]).max()
+                         / max(np.abs(want[k]).max(), 1e-12)) for k in want)
+
+    errs = [err(p, w) for p, w in zip(r0["params"], r0["one_rank_params"])]
+    control_err = err(r0["control_params"], r0["one_rank_params"][0])
+    floor_err = err(r0["one_rank_reversed_params"], r0["one_rank_params"][0])
+    gloo_err = max(errs)
+    if any(err(p, q) != 0 for p, q in zip(r0["params"], r1["params"])):
+        fail("dp (c): the two ranks' parameters differ")
+    if not gloo_err <= DP_GLOO_TOL:
+        fail(f"dp (c): world 2 (sync-BN) against one rank on the global "
+             f"batch: {errs} > {DP_GLOO_TOL}")
+    if not control_err > DP_GLOO_TOL:
+        fail(f"dp (c): the per-replica-BN control is within "
+             f"{control_err:.3g} of one rank, inside the limit "
+             f"{DP_GLOO_TOL}: the check cannot see the fault")
+    launches = {k: int(v) for k, v in r0["launches_per_step"].items()}
+    if cuda and launches != BASIC_LAUNCHES[("cifar20", True)]:
+        fail(f"dp (c): kernels 1-5 launched {launches} a step, expected "
+             f"{BASIC_LAUNCHES[('cifar20', True)]}")
+    # the world-2 commit restored at world 1, then resumed
+    it, path = latest_committed(str(tmp / "ckpt"))
+    tree, _, _ = restore_checkpoint(path)
+    saved = flatten(r0["ckpt_params"])
+    if it != DP_CKPT_ITERS[0] or any(
+            not np.array_equal(np.asarray(flatten(tree["params"])[k]), v)
+            for k, v in saved.items()):
+        fail(f"dp (c): the world-2 commit {it} does not restore the "
+             "parameters it saved")
+    init_process_group(dev)
+    mesh1 = data_parallel_mesh(device=dev)
+    m = ResNet(10, DP_GLOO_DEPTH, "cifar10", fused=True, device=dev)
+    inputs = load_pytree(str(tmp / "inputs"))
+    resumed = DistriOptimizer(
+        m, _Batches([(inputs["x"], inputs["y"])]),
+        nn.ClassNLLCriterion(logits=True),
+        Trigger.max_iteration(DP_CKPT_ITERS[0] + 2), mesh=mesh1,
+        sharded_checkpoint=True)
+    resumed.set_optim_method(SGD(0.1, momentum=0.9)).resume_from(
+        str(tmp / "ckpt"))
+    resumed.optimize()
+    if resumed._loop_state["neval"] != DP_CKPT_ITERS[0] + 2 or \
+            not math.isfinite(resumed._loop_state["loss"]):
+        fail(f"dp (c): the world-1 resume ended at "
+             f"{resumed._loop_state}")
+    dist.destroy_process_group()
+    res["gloo"] = {"backend": str(r0["backend"]), "seconds": gloo_s,
+                   "max_rel_err": gloo_err, "rel_errs": errs,
+                   "control_rel_err": control_err,
+                   "reversed_rows_rel_err": floor_err,
+                   "ms_per_step": float(r0["seconds_per_step"]) * 1e3,
+                   "launches_per_step": launches,
+                   "restored_iteration": it}
+    print(f"dp (c): two ranks on one card over {r0['backend']} (eager), "
+          f"fused CIFAR ResNet-{DP_GLOO_DEPTH} at batch {DP_GLOO_BATCH}: "
+          f"sync-BN + ZeRO-1 within {', '.join(f'{e:.3g}' for e in errs)} "
+          f"of one rank on the global batch in {DP_GLOO_REPEATS} runs "
+          f"(limit {DP_GLOO_TOL}; per-replica BN {control_err:.3g}, one "
+          f"rank on the rows reversed {floor_err:.3g}); "
+          f"{res['gloo']['ms_per_step']:.1f} ms per step; kernels 1-5 "
+          f"{launches} a step; the world-2 commit {it} restored at world 1 "
+          f"bit for bit and resumed to {resumed._loop_state['neval']} "
+          f"({card})", flush=True)
+    del resumed, m
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the elastic kill -9 scenario with the port's worker, beside the
+    # uninterrupted world-1 run of the same job
+    wd, base = DP_DIR / "elastic", DP_DIR / "baseline"
+    base.mkdir()
+    env = _elastic_env(dev)
+    t0 = time.perf_counter()
+    baseline_proc = subprocess.Popen(
+        [sys.executable, "-m", "bigdl_tpu_torch.distributed.worker"],
+        env=dict(env, BIGDL_ELASTIC_WORKDIR=str(base), BIGDL_ELASTIC_GEN="1",
+                 BIGDL_ELASTIC_RANK="0", BIGDL_ELASTIC_WORLD="1"),
+        cwd=str(base), stdout=subprocess.DEVNULL)
+    try:
+        killed_at, elastic_s = _elastic_scenario(wd, env)
+        rc = baseline_proc.wait(timeout=300)
+    finally:
+        if baseline_proc.poll() is None:
+            baseline_proc.kill()
+    if rc != 0:
+        fail(f"elastic: the uninterrupted world-1 run exited {rc}")
+    base_s = time.perf_counter() - t0
+    gens = {int(f.name.split("-g")[1].split("-")[0])
+            for f in wd.glob("losses-g*")}
+    final = json.loads((wd / f"worker-result-g{max(gens)}-r0.json"
+                        ).read_text())
+    report = json.loads((wd / "agent-h0-watchdog.json").read_text())
+    want = json.loads((base / "worker-result-g1-r0.json").read_text())
+    composed, baseline = _elastic_losses(wd), _elastic_losses(base)
+    if max(gens) < 2 or final["world"] != 1 or \
+            report["counters"]["peer_failures"] < 1 or \
+            set(composed) != set(range(1, ELASTIC_ITERS + 1)):
+        fail(f"elastic: generations {sorted(gens)}, final world "
+             f"{final['world']}, peer failures "
+             f"{report['counters']['peer_failures']}, "
+             f"{len(composed)} losses")
+    worst = 0.0
+    for k, v in final["params"].items():
+        a, b = np.asarray(v), np.asarray(want["params"][k])
+        if not np.allclose(a, b, **ELASTIC_TOL):
+            fail(f"elastic: the survivor's {k} differs from the "
+                 f"uninterrupted run's by {np.abs(a - b).max():.3g}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    its = sorted(baseline)
+    if not np.allclose([composed[i] for i in its],
+                       [baseline[i] for i in its], **ELASTIC_TOL):
+        fail("elastic: the composed losses differ from the uninterrupted "
+             "run's")
+    res["elastic"] = {"generations": sorted(gens), "seconds": elastic_s,
+                      "baseline_seconds": base_s,
+                      "commits_at_kill": killed_at,
+                      "peer_failures": report["counters"]["peer_failures"],
+                      "max_abs_param_diff": worst}
+    print(f"dp (d): elastic kill -9: generations {sorted(gens)}, the "
+          f"survivor re-formed at world 1 and finished {ELASTIC_ITERS} "
+          f"iterations in {elastic_s:.1f} s; final parameters within "
+          f"{worst:.3g} of the uninterrupted run (run beside it, "
+          f"{base_s:.1f} s in all) "
+          f"({card})", flush=True)
+
+    if prev_loop is not None:
+        os.environ["BIGDL_TPU_SYNC_LOOP"] = prev_loop
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"dp phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def kernel_tools(gen, dev):
     """The kernel checks' helpers over the generator ``gen`` on
     ``dev``: random operands of kernels 1-5 (``operands``), their
@@ -6353,6 +7001,11 @@ def main():
     # --------------------------------------------------- 14. observability
     device_memory("before phase 14 (observability)")
     obs = observability_phase(args, card, out)
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- 15. data parallel
+    device_memory("before phase 15 (dp)")
+    dp = dp_phase(args, card, out)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -6370,7 +7023,8 @@ def main():
          "flash": flash_rows, "lm": lm, "int8": int8_rows, "quant": quant,
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
          "recipe": recipe, "data": data, "basic": basic,
-         "telemetry": tel, "observability": obs, "width12": width12},
+         "telemetry": tel, "observability": obs, "dp": dp,
+         "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -6413,7 +7067,11 @@ def main():
                 "seeded_divergence_optimize":
                     obs["divergence"]["launches"][name],
                 "profiling_trace_device":
-                    obs["profiling"]["device_trace_kernels"][name]},
+                    obs["profiling"]["device_trace_kernels"][name],
+                "dp_resnet50_nccl_world1_per_step":
+                    dp["world1"]["distri"]["capture_launches"][name],
+                "dp_cifar20_gloo_world2_per_step":
+                    dp["gloo"]["launches_per_step"][name]},
             "no_prologue": {
                 f"{r['model']} {r['dtype']}": {key: sum(
                     q["calls_per_forward"] * q[key]

@@ -42,7 +42,12 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "telemetry.numerics", "telemetry.flightrecorder",
               "telemetry.debug_server", "telemetry.cluster",
               "utils.profiling", "tools", "tools.blackbox",
-              "tools.cluster_top"):
+              "tools.cluster_top", "parallel", "parallel.mesh",
+              "parallel.comm", "parallel.data_parallel", "ops.partition",
+              "distributed", "distributed.checkpoint",
+              "distributed.compression", "distributed.rendezvous",
+              "distributed.elastic", "distributed.worker",
+              "optim.distri_optimizer", "optim.sparse_update"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -78,3 +83,29 @@ def test_fsspec_is_imported_only_inside_file_io_functions():
             if re.match(r"^\s*(import|from)\s+fsspec(\.|\s|$)", line)]
     assert hits and {f for f, _ in hits} == {"utils/file_io.py"}
     assert all(line.startswith(" ") for _, line in hits)
+
+
+def test_the_spawned_worker_runs_without_jax_or_bigdl_tpu(tmp_path):
+    """The elastic agent's worker process (``python -m
+    bigdl_tpu_torch.distributed.worker``), run to its end at world 1 on
+    the CPU, has imported none of them."""
+    import os
+
+    code = (
+        "import runpy, sys\n"
+        "try:\n"
+        "    runpy.run_module('bigdl_tpu_torch.distributed.worker',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent),
+               BIGDL_ELASTIC_WORKDIR=str(tmp_path), BIGDL_ELASTIC_ITERS="2",
+               BIGDL_ELASTIC_DEVICE="cpu", OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=str(tmp_path), env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    assert (tmp_path / "worker-result-g1-r0.json").exists()
