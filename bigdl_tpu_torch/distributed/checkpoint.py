@@ -25,17 +25,22 @@ without ``COMMIT``; :func:`latest_committed` ignores both.  The root is a
 local (or local-semantics network) directory shared by the processes.
 
 Ownership: a tree's leaf is a tensor or array every rank holds whole
-(written once, by process 0), a :class:`ShardedLeaf` (this rank's rows
-of a leaf split on dim 0: each rank writes its own chunk), or a str,
-bool or ``None`` (kept in the manifest's ``meta``).  Tensors of a type
+(written once, by process 0), a :class:`ShardedLeaf` (this rank's part
+of a leaf: its rows of dim 0, or with ``bounds`` its ``[lo, hi)`` on
+every dim, as a tensor-, pipeline- or expert-parallel shard's, possibly
+cut further into ZeRO-1 rows; each chunk written by the one rank whose
+``write`` is set among those holding it), or a str, bool or ``None``
+(kept in the manifest's ``meta``).  Tensors of a type
 numpy lacks (bfloat16, float8) are written as their raw bits under
 their type's name, as ``np.savez`` writes JAX's ml_dtypes arrays, and
 come back as tensors of that type.
 
 Resharding restore: the manifest records every leaf's global shape and
-every chunk's bounds, so :func:`restore_checkpoint` assembles any rows of
-any leaf whatever the writers' layout: a checkpoint written at world 2
-restores at world 1 and back, and either package reads the other's.
+every chunk's bounds, so :func:`restore_checkpoint` assembles any region
+of any leaf whatever the writers' layout (a ``RowShard``'s rows, a
+``Sharded`` layout's part, or the whole leaf): a checkpoint written at
+world 2 restores at world 1 and back, one written under ``pp x tp``
+restores under another layout, and either package reads the other's.
 
 Env knobs: ``BIGDL_TPU_CKPT_KEEP`` (committed steps retained, default
 2), ``BIGDL_TPU_COMMIT_TIMEOUT_S`` (process 0's wait for the fragments,
@@ -57,7 +62,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.parallel.mesh import RowShard
+from bigdl_tpu_torch.parallel.mesh import RowShard, Sharded
 from bigdl_tpu_torch.telemetry.tracer import CAT_TRAIN, get_tracer
 from bigdl_tpu_torch.utils.file_io import strip_file_scheme
 from bigdl_tpu_torch.utils.serialization import (_flatten_with_paths,
@@ -85,11 +90,14 @@ _RAW_BY_NAME = {name: (t, bits) for t, (name, _, bits) in _RAW.items()}
 @dataclass
 class ShardedLeaf:
     """This rank's rows ``[row0, row0 + len(local))`` of a leaf of
-    ``global_shape`` split on dim 0."""
+    ``global_shape`` split on dim 0, or with ``bounds`` its ``[lo, hi)``
+    on every dim; ``write`` False for a copy another rank writes."""
 
     local: Any
     global_shape: Tuple[int, ...]
-    row0: int
+    row0: int = 0
+    bounds: Optional[list] = None
+    write: bool = True
 
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
@@ -138,9 +146,11 @@ def snapshot_shards(tree: Any, process_index: int):
             arr, dtype = _host(leaf.local)
             leaf_info[key] = {"shape": list(leaf.global_shape),
                               "dtype": dtype}
-            bounds = ([[leaf.row0, leaf.row0 + arr.shape[0]]]
+            bounds = ([list(b) for b in leaf.bounds] if leaf.bounds
+                      else [[leaf.row0, leaf.row0 + arr.shape[0]]]
                       + [[0, d] for d in arr.shape[1:]])
-            chunks[key] = [(bounds, arr)]
+            if leaf.write:
+                chunks[key] = [(bounds, arr)]
             continue
         arr, dtype = _host(leaf)
         leaf_info[key] = {"shape": list(arr.shape), "dtype": dtype}
@@ -300,8 +310,9 @@ def restore_checkpoint(path: str, shardings=None):
     ``shardings``: a tree (or a prefix of one) of target layouts,
     whatever the layout the step was written with: a leaf under a
     :class:`~bigdl_tpu_torch.parallel.mesh.RowShard` comes back as that
-    part's rows (whole when the parts do not divide its dim 0), any
-    other as the whole leaf.  Leaves are numpy arrays, and tensors for
+    part's rows (whole when the parts do not divide its dim 0), under a
+    :class:`~bigdl_tpu_torch.parallel.mesh.Sharded` layout as this rank's
+    part, any other as the whole leaf.  Leaves are numpy arrays, and tensors for
     the types numpy lacks."""
     path = strip_file_scheme(path)
     if not os.path.exists(os.path.join(path, COMMIT_FILE)):
@@ -372,6 +383,8 @@ def restore_checkpoint(path: str, shardings=None):
         if isinstance(part, RowShard) and shape and shape[0] > 0 \
                 and shape[0] % part.parts == 0:
             region[0] = list(part.rows(shape[0]))
+        elif isinstance(part, Sharded):
+            region = part.region(shape)
         return assemble(key, region)
 
     def build(struct, prefix=""):

@@ -40,7 +40,7 @@ from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution,
                                           load_quantized, quantize,
                                           quantize_weight, save_quantized)
-from bigdl_tpu_torch.nn.reshape import Mean, SpaceToDepth
+from bigdl_tpu_torch.nn.reshape import Mean, MulConstant, SpaceToDepth
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = [
@@ -59,6 +59,7 @@ __all__ = [
     "LookupTable", "MSECriterion", "MarginCriterion",
     "MarginRankingCriterion", "Mean", "MeanAbsolutePercentageCriterion",
     "MeanSquaredLogarithmicCriterion", "Module", "MsraFiller",
+    "MulConstant",
     "MultiCriterion", "MultiHeadAttention", "MultiLabelMarginCriterion",
     "MultiLabelSoftMarginCriterion", "MultiMarginCriterion", "Node",
     "PGCriterion", "ParallelCriterion", "PoissonCriterion",

@@ -28,8 +28,18 @@ inference: they and the layers' cached forwards run under
 ``torch.no_grad()``, return new caches (a dict per layer, as the JAX
 trees) and leave the ones given unchanged.
 
-Sequence parallelism (``seq_mesh``) and MoE FFNs (``moe_experts``) are
-not ported yet: they raise ``NotImplementedError``.
+Parallelism (``parallel/``): under a step's mesh scope the layers run on
+the shards their leaves hold (``parallel/tensor_parallel.py``): q/k/v
+with ``H / tp`` heads (the flash kernel per rank on them) and ``wo``
+row-parallel then reduced over ``model``; the FFN's ``w1``/``b1``
+column-parallel and ``w2`` row-parallel, the reduce before ``b2``; the
+vocab-sharded embedding's masked lookup and the tied logits' vocab
+slices gathered.  With ``seq_mesh`` and a batch split over ``seq`` the
+attention core is ring or Ulysses attention (``parallel/sequence.py``,
+``seq_mode``) and ``PositionEncode`` encodes global positions.
+``moe_experts`` swaps each block's FFN for a Switch MoE
+(``parallel/expert.py``), its load-balance loss in the state tree at
+``.../ffn/aux_loss``.
 """
 from __future__ import annotations
 
@@ -46,12 +56,18 @@ from bigdl_tpu_torch.nn.module import Container, Module, Seed, split_rng
 from bigdl_tpu_torch.nn.norm import LayerNormalization
 from bigdl_tpu_torch.ops import paged_kv
 from bigdl_tpu_torch.ops.attention import dot_product_attention
+from bigdl_tpu_torch.ops.partition import (dropout_part, model_mesh,
+                                           seq_sharding)
+from bigdl_tpu_torch.parallel import comm
+from bigdl_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from bigdl_tpu_torch.utils import graphs
 
 
-def _later(what: str, slice_: str):
-    raise NotImplementedError(f"{what} is not ported yet: it comes with "
-                              f"the port's {slice_}")
+def _part(x, extra=()):
+    """The dropout part of an activation: its sequence part and
+    ``extra`` split dims."""
+    part = list(dropout_part(x) or ()) + list(extra)
+    return part or None
 
 
 class MultiHeadAttention(Module):
@@ -63,15 +79,20 @@ class MultiHeadAttention(Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  attn_dropout: float = 0.0, causal: bool = False,
                  use_flash: Optional[bool] = None, seq_mesh=None,
-                 name: Optional[str] = None):
+                 seq_mode: str = "ring", name: Optional[str] = None):
         super().__init__(name)
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
         if seq_mesh is not None:
-            _later("sequence-parallel attention (seq_mesh)",
-                   "parallelism slice")
+            from bigdl_tpu_torch.parallel.sequence import RingSelfAttention
+
+            if seq_mode not in RingSelfAttention.MODES:
+                raise ValueError(
+                    f"unknown seq_mode {seq_mode!r}; expected one of "
+                    f"{RingSelfAttention.MODES}")
         self.seq_mesh = seq_mesh
+        self.seq_mode = seq_mode
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
@@ -91,10 +112,38 @@ class MultiHeadAttention(Module):
                                                    fan_in=d, fan_out=d))
 
     def _heads(self, x, w):
-        """``(N, T, D) @ w`` split into heads: a ``(N, H, T, hd)`` view."""
+        """``(N, T, D) @ w`` split into heads: a ``(N, H, T, hd)`` view
+        (``H / tp`` heads of a column-parallel shard)."""
         n, t, _ = x.shape
+        if w.shape[1] % self.head_dim:
+            raise ValueError(
+                f"a shard of {w.shape[1]} columns splits a head of "
+                f"{self.head_dim}: the tensor-parallel degree must divide "
+                f"num_heads {self.num_heads}")
         y = x @ w.to(x.dtype)
-        return y.reshape(n, t, self.num_heads, self.head_dim).transpose(1, 2)
+        return y.reshape(n, t, -1, self.head_dim).transpose(1, 2)
+
+    def _seq_parallel(self, self_attention: bool, mask) -> bool:
+        """Whether the core is ring/Ulysses attention: a ``seq_mesh``
+        whose ``seq`` degree is above 1 (JAX's refusals: self-attention
+        only, no mask) over a batch the step split on the sequence."""
+        mesh = self.seq_mesh
+        if mesh is None or mesh.shape.get(SEQ_AXIS, 1) <= 1:
+            if seq_sharding() is not None:
+                raise ValueError(
+                    "a sequence-sharded batch needs seq_mesh attention "
+                    "(MultiHeadAttention(..., seq_mesh=mesh))")
+            return False
+        if not self_attention:
+            raise ValueError(
+                "seq_mesh attention supports self-attention only (query "
+                "is not the key/value input)")
+        if mask is not None:
+            raise ValueError(
+                "seq_mesh attention does not take an explicit mask (use "
+                "causal=; a dense mask would defeat the sequence "
+                "sharding)")
+        return seq_sharding() is not None
 
     def forward(self, inputs, rng: Optional[Seed] = None):
         if isinstance(inputs, (tuple, list)):
@@ -103,13 +152,33 @@ class MultiHeadAttention(Module):
         else:
             query = kv = inputs
             mask = None
+        self_attention = query is kv
+        seq_par = self._seq_parallel(self_attention, mask)
+        tp = self.hidden_size // self.wq.shape[1]
+        mesh = None
+        if tp > 1:  # column-parallel q/k/v: the input enters the region
+            mesh = model_mesh("MultiHeadAttention", tp)
+            query = comm.copy_to(query, mesh, MODEL_AXIS)
+            kv = query if self_attention else comm.copy_to(kv, mesh,
+                                                           MODEL_AXIS)
         q = self._heads(query, self.wq)
         k = self._heads(kv, self.wk)
         v = self._heads(kv, self.wv)
-        out = self._out(dot_product_attention(
-            q, k, v, mask=mask, causal=self.causal, use_flash=self.use_flash))
+        if seq_par:
+            from bigdl_tpu_torch.parallel.sequence import RingSelfAttention
+
+            core = RingSelfAttention(self.seq_mesh, causal=self.causal,
+                                     mode=self.seq_mode)(q, k, v)
+        else:
+            core = dot_product_attention(q, k, v, mask=mask,
+                                         causal=self.causal,
+                                         use_flash=self.use_flash)
+        out = self._out(core)
+        if self.wo.shape[0] < self.hidden_size:  # row-parallel wo
+            out = comm.reduce_from(out, model_mesh("MultiHeadAttention",
+                                                   tp), MODEL_AXIS)
         if self.training and self.attn_dropout > 0.0 and rng is not None:
-            out = dropout(out, self.attn_dropout, rng)
+            out = dropout(out, self.attn_dropout, rng, _part(out))
         return out
 
     # ------------------------------------------------------------------
@@ -141,7 +210,7 @@ class MultiHeadAttention(Module):
 
     def _out(self, out):
         n, _, t, _ = out.shape
-        out = out.transpose(1, 2).reshape(n, t, self.hidden_size)
+        out = out.transpose(1, 2).reshape(n, t, -1)
         return out @ self.wo.to(out.dtype)
 
     @staticmethod
@@ -257,10 +326,34 @@ class FeedForwardNetwork(Module):
             self.b2.zero_()
 
     def forward(self, x, rng: Optional[Seed] = None):
+        tp = self.filter_size // self.w1.shape[1]
+        mesh = None
+        if tp > 1:  # column-parallel w1/b1: the input enters the region
+            mesh = model_mesh("FeedForwardNetwork", tp)
+            x = comm.copy_to(x, mesh, MODEL_AXIS)
         y = self.activation(x @ self.w1.to(x.dtype) + self.b1.to(x.dtype))
         if self.training and self.relu_dropout > 0.0 and rng is not None:
-            y = dropout(y, self.relu_dropout, rng)
-        return y @ self.w2.to(x.dtype) + self.b2.to(x.dtype)
+            extra = ([(y.dim() - 1, mesh.rank(MODEL_AXIS), tp)]
+                     if mesh is not None else [])
+            y = dropout(y, self.relu_dropout, rng, _part(y, extra))
+        y = y @ self.w2.to(x.dtype)
+        if self.w2.shape[0] < self.filter_size:  # row-parallel w2
+            y = comm.reduce_from(y, model_mesh("FeedForwardNetwork", tp),
+                                 MODEL_AXIS)
+        return y + self.b2.to(x.dtype)
+
+
+def tied_logits(h, weight, vocab_size: int):
+    """``h @ weight.T`` for the weight-tied LM head; a vocab-sharded
+    ``weight`` gives this rank's logit columns, gathered over ``model``
+    (the input entering the region, so its gradient sums every slice's
+    part)."""
+    tp = vocab_size // weight.shape[0]
+    if tp == 1:
+        return h @ weight.to(h.dtype).t()
+    mesh = model_mesh("the tied LM head", tp)
+    logits = comm.copy_to(h, mesh, MODEL_AXIS) @ weight.to(h.dtype).t()
+    return comm.gather_from(logits, mesh, MODEL_AXIS, logits.dim() - 1)
 
 
 class TransformerLayer(Container):
@@ -271,19 +364,23 @@ class TransformerLayer(Container):
                  attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
                  causal: bool = False, use_flash: Optional[bool] = None,
                  moe_experts: int = 0, moe_mesh=None, seq_mesh=None,
-                 name: Optional[str] = None):
+                 seq_mode: str = "ring", name: Optional[str] = None):
         super().__init__(name=name)
-        if moe_experts:
-            _later("a mixture-of-experts FFN (moe_experts)",
-                   "parallelism slice")
         filter_size = filter_size or 4 * hidden_size
         self.add(LayerNormalization(hidden_size, name="ln1"))
         self.add(MultiHeadAttention(hidden_size, num_heads, attn_dropout,
                                     causal, use_flash, seq_mesh=seq_mesh,
-                                    name="mha"))
+                                    seq_mode=seq_mode, name="mha"))
         self.add(LayerNormalization(hidden_size, name="ln2"))
-        self.add(FeedForwardNetwork(hidden_size, filter_size, ffn_dropout,
-                                    name="ffn"))
+        if moe_experts:
+            # the Switch MoE FFN; its aux_loss joins the training loss
+            from bigdl_tpu_torch.parallel.expert import MoE
+
+            self.add(MoE(hidden_size, filter_size, moe_experts,
+                         mesh=moe_mesh, name="ffn"))
+        else:
+            self.add(FeedForwardNetwork(hidden_size, filter_size,
+                                        ffn_dropout, name="ffn"))
 
     def forward(self, x, rng: Optional[Seed] = None):
         x = x + self.mha(self.ln1(x), rng=split_rng(rng, 1))
@@ -315,7 +412,10 @@ class PositionEncode(Module):
 
     def forward(self, x):
         t, d = x.shape[1], x.shape[2]
-        pe = self.encode_at(torch.arange(t, device=x.device), d, x.dtype)
+        s = seq_sharding()  # a sequence part: its global positions
+        start = s[1] * t if s is not None and s[0] == 1 else 0
+        pe = self.encode_at(torch.arange(start, start + t, device=x.device),
+                            d, x.dtype)
         return x + pe[None]
 
     @staticmethod
@@ -341,7 +441,7 @@ class Transformer(Container):
                  filter_size: int, num_layers: int, dropout: float = 0.1,
                  causal: bool = True, use_flash: Optional[bool] = None,
                  moe_experts: int = 0, moe_mesh=None, seq_mesh=None,
-                 name: Optional[str] = None):
+                 seq_mode: str = "ring", name: Optional[str] = None):
         super().__init__(name=name)
         self.hidden_size = hidden_size
         self.vocab_size = vocab_size
@@ -356,7 +456,7 @@ class Transformer(Container):
                 hidden_size, num_heads, filter_size, attn_dropout=dropout,
                 ffn_dropout=dropout, causal=causal, use_flash=use_flash,
                 moe_experts=moe_experts, moe_mesh=moe_mesh,
-                seq_mesh=seq_mesh, name=f"layer{i}"))
+                seq_mesh=seq_mesh, seq_mode=seq_mode, name=f"layer{i}"))
         self.add(LayerNormalization(hidden_size, name="ln_f"))
 
     def _scaled(self, h):
@@ -366,8 +466,7 @@ class Transformer(Container):
 
     def _head(self, h):
         """Final LayerNorm and the weight-tied LM head."""
-        h = self.ln_f(h)
-        return h @ self.embed.weight.to(h.dtype).t()
+        return tied_logits(self.ln_f(h), self.embed.weight, self.vocab_size)
 
     def forward(self, x, rng: Optional[Seed] = None):
         h = self._scaled(self.embed(x))

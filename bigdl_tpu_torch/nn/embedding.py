@@ -3,6 +3,11 @@
 Indices are 0-based.  ``max_norm`` renormalises the rows functionally at
 lookup time, as the JAX layer does, instead of writing the weight in
 place; ``padding_value`` rows are initialised to 0 and looked up as 0.
+
+A weight holding ``n_index / tp`` rows is this rank's vocab slice under
+tensor parallelism (``parallel/tensor_parallel.py``): the indices
+outside it look up zeros, and the rows are summed over the ``model``
+axis (the backward passes each rank its rows' cotangent).
 """
 from __future__ import annotations
 
@@ -47,8 +52,24 @@ class LookupTable(Module):
                                              keepdim=True)
             w = w * torch.clamp_max(
                 self.max_norm / torch.clamp_min(norms, 1e-7), 1.0)
-        y = w[indices.long()]
+        if w.shape[0] < self.n_index:
+            y = self._sharded_lookup(w, indices.long())
+        else:
+            y = w[indices.long()]
         if self.padding_value is not None:
             keep = (indices != self.padding_value)[..., None]
             y = torch.where(keep, y, torch.zeros_like(y))
         return y
+
+    def _sharded_lookup(self, w, idx):
+        from bigdl_tpu_torch.ops.partition import model_mesh
+        from bigdl_tpu_torch.parallel import comm
+        from bigdl_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        mesh = model_mesh("LookupTable", self.n_index // w.shape[0])
+        per = w.shape[0]
+        local = idx - mesh.rank(MODEL_AXIS) * per
+        inside = (local >= 0) & (local < per)
+        y = w[local.clamp(0, per - 1)]
+        y = torch.where(inside[..., None], y, torch.zeros_like(y))
+        return comm.reduce_from(y, mesh, MODEL_AXIS)

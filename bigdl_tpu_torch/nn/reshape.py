@@ -3,6 +3,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from bigdl_tpu_torch.nn.module import Module
 
 
@@ -35,3 +37,15 @@ class Mean(Module):
 
     def forward(self, x):
         return x.mean(self.dimension, keepdim=not self.squeeze)
+
+
+class MulConstant(Module):
+    """``x * scalar``, the scalar rounded to x's type first, as JAX's
+    weakly typed product (bigdl_tpu/nn/reshape.py:237)."""
+
+    def __init__(self, scalar: float, name: Optional[str] = None):
+        super().__init__(name)
+        self.scalar = scalar
+
+    def forward(self, x):
+        return x * torch.tensor(self.scalar, dtype=x.dtype, device=x.device)

@@ -16,7 +16,10 @@ Kernels 6 and 7 are row-parallel with no cross-row output
 
 The data-parallel step publishes its mesh with :func:`kernel_mesh_scope`
 around the step's body, as ``build_dp_train_step`` does with
-``kernel_mesh_scope`` in JAX.  A layer reads it once per forward, in the
+``kernel_mesh_scope`` in JAX; the tensor-parallel layers take their
+axes' groups from it, and with ``seq_dim`` the scope says the batch (and
+so every activation) is split on that dim over the ``seq`` axis
+(:func:`seq_sharding`).  A layer reads it once per forward, in the
 thread that runs the forward, and hands it to what it recomputes: the
 backward of a CUDA tensor runs on autograd's device thread, where the
 scope is not set.
@@ -30,25 +33,67 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["current_kernel_mesh", "global_means", "kernel_mesh_scope",
-           "reduce_stats"]
+           "current_seq_dim", "dropout_part", "model_mesh", "reduce_stats",
+           "seq_sharding"]
 
 _KERNEL_MESH: contextvars.ContextVar = contextvars.ContextVar(
     "bigdl_tpu_torch_kernel_mesh", default=None)
+_SEQ_DIM: contextvars.ContextVar = contextvars.ContextVar(
+    "bigdl_tpu_torch_seq_dim", default=None)
 
 
 @contextlib.contextmanager
-def kernel_mesh_scope(mesh):
-    """Publish ``mesh`` to the layers run in this scope."""
+def kernel_mesh_scope(mesh, seq_dim: Optional[int] = None):
+    """Publish ``mesh`` (and the batch's sequence-sharded dim, if any) to
+    the layers run in this scope."""
     token = _KERNEL_MESH.set(mesh)
+    token_seq = _SEQ_DIM.set(seq_dim)
     try:
         yield
     finally:
+        _SEQ_DIM.reset(token_seq)
         _KERNEL_MESH.reset(token)
+
+
+def current_seq_dim() -> Optional[int]:
+    """The sequence-sharded dim of the enclosing scope's batch, or
+    None."""
+    return _SEQ_DIM.get()
+
+
+def seq_sharding() -> Optional[Tuple[int, int, int]]:
+    """``(dim, index, parts)`` of the activations' sequence dim when the
+    scope's batch is split over a ``seq`` axis of degree > 1, else
+    None."""
+    mesh, dim = _KERNEL_MESH.get(), _SEQ_DIM.get()
+    if mesh is None or dim is None or mesh.shape.get("seq", 1) == 1:
+        return None
+    return dim, mesh.rank("seq"), mesh.shape["seq"]
+
+
+def dropout_part(x: torch.Tensor):
+    """The dropout ``part`` of an activation under :func:`seq_sharding`
+    (None when the sequence is whole)."""
+    s = seq_sharding()
+    return [s] if s is not None and x.dim() > s[0] else None
 
 
 def current_kernel_mesh():
     """The mesh of the enclosing :func:`kernel_mesh_scope`, or None."""
     return _KERNEL_MESH.get()
+
+
+def model_mesh(what: str, degree: int):
+    """The step's mesh for a layer whose leaves hold ``1 / degree`` of
+    their width: its ``model`` axis must have that degree."""
+    from bigdl_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    mesh = current_kernel_mesh()
+    if mesh is None or mesh.shape.get(MODEL_AXIS, 1) != degree:
+        raise ValueError(
+            f"{what}: leaves sharded {degree}-way need the step's mesh "
+            f"with model={degree} (parallel.build_dp_train_step's scope)")
+    return mesh
 
 
 def _data_degree(mesh) -> int:

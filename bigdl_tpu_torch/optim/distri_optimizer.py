@@ -1,5 +1,5 @@
-"""DistriOptimizer: synchronous data-parallel training over the mesh
-(counterpart of bigdl_tpu/optim/distri_optimizer.py:37-361).
+"""DistriOptimizer: synchronous training over the mesh (counterpart of
+bigdl_tpu/optim/distri_optimizer.py:37-361).
 
 Every rank runs this loop, one process per device, with the same
 triggers, seeds and rates: it feeds its rows of each global batch
@@ -12,15 +12,25 @@ to the compressed step (``distributed/compression.py``).  What stays on
 the host is :class:`LocalOptimizer`'s: triggers, validation, checkpoints,
 retry, resume, metrics and the log lines.
 
+With ``param_shardings`` (tensor, pipeline and expert layouts) every rank
+starts from rank 0's whole trees and keeps its shards of them (the
+step's parameters, and each method's state built over them); with
+``seq_dim`` each rank feeds its part of the batch's sequence dim and
+the targets' matching part.  ``final_params`` are whole leaves again,
+gathered over the shards' axes at the end.
+
 Validation runs the sharded forward (``build_dp_eval_step``): each rank
-its rows, the outputs gathered, the methods over the global batch.
+its rows (and sequence part), the outputs gathered, the methods over the
+global batch.
 
 Checkpoints: by default the loop's blob, written by rank 0 after every
-rank gathers the ZeRO-1 optimizer state (a collective); with
-``sharded_checkpoint=True`` every rank writes its own rows through
-``distributed/checkpoint.py``'s two-phase commit (rank 0 the replicated
-leaves and the manifest), and a restore reassembles each rank's rows
-whatever world wrote them.  The trees are in the JAX package's nesting,
+rank gathers the ZeRO-1 optimizer state and the shards into whole leaves
+(collectives); with ``sharded_checkpoint=True`` every rank writes its own
+chunks through ``distributed/checkpoint.py``'s two-phase commit (each
+chunk with its bounds on every dim, written by one rank of the ranks
+that hold it; rank 0 the replicated leaves and the manifest), and a
+restore reassembles each rank's shards whatever world and layout wrote
+them.  The trees are in the JAX package's nesting,
 so either package resumes from the other's checkpoint.
 
 With ``BIGDL_TPU_SYNC_LOOP=1`` the ``allreduce`` gauge is the step's
@@ -45,13 +55,21 @@ from bigdl_tpu_torch.optim.optimizer import (CompiledTrainStep,
                                              make_train_step)
 from bigdl_tpu_torch.nn.module import split_rng
 from bigdl_tpu_torch.parallel import comm
-from bigdl_tpu_torch.parallel.mesh import (MeshConfig, _slice20, make_mesh,
-                                           put_batch)
+from bigdl_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, MeshConfig,
+                                           Replicated, Sharded, make_mesh,
+                                           put_batch, seq_part)
 from bigdl_tpu_torch.telemetry.tracer import CAT_TRAIN, get_tracer
 from bigdl_tpu_torch.utils.convert import (_fill, _nest, export_variables,
                                            flatten)
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
+
+
+def dist_rank() -> int:
+    """This process's rank in the world (the blob's one writer is 0)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 __all__ = ["DistriOptimizer"]
 
@@ -65,10 +83,9 @@ def _map(tree, fn):
 
 
 class DistriOptimizer(LocalOptimizer):
-    """The data-parallel loop; see the module's docstring.  ``mesh``
+    """The distributed loop; see the module's docstring.  ``mesh``
     defaults to ``make_mesh()`` over the world's ranks on ``device`` (the
-    card unless ``"cpu"``); ``param_shardings`` and ``seq_dim`` are port
-    slice 20."""
+    card unless ``"cpu"``)."""
 
     def __init__(self, model, dataset, criterion, end_trigger=None,
                  batch_size: Optional[int] = None, mesh=None,
@@ -77,13 +94,13 @@ class DistriOptimizer(LocalOptimizer):
                  sharded_checkpoint: bool = False,
                  grad_compression: Optional[str] = None,
                  device: DeviceLike = None):
-        if param_shardings is not None or seq_dim is not None:
-            raise _slice20("param_shardings / seq_dim")
         self.mesh = mesh if mesh is not None else make_mesh(MeshConfig(),
                                                             device)
         super().__init__(model, dataset, criterion, end_trigger, batch_size,
                          self.mesh.device)
         self.zero1 = zero1
+        self.param_shardings = param_shardings
+        self.seq_dim = seq_dim
         self.sharded_checkpoint = sharded_checkpoint
         self._sharded_ckpt = None
         if grad_compression is None:
@@ -108,10 +125,13 @@ class DistriOptimizer(LocalOptimizer):
             from bigdl_tpu_torch.distributed.compression import (
                 build_compressed_dp_train_step)
 
-            if self.accum_steps != 1 or self.compute_dtype is not None:
+            if self.accum_steps != 1 or self.compute_dtype is not None \
+                    or self.param_shardings is not None \
+                    or self.seq_dim is not None:
                 raise ValueError(
                     "grad_compression composes with the plain dp layout "
-                    "only (no accumulation / compute_dtype)")
+                    "only (no accumulation / compute_dtype / "
+                    "param_shardings)")
             step, placement = build_compressed_dp_train_step(
                 model, self.criterion, self.optim_methods, self.mesh,
                 wire_dtype=self.grad_compression,
@@ -123,6 +143,7 @@ class DistriOptimizer(LocalOptimizer):
                 zero1=self.zero1, grad_clip_const=self.grad_clip_const,
                 grad_clip_norm=self.grad_clip_norm,
                 compute_dtype=self.compute_dtype,
+                param_shardings=self.param_shardings, seq_dim=self.seq_dim,
                 accum_steps=self.accum_steps, numerics=numerics)
         self._placement = placement
         self._dp = placement["data_parallel"]
@@ -130,9 +151,41 @@ class DistriOptimizer(LocalOptimizer):
 
     def _sync_replicas(self, params, model_state):
         """Rank 0's parameters and model state on every rank (JAX's
-        replicated arrays are one value by construction)."""
-        comm.broadcast_leaves(list(params.values())
-                              + list(model_state.values()), self.mesh)
+        replicated arrays are one value by construction), then each
+        sharded parameter cut to this rank's shard, in place in
+        ``params``."""
+        leaves = list(params.values()) + list(model_state.values())
+        for axis in AXES:  # rank (0, ..., 0)'s values along every axis
+            if self.mesh.shape[axis] > 1:
+                comm.broadcast_leaves(leaves, self.mesh, axis=axis)
+        for k, p in params.items():
+            part = self._layout(k)
+            if isinstance(part, Sharded):
+                params[k] = part.local(p).clone()
+
+    def _layout(self, key: str):
+        """A parameter's layout (replicated under the compressed step)."""
+        layout_of = getattr(self._dp, "layout_of", None)
+        return layout_of(key) if layout_of is not None else Replicated()
+
+    @property
+    def _sharded_params(self) -> bool:
+        return any(isinstance(self._layout(k), Sharded)
+                   for k, _ in self.model.named_parameters())
+
+    def _whole_params(self, params):
+        """Every sharded parameter gathered whole (collectives every rank
+        joins)."""
+        from bigdl_tpu_torch.parallel.tensor_parallel import \
+            gather_variables
+
+        return gather_variables(dict(params), self.mesh,
+                                self._placement["params"])
+
+    def _finish_model(self, model, params, model_state):
+        if self._sharded_params:
+            params = self._whole_params(params)
+        return super()._finish_model(model, params, model_state)
 
     def _init_opt_states(self, params):
         """Each method's state; with ZeRO-1 this rank's rows of it."""
@@ -153,7 +206,8 @@ class DistriOptimizer(LocalOptimizer):
                 "gradient accumulation over a dataset that shards by rank: "
                 "feed global batches (the micro-batches are cut from them)")
         if (self.phase_instrumentation and self._local_step_time is None
-                and self._sync_loop and self.mesh.size > 1):
+                and self._sync_loop and self.mesh.size > 1
+                and self.param_shardings is None and self.seq_dim is None):
             # calibrated in _one_iteration, outside the 'data' timer
             self._calib_batch = batch
 
@@ -161,8 +215,15 @@ class DistriOptimizer(LocalOptimizer):
             return put_batch(self.mesh, a, local=local,
                              accum_steps=self.accum_steps)
 
-        return (_map(batch.get_input(), put), _map(batch.get_target(), put),
-                batch.size)
+        def put_seq(a):
+            t = put(a)
+            # the targets' part matching the local logits
+            return (seq_part(self.mesh, t, self.seq_dim)
+                    if self.seq_dim is not None and t.dim() > self.seq_dim
+                    else t)
+
+        return (_map(batch.get_input(), put_seq),
+                _map(batch.get_target(), put_seq), batch.size)
 
     def _calibrate_local_step(self, batch, reps: int = 3):
         """Time a collective-free step on this rank's rows (the
@@ -231,13 +292,15 @@ class DistriOptimizer(LocalOptimizer):
             from bigdl_tpu_torch.parallel.data_parallel import \
                 build_dp_eval_step
 
-            self._dist_eval = build_dp_eval_step(model, self.mesh)
+            self._dist_eval = build_dp_eval_step(
+                model, self.mesh, self.param_shardings, self.seq_dim)
         local = self._local_batches(self.val_dataset)
         model.eval()
         totals = [None] * len(self.val_methods)
         for batch in self.val_dataset.data(train=False):
             x = _map(batch.get_input(),
-                     lambda a: put_batch(self.mesh, a, local=local))
+                     lambda a: put_batch(self.mesh, a, self.seq_dim,
+                                         local=local))
             out = self._dist_eval(params, model_state, x)
             target = batch.get_target()
             if local:  # every rank's targets, in the outputs' order
@@ -250,20 +313,31 @@ class DistriOptimizer(LocalOptimizer):
         return list(zip(self.val_methods, totals))
 
     # -- checkpoints ---------------------------------------------------
-    def _whole_opt_states(self, opt_states):
-        """The optimizer states with every ZeRO-1 leaf gathered whole (a
-        collective every rank joins)."""
+    def _zero1_parts(self):
+        """Each parameter's ZeRO-1 rows of its local shard (None where
+        the leaf stays whole on every data rank)."""
         if not self._dp.zero1:
-            return opt_states
-        parts = self._dp.layout(dict(self.model.named_parameters()))
+            return {}
+        local = {k: torch.empty(self._layout(k).local_shape(p.shape))
+                 for k, p in self.model.named_parameters()}
+        return self._dp.layout(local)
+
+    def _whole_opt_states(self, opt_states):
+        """The optimizer states with every ZeRO-1 leaf gathered over the
+        data axis, and every sharded leaf over its axes, whole
+        (collectives every rank joins)."""
+        parts = self._zero1_parts()
         out = {}
         for name, st in opt_states.items():
             out[name] = {}
             for slot, flat in st.items():
                 keys = [k for k in flat if parts.get(k) is not None]
-                whole = comm.gather_leaves([flat[k] for k in keys],
-                                           self.mesh)
-                out[name][slot] = {**flat, **dict(zip(keys, whole))}
+                whole = (comm.gather_leaves([flat[k] for k in keys],
+                                            self.mesh) if keys else [])
+                flat = {**flat, **dict(zip(keys, whole))}
+                if self._sharded_params:
+                    flat = self._whole_params(flat)
+                out[name][slot] = flat
         return out
 
     def _host_state(self, driver_state) -> Dict[str, Any]:
@@ -287,26 +361,42 @@ class DistriOptimizer(LocalOptimizer):
         from bigdl_tpu_torch.distributed.checkpoint import ShardedLeaf
 
         params, model_state, opt_states = trees
-        variables = export_variables(model, params, model_state)
         if self._param_template is None:
             self._param_template = _nest(model, "params")
-        parts = self._dp.layout(params) if self._dp.zero1 else {}
+        whole = dict(self.model.named_parameters())
+        parts = self._zero1_parts()
+
+        def leaf(k, v, zero):
+            """``v`` (this rank's part of leaf ``k``) as a chunk with its
+            bounds, written by the first rank of those holding it."""
+            lay = self._layout(k)
+            shape = tuple(whole[k].shape)
+            if not isinstance(lay, Sharded) and zero is None:
+                return v.detach().clone()
+            bounds = lay.region(shape)
+            axes = set(lay.axes)
+            if zero is not None:
+                lo = bounds[0][0]
+                rows = zero.rows(bounds[0][1] - lo)
+                bounds[0] = [lo + rows[0], lo + rows[1]]
+                axes.add(DATA_AXIS)
+            write = all(self.mesh.rank(a) == 0 for a in AXES
+                        if a not in axes)
+            return ShardedLeaf(v.detach().clone(), shape, bounds[0][0],
+                               bounds=bounds, write=write)
+
+        params_part = {k: leaf(k, v, None) for k, v in params.items()}
         opt = {}
         for name, st in opt_states.items():
             template = (self._param_template if name == "__all__"
                         else {name: self._param_template[name]})
             opt[name] = {}
             for slot, flat in st.items():
-                leaves = {}
-                for k, v in flat.items():
-                    part = parts.get(k)
-                    leaves[k] = (v.detach().clone() if part is None else
-                                 ShardedLeaf(v.detach().clone(),
-                                             tuple(params[k].shape),
-                                             part.rows(params[k].shape[0])[0]))
-                opt[name][slot] = _fill(template, leaves)
-        return {"params": variables["params"],
-                "model_state": variables["state"], "opt_states": opt}
+                opt[name][slot] = _fill(template, {
+                    k: leaf(k, v, parts.get(k)) for k, v in flat.items()})
+        state = export_variables(model, None, model_state)["state"]
+        return {"params": _fill(self._param_template, params_part),
+                "model_state": state, "opt_states": opt}
 
     def _prepare_ckpt_dir(self) -> Optional[str]:
         if not self.sharded_checkpoint:
@@ -318,7 +408,7 @@ class DistriOptimizer(LocalOptimizer):
 
         # step directories are per iteration already: no timestamped one
         self._sharded_ckpt = ShardedCheckpointer(
-            self.checkpoint_path, process_index=self.mesh.rank(),
+            self.checkpoint_path, process_index=dist_rank(),
             process_count=self.mesh.size)
         return self._sharded_ckpt.root
 
@@ -332,8 +422,10 @@ class DistriOptimizer(LocalOptimizer):
                 loop_state["neval"])
             return
         params, model_state, opt_states = trees
+        if self._sharded_params:
+            params = self._whole_params(params)
         whole = (params, model_state, self._whole_opt_states(opt_states))
-        if self.mesh.rank() == 0:  # one writer of the blob
+        if dist_rank() == 0:  # one writer of the blob
             super()._save_checkpoint(ckpt_dir, model, whole, loop_state)
 
     def _finish_checkpoints(self, raise_errors: bool = True):
@@ -348,21 +440,23 @@ class DistriOptimizer(LocalOptimizer):
             self._sharded_ckpt.wait(raise_errors=False)
 
     def _restore(self, blob: dict, trees, loop_state):
-        """The whole-leaf blob cut to this rank's ZeRO-1 rows, then
-        copied into the step's trees."""
-        if self._dp.zero1:
-            parts = self._dp.layout(trees[0])
+        """The whole-leaf blob cut to this rank's shards and ZeRO-1 rows,
+        then copied into the step's trees."""
+        parts = self._zero1_parts()
+
+        def cut(k, v, zero):
+            v = self._layout(k).local(np.asarray(v))
+            return v if zero is None else v[slice(*zero.rows(v.shape[0]))]
+
+        if parts or self._sharded_params:
             opt = {}
             for name, st in blob["opt_states"].items():
-                opt[name] = {}
-                for slot, tree in st.items():
-                    flat = {k: np.asarray(v) for k, v in
-                            flatten(tree).items()}
-                    opt[name][slot] = {
-                        k: (v if parts.get(k) is None else
-                            v[slice(*parts[k].rows(v.shape[0]))])
-                        for k, v in flat.items()}
-            blob = dict(blob, opt_states=opt)
+                opt[name] = {slot: {k: cut(k, v, parts.get(k))
+                                    for k, v in flatten(tree).items()}
+                             for slot, tree in st.items()}
+            params = {k: cut(k, v, None)
+                      for k, v in flatten(blob["params"]).items()}
+            blob = dict(blob, opt_states=opt, params=params)
         super()._restore(blob, trees, loop_state)
 
     def _restore_sharded(self, path: str, trees, loop_state) -> int:

@@ -178,21 +178,39 @@ Tensors = Dict[str, torch.Tensor]
 _LOOP_SEED = 7  # the loop's root seed, as PRNGKey(7) in the JAX loop
 
 
+def _sq_norm(grads: Tensors) -> torch.Tensor:
+    """The f32 sum of squares of every gradient."""
+    return sum(torch.square(g.float()).sum() for g in grads.values())
+
+
 def _clip_grads(grads: Tensors, clip_const: Optional[Tuple[float, float]],
-                clip_norm: Optional[float]) -> Tensors:
+                clip_norm: Optional[float],
+                sq_norm: Callable[[Tensors], torch.Tensor] = _sq_norm
+                ) -> Tensors:
     """Clip to a constant range, then scale by ``min(1, c / max(norm,
     1e-12))`` with ``norm`` the global f32 L2 norm of every gradient
-    (optimizer.py:241-249, utils/flatten.py:61-66)."""
+    (optimizer.py:241-249, utils/flatten.py:61-66); ``sq_norm`` gives
+    its square (over the shards of sharded leaves under a mesh)."""
     if clip_const is not None:
         lo, hi = clip_const
         grads = {k: torch.clamp(g, lo, hi) for k, g in grads.items()}
     if clip_norm is not None:
-        norm = torch.sqrt(sum(torch.square(g.float()).sum()
-                              for g in grads.values()))
+        norm = torch.sqrt(sq_norm(grads))
         scale = torch.clamp_max(clip_norm / torch.clamp_min(norm, 1e-12),
                                 1.0)
         grads = {k: g * scale for k, g in grads.items()}
     return grads
+
+
+def _aux_keys(state: Dict[str, Any]) -> List[str]:
+    """The keys of the auxiliary losses a module surfaced through its
+    state (leaf ``aux_loss``: the MoE router's load balance)."""
+    return [k for k in state if k == "aux_loss" or k.endswith(".aux_loss")]
+
+
+def _aux_losses(state: Dict[str, Any]) -> List[torch.Tensor]:
+    """The auxiliary losses of a flat state dict (optimizer.py:252-263)."""
+    return [state[k] for k in _aux_keys(state)]
 
 
 def _owned(name: str, keys) -> List[str]:
@@ -222,7 +240,8 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
                     compute_dtype: Optional[torch.dtype] = None,
                     accum_steps: int = 1,
                     numerics: Optional[numerics_mod.NumericsSpec] = None,
-                    data_parallel=None) -> Callable:
+                    data_parallel=None,
+                    aux_loss_weight: float = 0.01) -> Callable:
     """The train step of bigdl_tpu/optim/optimizer.py:266-373.
 
     ``train_step(params, model_state, opt_states, step, rng, features,
@@ -245,7 +264,12 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
     the data-parallel step: the forward and backward run in its scope,
     the loss, the gradients and the new model state go through its
     ``reduce`` before the clipping, and each method's
-    update through its ``update`` (ZeRO-1).
+    update through its ``update`` (ZeRO-1); the clipping norm is its
+    ``sq_norm`` where it has one (each sharded leaf's shards counted
+    once).  Auxiliary
+    losses the model leaves in its state (``aux_loss`` buffers: the MoE
+    load balance) join the loss times ``aux_loss_weight``
+    (optimizer.py:311-314).
     """
     method_items = sorted(optim_methods.items())
     collector = (numerics_mod.Collector(numerics) if numerics is not None
@@ -263,7 +287,12 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
             out = functional_call(model, {**cast, **state}, (features,),
                                   kwargs)
             loss = criterion.forward(out, targets).float()
+            aux = _aux_keys(state)
+            for k in aux:
+                loss = loss + aux_loss_weight * state[k].float()
             grads = torch.autograd.grad(loss, list(leaves.values()))
+        for k in aux:  # the new state holds values, not their graph
+            state[k] = state[k].detach()
         return loss.detach(), dict(zip(leaves, grads))
 
     def train_step(params, model_state, opt_states, step, rng, features,
@@ -276,7 +305,8 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
         if data_parallel is not None:
             loss, grads, new_state = data_parallel.reduce(loss, grads,
                                                           new_state)
-        grads = _clip_grads(grads, grad_clip_const, grad_clip_norm)
+        grads = _clip_grads(grads, grad_clip_const, grad_clip_norm,
+                            getattr(data_parallel, "sq_norm", _sq_norm))
         update = (data_parallel.update if data_parallel is not None
                   else _update)
         new_params = dict(params)
@@ -883,7 +913,12 @@ class LocalOptimizer(Optimizer):
             # an exception already on its way is not masked by the
             # writer's
             self._finish_checkpoints(raise_errors=sys.exc_info()[0] is None)
-        params, model_state, _ = trees
+        return self._finish_model(model, trees[0], trees[1])
+
+    def _finish_model(self, model: torch.nn.Module, params: Tensors,
+                      model_state: Tensors) -> torch.nn.Module:
+        """Copy the trained trees into ``model``; they become
+        ``final_params``/``final_state``."""
         with torch.no_grad():
             for k, p in model.named_parameters():
                 p.copy_(params[k])

@@ -20,29 +20,62 @@ device:
   are gathered back into whole parameters; the methods' per-leaf norms
   (LARS's trust ratio) are taken from the whole leaves first.
 
+With ``param_shardings`` (tensor, pipeline and expert layouts,
+``parallel/tensor_parallel.py``) each rank's step runs on its shards of
+the parameters, the layers' own collectives in the forward and backward;
+the gradients are still averaged over the data axis only, since the
+conjugate collectives leave every rank of the other axes the whole
+gradient of its shard; a leaf a rank holds whole takes rank 0 of its
+``model``/``expert``/``pipe`` line's gradient, so the replicas stay one
+value.  With ``seq_dim`` the batch is split over the
+``seq`` axis too, each rank's loss is its part's mean, and the loss and
+gradients are averaged over ``data`` and ``seq``.  The clipping norm
+sums the squares of a sharded leaf over its axes and counts a
+replicated one once; ZeRO-1 splits each rank's shard over ``data``.
+
 Under NCCL the step is one CUDA graph, collectives included
-(``CompiledTrainStep``); under gloo, whose collectives are host calls, it
-runs eagerly (``capture=False``): a rule on the backend, taken before
-the first step.
+(``CompiledTrainStep``), unless the mesh splits the sequence or the
+pipeline, whose all-to-alls and point-to-point hops run eagerly; under
+gloo, whose collectives are host calls, it always runs eagerly
+(``capture=False``): a rule on the backend and the mesh, taken before
+the first step (:func:`captures`).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.func import functional_call
 
 from bigdl_tpu_torch.nn.criterion import Criterion
 from bigdl_tpu_torch.ops.partition import kernel_mesh_scope
 from bigdl_tpu_torch.optim.optim_method import OptimMethod
-from bigdl_tpu_torch.optim.optimizer import (CompiledTrainStep,
-                                             _eval_forward, make_train_step)
+from bigdl_tpu_torch.optim.optimizer import (CompiledTrainStep, _eval_forward,
+                                             _sq_norm, make_train_step)
 from bigdl_tpu_torch.parallel import comm
-from bigdl_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh, RowShard,
-                                           _slice20, plan_info,
-                                           shard_leading_dim)
+from bigdl_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
+                                           MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
+                                           Mesh, Replicated, RowShard,
+                                           plan_info, shard_leading_dim)
 
 __all__ = ["DataParallel", "build_dp_eval_step", "build_dp_train_step",
-           "warm_communicator"]
+           "captures", "flat_layouts", "warm_communicator"]
+
+
+def captures(mesh: Mesh) -> bool:
+    """The capture rule: one CUDA graph under NCCL, except where the mesh
+    splits the sequence or the pipeline (all-to-all and point-to-point
+    collectives run eagerly); eager under gloo."""
+    return (mesh.backend == "nccl" and mesh.shape.get(SEQ_AXIS, 1) == 1
+            and mesh.shape.get(PIPE_AXIS, 1) == 1)
+
+
+def flat_layouts(model: torch.nn.Module, shardings) -> Dict[str, Any]:
+    """Each parameter's layout keyed as ``named_parameters``, from a flat
+    or nested tree of layouts (``Replicated`` where it has none)."""
+    from bigdl_tpu_torch.parallel.tensor_parallel import _layout_of
+
+    return {k: _layout_of(shardings, k) for k, _ in model.named_parameters()}
 
 
 def warm_communicator(mesh: Mesh):
@@ -60,28 +93,77 @@ class DataParallel:
     and backward, the reduction of the loss and gradients, and each
     method's update, over row shards with ``zero1``."""
 
-    def __init__(self, mesh: Mesh, zero1: bool = True):
-        for axis, deg in plan_info(mesh).degrees:
-            if axis != DATA_AXIS and deg > 1:
-                raise _slice20(f"a data-parallel step over {axis}={deg}")
+    def __init__(self, mesh: Mesh, zero1: bool = True,
+                 layouts: Optional[Dict[str, Any]] = None,
+                 seq_dim: Optional[int] = None):
         self.mesh = mesh
         self.zero1 = zero1
-        self.n = mesh.shape[DATA_AXIS]
+        self.layouts = layouts or {}
+        self.seq_dim = seq_dim
+        self.axes = (DATA_AXIS,) + ((SEQ_AXIS,) if seq_dim is not None
+                                    else ())
+        self.n = 1
+        for axis in self.axes:
+            self.n *= mesh.shape[axis]
 
     def scope(self):
-        return kernel_mesh_scope(self.mesh)
+        return kernel_mesh_scope(self.mesh, self.seq_dim)
 
     def reduce(self, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
                state: Dict[str, torch.Tensor]):
-        """The loss and gradients averaged over the data axis: summed in
-        one collective per dtype, then divided by its degree.  The new
-        model state is returned as it is: the global batch's statistics
-        leave every rank's running statistics equal."""
+        """The loss and gradients averaged over the data axis (and the
+        seq axis with ``seq_dim``): summed in one collective per dtype and
+        axis, then divided by the ranks.  The new model state is returned
+        as it is: the global batch's statistics leave every rank's running
+        statistics equal."""
         keys = list(grads)
         summed = comm.reduce_leaves([loss] + [grads[k] for k in keys],
-                                    self.mesh)
-        return (summed[0] / self.n,
-                {k: g / self.n for k, g in zip(keys, summed[1:])}, state)
+                                    self.mesh, self.axes)
+        grads = {k: g / self.n for k, g in zip(keys, summed[1:])}
+        self._sync_replicas(grads)
+        return summed[0] / self.n, grads, state
+
+    def _sync_replicas(self, grads: Dict[str, torch.Tensor]):
+        """Every rank of a ``model``, ``expert`` or ``pipe`` line holds a
+        leaf it is not split over whole and computes its gradient
+        redundantly; rank 0 of the line's gradient is copied to the
+        others (one collective per axis and dtype), so the replicas stay
+        one value, as JAX's replicated arrays are, whatever an op's
+        nondeterministic order (an embedding's scatter-add) did."""
+        for axis in (MODEL_AXIS, EXPERT_AXIS, PIPE_AXIS):
+            if self.mesh.shape.get(axis, 1) == 1:
+                continue
+            keys = [k for k in grads if axis not in self.layout_of(k).axes]
+            if keys:
+                comm.broadcast_leaves([grads[k] for k in keys], self.mesh,
+                                      axis=axis)
+
+    def layout_of(self, key: str):
+        return self.layouts.get(key, Replicated())
+
+    def sq_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The squared global L2 norm: each leaf's squares summed over the
+        axes it is split over, a replicated leaf's counted once."""
+        groups: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        for k, g in grads.items():
+            groups.setdefault(self.layout_of(k).axes, {})[k] = g
+        total = None
+        for axes, part in groups.items():
+            sq = _sq_norm(part)
+            for axis in axes:
+                sq = comm.all_reduce_sum_(sq.clone(), self.mesh, axis)
+            total = sq if total is None else total + sq
+        return total
+
+    def local_params(self, model: torch.nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+        """This rank's shard of each of ``model``'s parameters (detached
+        copies)."""
+        from bigdl_tpu_torch.parallel.tensor_parallel import shard_variables
+
+        return shard_variables({k: p.detach() for k, p in
+                                model.named_parameters()}, self.mesh,
+                               self.layouts)
 
     def layout(self, tree: Dict[str, Any]) -> Dict[str, Any]:
         """Each leaf's ZeRO-1 layout (``RowShard`` or ``Replicated``);
@@ -143,27 +225,30 @@ def build_dp_train_step(model: torch.nn.Module, criterion: Criterion,
     ``(jitted_step, placement)``).
 
     The step is a :class:`CompiledTrainStep` over
-    ``make_train_step(..., data_parallel=DataParallel(mesh, zero1))``:
-    captured in one CUDA graph under NCCL, eager under gloo.  It is
-    called as the local step is, with this rank's rows of the batch
-    (``put_batch``) and this rank's optimizer state
-    (``placement["data_parallel"].local_state(state, params)`` cuts a
-    method's whole state to it).  ``placement`` also carries each
-    parameter's ZeRO-1 layout (``"opt_states"``) and the mesh's plan.
-    ``param_shardings`` and ``seq_dim`` are port slice 20."""
-    if param_shardings is not None or seq_dim is not None:
-        raise _slice20("param_shardings / seq_dim")
-    dp = DataParallel(mesh, zero1)
+    ``make_train_step(..., data_parallel=DataParallel(mesh, zero1,
+    layouts, seq_dim))``, captured or eager by :func:`captures`.  It is
+    called as the local step is, with this rank's part of the batch
+    (``put_batch(mesh, x, seq_dim)``), this rank's shard of each
+    parameter (``placement["data_parallel"].local_params(model)``) and
+    this rank's optimizer state (``placement["data_parallel"]
+    .local_state(state, params)`` cuts a method's state built over the
+    local parameters to its ZeRO-1 rows).  ``placement`` also carries
+    each parameter's layout (``"params"``), its ZeRO-1 layout
+    (``"opt_states"``) and the mesh's plan."""
+    layouts = flat_layouts(model, param_shardings)
+    dp = DataParallel(mesh, zero1, layouts, seq_dim)
     step = CompiledTrainStep(
         make_train_step(model, criterion, optim_methods, grad_clip_const,
                         grad_clip_norm, compute_dtype,
                         accum_steps=accum_steps, numerics=numerics,
                         data_parallel=dp),
-        capture=mesh.backend == "nccl")
+        capture=captures(mesh))
     step.program = "dp_train_step"
     warm_communicator(mesh)
-    params = dict(model.named_parameters())
+    params = {k: torch.empty(layouts[k].local_shape(p.shape))
+              for k, p in model.named_parameters()}
     placement = {
+        "params": layouts,
         "opt_states": dp.layout(params),
         "plan": plan_info(mesh),
         "data_parallel": dp,
@@ -175,16 +260,28 @@ def build_dp_eval_step(model: torch.nn.Module, mesh: Mesh,
                        param_shardings=None,
                        seq_dim: Optional[int] = None) -> Callable:
     """The sharded evaluation forward: ``fwd(params, state, x)`` runs the
-    compiled forward (``evaluate``'s) on this rank's rows ``x`` and
-    gathers every rank's output rows in rank order, so every rank holds
-    the global batch's outputs."""
-    if param_shardings is not None or seq_dim is not None:
-        raise _slice20("param_shardings / seq_dim")
+    forward on this rank's part ``x`` (the compiled forward,
+    ``evaluate``'s; with ``param_shardings`` or ``seq_dim`` an eager one
+    in the mesh's scope, over this rank's shards) and gathers every
+    rank's outputs (the sequence parts over ``seq``, then the rows in
+    rank order), so every rank holds the global batch's outputs."""
+    sharded = param_shardings is not None or seq_dim is not None
+
+    def gather(o):
+        if seq_dim is not None:
+            o = comm.all_gather(o, mesh, SEQ_AXIS, seq_dim)
+        return comm.all_gather_rows(o, mesh)
+
+    def forward(params, state, x):
+        if not sharded:
+            return _eval_forward(model, params, state, x)
+        with torch.no_grad(), kernel_mesh_scope(mesh, seq_dim):
+            return functional_call(model, {**params, **state}, (x,))
 
     def fwd(params, state, x):
-        out = _eval_forward(model, params, state, x)
+        out = forward(params, state, x)
         if isinstance(out, (list, tuple)):
-            return type(out)(comm.all_gather_rows(o, mesh) for o in out)
-        return comm.all_gather_rows(out, mesh)
+            return type(out)(gather(o) for o in out)
+        return gather(out)
 
     return fwd

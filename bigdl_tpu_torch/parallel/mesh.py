@@ -5,12 +5,10 @@ the axes ``data``, ``model``, ``seq``, ``expert`` and ``pipe`` (data
 outermost), and lets GSPMD place the collectives.  The port runs one
 process per device on ``torch.distributed`` and builds the same mesh over
 the world's ranks with ``torch.distributed.device_mesh.init_device_mesh``,
-in JAX's axis order; the collectives are explicit calls on the mesh's
-``data`` group (``parallel/comm.py``).
-
-Only the ``data`` axis may have a degree above 1 here: tensor, sequence,
-pipeline and expert parallelism are port slice 20, and a mesh that asks
-for them raises ``NotImplementedError``.
+ranks laid out as JAX lays out devices (``model`` innermost, then
+``expert``, ``seq``, ``pipe``, and ``data`` outermost); the collectives
+are explicit calls on each axis's group (``Mesh.group(axis)``,
+``parallel/comm.py``).
 
 The process group's backend is a rule on the topology, chosen before any
 collective and logged: NCCL when every rank of the host has a card of its
@@ -24,10 +22,17 @@ environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
 A batch's layout: with :func:`put_batch` each rank takes its rows
 ``[r * b / n, (r + 1) * b / n)`` of a global batch of ``b`` rows, where
 ``r`` is its index on the data axis and ``n`` the data degree (JAX's
-``P("data")`` sharding).  :func:`shard_leading_dim` gives the ZeRO-1
-layout of an optimizer state: a leaf is split on dim 0 over the data axis
-when dim 0 is positive and the degree divides it, else every rank holds
-it whole (``Replicated``).
+``P("data")`` sharding); with ``seq_dim`` it also takes its part
+``[s * T / m, (s + 1) * T / m)`` of that dim, ``s`` its index on the
+``seq`` axis of degree ``m`` (``P("data", ..., "seq")``).
+:func:`shard_leading_dim` gives the ZeRO-1 layout of an optimizer state:
+a leaf is split on dim 0 over an axis when dim 0 is positive and the
+degree divides it, else every rank holds it whole (``Replicated``).
+
+A parameter's layout under tensor, pipeline or expert parallelism is a
+:class:`Sharded`: JAX's ``PartitionSpec`` (one axis name or ``None`` per
+dim) with this rank's part of each split dim (``parallel/
+tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ logger = logging.getLogger("bigdl_tpu_torch.parallel")
 
 __all__ = ["AXES", "DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "PIPE_AXIS",
            "SEQ_AXIS", "Mesh", "MeshConfig", "PlanInfo", "Replicated",
-           "RowShard", "batch_sharding", "choose_backend",
+           "RowShard", "Sharded", "batch_sharding", "choose_backend",
            "data_parallel_mesh", "elastic_mesh", "init_process_group",
            "make_mesh", "plan_info", "put_batch", "replicated",
            "shard_leading_dim", "world_size"]
@@ -60,16 +65,13 @@ EXPERT_AXIS = "expert"
 PIPE_AXIS = "pipe"
 #: the mesh's axes in JAX's order, data outermost
 AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, PIPE_AXIS)
+#: the ranks' layout, outermost first (JAX's ``reshape(d, p, s, e, m)``:
+#: tensor-parallel collectives between neighbouring ranks)
+RANK_ORDER = (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS)
 
 #: collectives that wait longer than this raise (the process group's
 #: timeout unless ``init_process_group`` is given ``timeout_s``)
 DEFAULT_TIMEOUT_S = 600.0
-
-
-def _slice20(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: tensor, sequence, pipeline and expert parallelism are "
-        "port slice 20; the port's mesh has a data axis only")
 
 
 @dataclass
@@ -122,8 +124,9 @@ class Mesh:
 
     ``shape`` maps each axis to its degree, ``device_mesh`` is the torch
     ``DeviceMesh``, ``device`` this rank's device and ``backend`` the
-    process group's.  ``group()`` is the data axis's process group,
-    ``rank()`` this rank's index on it and ``size`` the ranks in all."""
+    process group's.  ``group(axis)`` is the process group of this
+    rank's line along ``axis`` (the data axis by default), ``rank(axis)``
+    this rank's index on it and ``size`` the ranks in all."""
 
     def __init__(self, device_mesh, shape: dict, device: torch.device,
                  backend: str):
@@ -249,18 +252,15 @@ def init_process_group(device: DeviceLike = None, *,
 def make_mesh(config: Optional[MeshConfig] = None,
               device: DeviceLike = None) -> Mesh:
     """The (data, model, seq, expert, pipe) mesh over every rank of the
-    world, the process group made first when there is none.  Any degree
-    above 1 but the data axis's raises ``NotImplementedError``."""
+    world, the process group made first when there is none; the ranks
+    laid out in :data:`RANK_ORDER`."""
     config = config or MeshConfig()
     backend, dev = init_process_group(device)
     shape = dict(zip(AXES, config.resolve(dist.get_world_size())))
-    busy = {a: d for a, d in shape.items() if a != DATA_AXIS and d > 1}
-    if busy:
-        raise _slice20(f"mesh degrees {busy}")
     from torch.distributed.device_mesh import init_device_mesh
 
-    dm = init_device_mesh(dev.type, tuple(shape[a] for a in AXES),
-                          mesh_dim_names=AXES)
+    dm = init_device_mesh(dev.type, tuple(shape[a] for a in RANK_ORDER),
+                          mesh_dim_names=RANK_ORDER)
     mesh = Mesh(dm, shape, dev, backend)
     logger.info("%r", mesh)
     return mesh
@@ -290,6 +290,21 @@ def elastic_mesh(config: Optional[MeshConfig] = None,
 class Replicated:
     """Layout of a leaf every rank holds whole (JAX's ``P()``)."""
 
+    spec = ()
+    axes = ()
+
+    def region(self, shape) -> list:
+        return [[0, n] for n in shape]
+
+    def local(self, whole):
+        return whole
+
+    def local_shape(self, shape) -> Tuple[int, ...]:
+        return tuple(shape)
+
+    def __str__(self):
+        return "P()"
+
 
 @dataclass(frozen=True)
 class RowShard:
@@ -305,15 +320,71 @@ class RowShard:
         return self.index * per, (self.index + 1) * per
 
 
+@dataclass(frozen=True)
+class Sharded:
+    """Layout of a leaf split over mesh axes (JAX's ``NamedSharding(mesh,
+    P(*spec))``): ``spec`` names one axis (or ``None``) per leading dim,
+    ``index``/``parts`` are this rank's part and the parts of each of
+    those dims (0 and 1 where ``spec`` holds ``None``)."""
+
+    spec: Tuple[Optional[str], ...]
+    index: Tuple[int, ...]
+    parts: Tuple[int, ...]
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The axes the leaf is split over."""
+        return tuple(a for a in self.spec if a is not None)
+
+    def region(self, shape) -> list:
+        """This rank's ``[lo, hi)`` of every dim of a global ``shape``."""
+        out = []
+        for d, n in enumerate(shape):
+            if d < len(self.spec) and self.spec[d] is not None:
+                per = n // self.parts[d]
+                out.append([self.index[d] * per,
+                            (self.index[d] + 1) * per])
+            else:
+                out.append([0, n])
+        return out
+
+    def local(self, whole):
+        """This rank's part of a whole leaf (a view)."""
+        return whole[tuple(slice(lo, hi)
+                           for lo, hi in self.region(whole.shape))]
+
+    def local_shape(self, shape) -> Tuple[int, ...]:
+        return tuple(hi - lo for lo, hi in self.region(shape))
+
+    def __str__(self):
+        return "P(" + ", ".join(repr(a) for a in self.spec) + ")"
+
+
+def sharded(mesh: Mesh, spec) -> "Sharded | Replicated":
+    """The layout of ``P(*spec)`` on this rank; ``Replicated`` when the
+    spec splits nothing."""
+    spec = tuple(spec)
+    if not any(a is not None for a in spec):
+        return Replicated()
+    return Sharded(spec,
+                   tuple(0 if a is None else mesh.rank(a) for a in spec),
+                   tuple(1 if a is None else mesh.shape[a] for a in spec))
+
+
 def replicated(mesh: Mesh) -> Replicated:
     return Replicated()
 
 
-def batch_sharding(mesh: Mesh, seq_dim: Optional[int] = None) -> RowShard:
-    """The batch's layout: rows over the data axis."""
-    if seq_dim is not None:
-        raise _slice20("a sequence-sharded batch")
-    return RowShard(mesh.rank(), mesh.shape[DATA_AXIS])
+def batch_sharding(mesh: Mesh, seq_dim: Optional[int] = None
+                   ) -> "RowShard | Sharded":
+    """The batch's layout: rows over the data axis, and with ``seq_dim``
+    that dim over the ``seq`` axis."""
+    if seq_dim is None:
+        return RowShard(mesh.rank(), mesh.shape[DATA_AXIS])
+    spec = [None] * (seq_dim + 1)
+    spec[0] = DATA_AXIS
+    spec[seq_dim] = SEQ_AXIS
+    return sharded(mesh, spec)
 
 
 def _shardable(shape, n: int) -> bool:
@@ -324,8 +395,6 @@ def shard_leading_dim(mesh: Mesh, tree: Any, axis: str = DATA_AXIS) -> Any:
     """Per-leaf layout: a :class:`RowShard` over ``axis`` where dim 0 is
     positive and divisible by the axis's degree, else
     :class:`Replicated`: the ZeRO-1 layout of an optimizer state."""
-    if axis != DATA_AXIS:
-        raise _slice20(f"sharding over {axis!r}")
     n = mesh.shape[axis]
     part = RowShard(mesh.rank(axis), n)
 
@@ -340,6 +409,20 @@ def shard_leading_dim(mesh: Mesh, tree: Any, axis: str = DATA_AXIS) -> Any:
     return spec(tree)
 
 
+def seq_part(mesh: Mesh, t, seq_dim: int):
+    """This rank's part of ``t``'s dim ``seq_dim`` over the ``seq`` axis
+    (the whole tensor at degree 1)."""
+    n = mesh.shape[SEQ_AXIS]
+    if n == 1:
+        return t
+    size = t.shape[seq_dim]
+    if size % n:
+        raise ValueError(f"dim {seq_dim} of {size} does not divide over "
+                         f"{n} sequence-parallel ranks")
+    per = size // n
+    return t.narrow(seq_dim, mesh.rank(SEQ_AXIS) * per, per)
+
+
 def put_batch(mesh: Mesh, array, seq_dim: Optional[int] = None,
               local: bool = False, accum_steps: int = 1):
     """This rank's rows of a global batch on its device, as a tensor.
@@ -349,9 +432,8 @@ def put_batch(mesh: Mesh, array, seq_dim: Optional[int] = None,
     the step's local micro-batch i is the rank's part of the global one.
     With ``local=True`` the array is already this rank's slice (a
     dataset that shards by rank, ``DistributedDataSet``) and only moves
-    to the device."""
-    if seq_dim is not None:
-        raise _slice20("a sequence-sharded batch")
+    to the device.  With ``seq_dim`` the rank keeps its part of that dim
+    over the ``seq`` axis (:func:`batch_sharding`)."""
     t = array if torch.is_tensor(array) else torch.from_numpy(
         np.ascontiguousarray(array))
     if not local:
@@ -366,4 +448,6 @@ def put_batch(mesh: Mesh, array, seq_dim: Optional[int] = None,
                  for i in range(accum_steps)]
         rows = [m[slice(*part.rows(m.shape[0]))] for m in micro]
         t = rows[0] if accum_steps == 1 else torch.cat(rows)
+    if seq_dim is not None:
+        t = seq_part(mesh, t, seq_dim)
     return t.to(mesh.device, non_blocking=mesh.device.type == "cuda")

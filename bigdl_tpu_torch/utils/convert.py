@@ -90,7 +90,9 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> dict:
             plan.append((t, arr))
     with torch.no_grad():
         for t, arr in plan:
-            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            # ascontiguousarray makes a 0-d leaf (an aux_loss) 1-d
+            t.copy_(torch.from_numpy(np.ascontiguousarray(arr).reshape(
+                arr.shape)))
     return export_variables(model)
 
 

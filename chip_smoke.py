@@ -286,6 +286,19 @@ Phases:
    commit, the survivor re-formed at world 1 from the last COMMIT):
    losses and final parameters within rtol 1e-4 / atol 1e-5 of the
    uninterrupted world-1 run.
+16. parallel: the LM at full width (batch 8 x 512, dropout 0) in two
+   gloo ranks sharing the card: (a) tp 2, (b) sp 2 ring and Ulysses,
+   (c) ``--moeExperts 4`` at ep 2, (d) pp 2 with 4 microbatches, each one
+   step in f32 and in bf16 with every gathered leaf's update held against
+   the one-rank step on the card, kernel 6's launches per rank counted on
+   the host and in the profiler at its shape ((8, 4, 512, 32), none,
+   (8, 4, 512, 32), (8, 8, 512, 32), (2, 8, 512, 32)), the f32 step also
+   without the clip, and a control (tp 2's model-sharded gradients
+   doubled) that must land outside the f32 limit; (e) a tp-2 step with
+   dropout 0.1 against the one-rank step with the same seed; (f) the
+   ``--moeExperts 4`` LM's step in one CUDA graph against the same steps
+   eager, then ``transformer_train --moeExperts 4`` for one epoch, its
+   world-1 NCCL step captured.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -601,6 +614,13 @@ FLASH_CASES = (  # (B, H, T, S, D), causal, dtype, as the main path gives it
     ((8, 1, 512, 512, 256), True, "f32", "mha"),
     ((8, 1, 512, 512, 256), False, "f32", "mha"),
     ((2, 4, 384, 384, 200), True, "bf16", ""),  # D padded to 256
+    # phase 16's paths: a rank's heads at tp 2 (as MultiHeadAttention
+    # gives them) and after Ulysses' all-to-all at sp 2 (contiguous), and
+    # one microbatch of pp 2 x M 4
+    ((8, 4, 512, 512, 32), True, "bf16", "mha"),
+    ((8, 4, 512, 512, 32), True, "bf16", ""),
+    ((2, 8, 512, 512, 32), True, "bf16", "mha"),
+    ((8, 4, 512, 512, 32), True, "f32", "mha"),
 )
 LM = dict(vocab_size=10001, hidden_size=256, num_heads=8, filter_size=1024,
           num_layers=4)  # bigdl_tpu/models/transformer_train.py defaults
@@ -696,8 +716,9 @@ def flash_phase(gen, timing: bool):
 def lm_variables(model, seed, embed_scale=1.0):
     """Random LM weights made with numpy from ``seed``, shaped as the
     model's JAX tree: the embedding N(0, d^-1/2) as the LM initialises
-    it (times ``embed_scale``), (in, out) weights N(0, 1/in), LayerNorm
-    weights 1 + N(0, 0.1^2), biases N(0, 0.1^2)."""
+    it (times ``embed_scale``), (in, out) weights N(0, 1/in) (an MoE
+    bank's (E, in, out) too), LayerNorm weights 1 + N(0, 0.1^2), biases
+    N(0, 0.1^2); the model's state (an MoE's ``aux_loss``) as it is."""
     import numpy as np
 
     from bigdl_tpu_torch.utils import export_variables
@@ -715,6 +736,8 @@ def lm_variables(model, seed, embed_scale=1.0):
                 a = embed_scale * rs.randn(*shape) * shape[1] ** -0.5
             elif len(shape) == 2:
                 a = rs.randn(*shape) / math.sqrt(shape[0])
+            elif len(shape) == 3:  # an MoE bank: (E, in, out)
+                a = rs.randn(*shape) / math.sqrt(shape[1])
             elif k == "weight":
                 a = 1.0 + 0.1 * rs.randn(*shape)
             else:
@@ -722,7 +745,8 @@ def lm_variables(model, seed, embed_scale=1.0):
             out[k] = a.astype(np.float32)
         return out
 
-    return {"params": fill(export_variables(model)["params"]), "state": {}}
+    v = export_variables(model)
+    return {"params": fill(v["params"]), "state": v["state"]}
 
 
 def lm_phase(args):
@@ -6187,6 +6211,514 @@ def dp_phase(args, card, out, dev="cuda"):
     return res
 
 
+# phase 16: tensor, sequence, expert and pipeline parallelism of the LM
+PAR_LR = 1e3             # SGD, no momentum: the update is -lr x the
+PAR_CLIP = 1.0           # clipped gradient (the driver's clip); lr 1e3
+#                          moves each weight by ~0.4, far above its f32
+#                          spacing, so the update reads the gradient (at
+#                          lr 0.1 a LayerNorm gamma near 1 moves ~1e-5 and
+#                          its rounding to f32 alone was 7.5e-4 of that)
+PAR_M = 4                # pipeline microbatches at pp 2
+PAR_DROPOUT = 0.1        # (e)
+PAR_SEED = 1234          # (e)'s step seed
+# one step of each plan against the one-rank step on the card from the
+# same weights and batch: the loss's relative error, and each leaf's
+# update (new - start) as the relative L2 of its difference.  f32 with
+# the clip (the norm over shards), f32 without it (the raw gradient: a
+# gradient scaled on every leaf reads as its scale) and bf16.  A correct
+# split of this LM's f32 step moves a leaf by up to ~1e-3 from one
+# rank's: an FFN pre-activation within f32 rounding of zero lands on the
+# other side of its ReLU when the rows or columns of x @ w1 are split,
+# and that unit's gradient is then 0 or not (H100: one f32 step on rows
+# 4-7 alone sits 8.7e-4 from the same step in f64, the jump entering at
+# layer 2's FFN, while all 8 rows sit 1.7e-6 from f64; the split plans
+# read 5.9e-4 at layer 0's wk alike, four cards 6e-4 to 1e-3).  The
+# control, the model-sharded leaves' gradients doubled (PAR_CONTROL's
+# plan, unclipped), must read above the limit, or the phase fails
+PAR_CONTROL = "tp2"
+PAR_F32_TOL = {"loss": LM_F32_TOL["loss"], "update": 1e-2}
+PAR_BF16_TOL = {"loss": LM_BF16_TOL["loss"], "update": LM_BF16_TOL["grad"]}
+PAR_DIR = ROOT / "build" / "parallel_phase"
+# (f): the MoE LM's captured steps against the same steps eager (SGD at
+# lr 1, the clip): a replay runs the eager step's kernels on the same
+# inputs, so its trees equal the eager ones up to the order of atomic
+# sums; a routing or capacity baked into the graph moves a leaf by O(1)
+PAR_CAPTURE_LR = 1.0
+PAR_CAPTURE_TOL = 1e-5
+PAR_CAPTURE_STEPS = 3    # calls: one capture (after the warm-up calls
+#                          on the first), then a replay per call
+# name, mesh, and per rank kernel 6's launches in one step and their shape
+# (B, H, T, D): the forward only (its backward is plain PyTorch), the
+# pipeline's M + S - 1 ticks of 2 layers twice (remat recomputes them)
+PAR_PLANS = (
+    ("tp2", dict(mesh={"model": 2}), 4, (8, 4, 512, 32)),
+    ("sp2_ring", dict(mesh={"seq": 2}, mode="ring"), 0, None),
+    ("sp2_ulysses", dict(mesh={"seq": 2}, mode="ulysses"), 4,
+     (8, 4, 512, 32)),
+    ("ep2_moe4", dict(mesh={"expert": 2}, moe=4), 4, (8, 8, 512, 32)),
+    ("pp2_m4", dict(mesh={"pipe": 2}, pp=PAR_M), 2 * 2 * (PAR_M + 1),
+     (2, 8, 512, 32)),
+    ("tp2_dropout", dict(mesh={"model": 2}, dropout=PAR_DROPOUT), 4,
+     (8, 4, 512, 32)),
+)
+
+
+def pipelined_tree(variables, stages, layers):
+    """A Transformer's JAX tree as ``pipelined_transformer_lm``'s: layer
+    ``s * per + i`` is block ``i`` of stage ``s``."""
+    import numpy as np
+
+    p = variables["params"]
+    per = layers // stages
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*[x[k] for x in xs]) for k in xs[0]}
+        return np.stack(xs)
+
+    return {"params": {
+        "head": {"embed": p["embed"], "scale": {}, "pos": {}, "drop": {}},
+        "trunk": {f"block{i}": stack(*[p[f"layer{s * per + i}"]
+                                       for s in range(stages)])
+                  for i in range(per)},
+        "tail": p["ln_f"]}, "state": {}}
+
+
+def whole_keys(key, stages, layers):
+    """A pipelined leaf's Transformer leaves, with the stage index."""
+    per = layers // stages
+    if key.startswith("head."):
+        return [(key[5:], None)]
+    if key.startswith("tail."):
+        return [("ln_f." + key[5:], None)]
+    block, leaf = key[len("trunk.block"):].split(".", 1)
+    return [(f"layer{s * per + int(block)}.{leaf}", s)
+            for s in range(stages)]
+
+
+def leaf_errs(got, one, base, stages, layers):
+    """Each whole leaf's update error against the one-rank run's: the
+    relative L2 of ``got - one`` over the one-rank update ``one - base``
+    (numpy trees keyed as the Transformer's; with ``stages`` > 1 ``got``
+    is ``pipelined_transformer_lm``'s, its stacked leaves split by
+    stage)."""
+    import numpy as np
+
+    errs = {}
+    for k, v in got.items():
+        for wk, s in (whole_keys(k, stages, layers) if stages > 1
+                      else [(k, None)]):
+            new = np.asarray(v if s is None else v[s], np.float64)
+            ref = np.asarray(one[wk], np.float64)
+            errs[wk] = float(np.linalg.norm(new - ref) / max(
+                np.linalg.norm(ref - base[wk]), 1e-30))
+    return errs
+
+
+def par_dtypes(plan):
+    """The held steps of a plan: f32 with the clip, f32 without it (the
+    update reads the raw gradient, so a gradient scaled on every leaf
+    shows) and bf16; (e) f32 alone."""
+    return ("f32",) if plan.get("dropout") else ("f32", "f32raw", "bf16")
+
+
+def _doubled_model_grads(dp):
+    """``dp.reduce`` with the gradients of the leaves split over
+    ``model`` doubled: the control of the held comparison."""
+    from bigdl_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    reduce = dp.reduce
+
+    def doubled(loss, grads, state):
+        loss, grads, state = reduce(loss, grads, state)
+        return loss, {k: g * 2.0 if MODEL_AXIS in dp.layout_of(k).axes
+                      else g for k, g in grads.items()}, state
+
+    return doubled
+
+
+def _moe_capture_rank(_, tmp, dev):
+    """Phase 16 (f) in a process of its own on the card: the
+    ``--moeExperts 4`` LM's f32 step compiled into one CUDA graph
+    (``CompiledTrainStep``: PAR_CAPTURE_STEPS calls, the first warming
+    up and capturing, each replaying) against the same steps eager, then ``transformer_train
+    --moeExperts 4`` for one epoch, whose world-1 NCCL step
+    ``data_parallel.captures``.  Results in ``tmp``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import transformer_train
+    from bigdl_tpu_torch.optim import SGD, CompiledTrainStep, make_train_step
+    from bigdl_tpu_torch.utils import graphs, load_jax_variables
+    from bigdl_tpu_torch.utils.serialization import load_pytree, save_pytree
+
+    inputs = load_pytree(f"{tmp}/inputs")
+    lm = {k: int(v) for k, v in inputs["lm"].items()}
+    x = torch.from_numpy(inputs["x"]).to(dev)
+    y = torch.from_numpy(inputs["y"]).to(dev)
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(logits=True))
+    m = nn.Transformer(dropout=0.0, moe_experts=4, **lm).to(dev)
+    load_jax_variables(m, inputs["moe"])
+
+    def trees():
+        return ({k: p.detach().clone() for k, p in m.named_parameters()},
+                {k: b.detach().clone() for k, b in m.named_buffers()},
+                {"__all__": {}})
+
+    def step_fn():
+        return make_train_step(m, crit, {"__all__": SGD(PAR_CAPTURE_LR)},
+                               grad_clip_norm=PAR_CLIP)
+
+    eager, compiled = step_fn(), CompiledTrainStep(step_fn())
+    te, tc = list(trees()), list(trees())
+    graphs.reset_counts()
+    losses = []
+    for i in range(PAR_CAPTURE_STEPS):
+        *te, le = eager(*te, i + 1, None, x, y, [PAR_CAPTURE_LR])
+        *tc, lc = compiled(*tc, i + 1, None, x, y, [PAR_CAPTURE_LR])
+        losses.append((float(le), float(lc)))
+    counts = dict(graphs.COUNTS)
+    res = {"losses": losses, "captures": counts["captures"],
+           "replays": counts["replays"],
+           "eager": {k: v.float().cpu().numpy() for k, v in te[0].items()},
+           "compiled": {k: v.float().cpu().numpy()
+                        for k, v in tc[0].items()},
+           "aux": [float(te[1][k]) - float(tc[1][k]) for k in te[1]
+                   if k.endswith("aux_loss")]}
+    del m, eager, compiled, te, tc
+    torch.cuda.empty_cache()
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    out = transformer_train.main(["--moeExperts", "4", "--maxEpoch", "1"])
+    torch.cuda.synchronize()
+    res["driver"] = dict(out, seconds=time.perf_counter() - t0,
+                         backend=dist.get_backend(),
+                         captures=graphs.COUNTS["captures"],
+                         replays=graphs.COUNTS["replays"])
+    save_pytree(f"{tmp}/moe_capture", res)
+    dist.destroy_process_group()
+
+
+def _parallel_rank(rank, world, tmp, dev):
+    """Phase 16 in one of two ranks sharing the card over gloo: each
+    plan's step in f32 (kernel 6 counted on the host and in the profiler,
+    its shapes recorded) and in bf16, the parameters gathered whole;
+    rank 0 then runs the one-rank steps.  Results in ``tmp``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import attention as attn_ops
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.optim import SGD, make_train_step
+    from bigdl_tpu_torch.parallel.data_parallel import build_dp_train_step
+    from bigdl_tpu_torch.parallel.expert import transformer_expert_shardings
+    from bigdl_tpu_torch.parallel.mesh import (MeshConfig, init_process_group,
+                                               make_mesh, put_batch)
+    from bigdl_tpu_torch.parallel.pipeline import pipelined_transformer_lm
+    from bigdl_tpu_torch.parallel.tensor_parallel import (
+        TRANSFORMER_RULES, gather_variables, make_param_shardings)
+    from bigdl_tpu_torch.utils import load_jax_variables
+    from bigdl_tpu_torch.utils.serialization import load_pytree, save_pytree
+
+    backend, _ = init_process_group(dev, init_method=f"file://{tmp}/pg",
+                                    rank=rank, world_size=world,
+                                    local_world_size=world, timeout_s=600)
+    inputs = load_pytree(f"{tmp}/inputs")
+    x, y = inputs["x"], inputs["y"]
+    lm = {k: int(v) for k, v in inputs["lm"].items()}  # the parent's LM
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(logits=True))
+    res = {"backend": backend}
+
+    def build(plan, mesh):
+        drop = plan.get("dropout", 0.0)
+        if plan.get("pp"):
+            m = pipelined_transformer_lm(
+                mesh=mesh, num_microbatches=plan["pp"], data_axis="data",
+                dropout=drop, **lm).to(dev)
+            load_jax_variables(m, pipelined_tree(
+                inputs["dense"], mesh.shape["pipe"], lm["num_layers"]))
+            return m, m.param_shardings(mesh), None
+        kw = {}
+        if plan.get("mode"):
+            kw = dict(seq_mesh=mesh, seq_mode=plan["mode"])
+        if plan.get("moe"):
+            kw = dict(moe_experts=plan["moe"], moe_mesh=mesh)
+        m = nn.Transformer(dropout=drop, **lm, **kw).to(dev)
+        load_jax_variables(m, inputs["moe" if plan.get("moe") else "dense"])
+        params = dict(m.named_parameters())
+        lay = (transformer_expert_shardings(mesh, params) if plan.get("moe")
+               else make_param_shardings(mesh, params, TRANSFORMER_RULES))
+        return m, lay, 1 if plan.get("mode") else None
+
+    def one_step(step, trees, rng, xs, ys, counted):
+        """One step; with ``counted`` kernel 6's host launches, device
+        launches (profiler) and the shapes its wrapper got."""
+        shapes = []
+        orig = attn_ops.flash_attention
+
+        def recorded(q, *a, **kw):
+            shapes.append(list(q.shape))
+            return orig(q, *a, **kw)
+
+        attn_ops.flash_attention = recorded
+        fa.reset_launches()
+        out = {}
+        try:
+            t0 = time.perf_counter()
+            if counted:
+                got, _ = replay_kernels(lambda: out.update(loss=step(
+                    *trees, 1, rng, xs, ys, [PAR_LR])[3]))
+            else:
+                out["loss"] = step(*trees, 1, rng, xs, ys, [PAR_LR])[3]
+                got = {}
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            out["seconds"] = time.perf_counter() - t0
+        finally:
+            attn_ops.flash_attention = orig
+        out.update(host=fa.LAUNCHES["flash_attention"],
+                   device=got.get("flash_attention", 0), shapes=shapes,
+                   loss=float(out["loss"]))
+        return out
+
+    for name, plan, _, _ in PAR_PLANS:
+        mesh = make_mesh(MeshConfig(**plan["mesh"]), dev)
+        model, lay, seq_dim = build(plan, mesh)
+        xs, ys = put_batch(mesh, x, seq_dim), put_batch(mesh, y, seq_dim)
+        rng = PAR_SEED if plan.get("dropout") else None
+        runs = list(par_dtypes(plan))
+        if name == PAR_CONTROL:
+            runs.append("control")
+        for dt in runs:
+            step, pl = build_dp_train_step(
+                model, crit, {"__all__": SGD(PAR_LR)}, mesh,
+                zero1=not plan.get("pp"),
+                grad_clip_norm=PAR_CLIP if dt in ("f32", "bf16") else None,
+                compute_dtype=torch.bfloat16 if dt == "bf16" else None,
+                param_shardings=lay, seq_dim=seq_dim)
+            dp = pl["data_parallel"]
+            if dt == "control":  # a conjugate pair that sums twice
+                dp.reduce = _doubled_model_grads(dp)
+            params = dp.local_params(model)
+            state = {k: b.detach().clone() for k, b in model.named_buffers()}
+            run = one_step(step, (params, state, {"__all__": {}}), rng, xs,
+                           ys, counted=dt == "f32" and dev != "cpu")
+            whole = gather_variables(params, mesh, pl["params"])
+            res[f"{name}.{dt}"] = dict(
+                run, params={k: v.float().cpu().numpy()
+                             for k, v in whole.items()},
+                capture=step.capture)
+        del model
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    if rank == 0:  # the one-rank steps, the other rank waiting
+        for name, plan, _, _ in PAR_PLANS:
+            m = nn.Transformer(dropout=plan.get("dropout", 0.0),
+                               moe_experts=plan.get("moe", 0), **lm).to(dev)
+            load_jax_variables(m, inputs["moe" if plan.get("moe")
+                                         else "dense"])
+            rng = PAR_SEED if plan.get("dropout") else None
+            xg = torch.from_numpy(x).to(dev)
+            yg = torch.from_numpy(y).to(dev)
+            for dt in par_dtypes(plan):
+                step = make_train_step(
+                    m, crit, {"__all__": SGD(PAR_LR)},
+                    grad_clip_norm=None if dt == "f32raw" else PAR_CLIP,
+                    compute_dtype=torch.bfloat16 if dt == "bf16" else None)
+                p1 = {k: p.detach().clone() for k, p in m.named_parameters()}
+                s1 = {k: b.detach().clone() for k, b in m.named_buffers()}
+                p1, _, _, loss = step(p1, s1, {"__all__": {}}, 1, rng, xg,
+                                      yg, [PAR_LR])
+                res[f"{name}.{dt}.one"] = {
+                    "loss": float(loss),
+                    "params": {k: v.float().cpu().numpy()
+                               for k, v in p1.items()}}
+            del m
+            if dev != "cpu":
+                torch.cuda.empty_cache()
+    save_pytree(f"{tmp}/rank{rank}", res)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_phase(args, card, out, dev="cuda"):
+    """Phase 16, tensor, sequence, expert and pipeline parallelism of the
+    LM at full width (LM, batch LM_BATCH, T LM_SEQ, dropout 0, weights
+    from ``lm_variables``) in two gloo ranks sharing the card: (a) tp 2;
+    (b) sp 2, ring and Ulysses; (c) ``--moeExperts 4`` at ep 2; (d) pp 2
+    with M PAR_M; each one step in f32 and in bf16 (SGD, the clip at
+    PAR_CLIP), its loss and every gathered leaf's update held against
+    the one-rank port step on the card (PAR_F32_TOL, PAR_BF16_TOL), and
+    kernel 6's launches per rank on the host and in the profiler, at the
+    plan's shape; the f32 step again without the clip (the raw
+    gradient), and PAR_CONTROL's plan with its model-sharded gradients
+    doubled, which must read above the f32 limit; (e) a tp-2 step with
+    dropout PAR_DROPOUT against the one-rank step with the same seed
+    (PAR_F32_TOL); (f) on the card, ``_moe_capture_rank``.  Step times
+    of ranks that share one card are printed as such, not as
+    measurements.
+    ``dev="cpu"`` serves a rehearsal (no launches).  Returns the
+    results."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils import flatten
+    from bigdl_tpu_torch.utils.serialization import load_pytree, save_pytree
+
+    cuda = dev != "cpu"
+    t0 = time.perf_counter()
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True)
+    dense = lm_variables(nn.Transformer(dropout=0.0, **LM), args.seed + 20)
+    moe = lm_variables(nn.Transformer(dropout=0.0, moe_experts=4, **LM),
+                       args.seed + 21)
+    rs = np.random.RandomState(args.seed + 22)
+    v = LM["vocab_size"]
+    save_pytree(str(PAR_DIR / "inputs"), {
+        "dense": dense, "moe": moe, "lm": dict(LM),
+        "x": rs.randint(0, v, (LM_BATCH, LM_SEQ)).astype(np.int64),
+        "y": rs.randint(0, v, (LM_BATCH, LM_SEQ)).astype(np.int64)})
+    ctx = mp.start_processes(_parallel_rank, args=(2, str(PAR_DIR), dev),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                fail("parallel: the gloo ranks still ran after 600 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    r0, r1 = (load_pytree(str(PAR_DIR / f"rank{r}")) for r in (0, 1))
+    if str(r0["backend"]) != "gloo":
+        fail(f"parallel: two ranks on one card chose {r0['backend']}")
+    start = {"dense": {k: np.asarray(a) for k, a in
+                       flatten(dense["params"]).items()},
+             "moe": {k: np.asarray(a) for k, a in
+                     flatten(moe["params"]).items()}}
+    res = {"card": card, "plans": {}}
+    faults = []
+    for name, plan, want_n, want_shape in PAR_PLANS:
+        base = start["moe" if plan.get("moe") else "dense"]
+        stages = plan["mesh"].get("pipe", 1)
+        row = {}
+        for dt in par_dtypes(plan):
+            got, one = r0[f"{name}.{dt}"], r0[f"{name}.{dt}.one"]
+            tol = PAR_BF16_TOL if dt == "bf16" else PAR_F32_TOL
+            for k in got["params"]:
+                if np.any(np.asarray(got["params"][k])
+                          != np.asarray(r1[f"{name}.{dt}"]["params"][k])):
+                    faults.append(f"{name} {dt}: the ranks' gathered {k} "
+                                  "differ")
+            errs = leaf_errs(got["params"], one["params"], base, stages,
+                             LM["num_layers"])
+            worst = max(errs, key=errs.get)
+            loss_err = abs(float(got["loss"]) - float(one["loss"])) / abs(
+                float(one["loss"]))
+            row[dt] = {"loss": float(got["loss"]),
+                       "one_rank_loss": float(one["loss"]),
+                       "loss_err": loss_err, "update_err": errs[worst],
+                       "worst_leaf": worst,
+                       "seconds_shared_card": float(got["seconds"]),
+                       "captured": bool(got["capture"])}
+            if not (loss_err <= tol["loss"]
+                    and errs[worst] <= tol["update"]):
+                faults.append(
+                    f"{name} {dt}: against the one-rank step, loss error "
+                    f"{loss_err:.3g} (limit {tol['loss']}), update error "
+                    f"{errs[worst]:.3g} at {worst} (limit "
+                    f"{tol['update']})")
+            if cuda and dt == "f32":
+                host, device = int(got["host"]), int(got["device"])
+                shapes = [tuple(int(d) for d in sh) for sh in got["shapes"]]
+                row.update(flash_launches_per_rank=host,
+                           flash_device_launches_per_rank=device,
+                           flash_shapes=sorted(set(shapes)))
+                if host != want_n or device != want_n or (
+                        want_shape and set(shapes) != {want_shape}):
+                    faults.append(
+                        f"{name}: kernel 6 launched {host} times on the "
+                        f"host and {device} on the card at "
+                        f"{sorted(set(shapes))}, expected {want_n} at "
+                        f"{want_shape}")
+        if name == PAR_CONTROL:  # must fail the comparison it controls
+            errs = leaf_errs(r0[f"{name}.control"]["params"],
+                             r0[f"{name}.f32raw.one"]["params"], base,
+                             stages, LM["num_layers"])
+            worst = max(errs, key=errs.get)
+            row["control"] = {"update_err": errs[worst], "worst_leaf": worst}
+            print(f"  parallel {name} control, the model-sharded leaves' "
+                  f"gradients doubled: update err {errs[worst]:.3g} at "
+                  f"{worst} (must exceed {PAR_F32_TOL['update']})",
+                  flush=True)
+            if not errs[worst] > PAR_F32_TOL["update"]:
+                faults.append(f"{name}: a doubled gradient reads "
+                              f"{errs[worst]:.3g}, inside the f32 limit")
+        res["plans"][name] = row
+        print(f"  parallel {name}: " + "; ".join(
+            f"{dt} loss {r['loss']:.6f} (one rank {r['one_rank_loss']:.6f}), "
+            f"update err {r['update_err']:.3g} at {r['worst_leaf']}"
+            for dt, r in row.items()
+            if dt in par_dtypes(plan)) + (
+            f"; kernel 6 {row.get('flash_launches_per_rank')} a rank at "
+            f"{row.get('flash_shapes')}" if cuda else ""), flush=True)
+        print(f"    (two ranks share one card: "
+              f"{row['f32']['seconds_shared_card']:.3f} s for the counted "
+              "f32 step, not a measurement)", flush=True)
+    if cuda:  # (f) the MoE LM captured on one card
+        mp.start_processes(_moe_capture_rank, args=(str(PAR_DIR), dev),
+                           nprocs=1, join=True, start_method="spawn")
+        mc = load_pytree(str(PAR_DIR / "moe_capture"))
+        errs = leaf_errs(mc["compiled"], mc["eager"], start["moe"], 1,
+                         LM["num_layers"])
+        worst = max(errs, key=errs.get)
+        loss_err = max(abs(a - b) / abs(a) for a, b in
+                       (tuple(map(float, p)) for p in mc["losses"]))
+        drv = mc["driver"]
+        res["moe_capture"] = {
+            "captures": int(mc["captures"]), "replays": int(mc["replays"]),
+            "update_err": errs[worst], "worst_leaf": worst,
+            "loss_err": loss_err,
+            "aux_diff": max(abs(float(a)) for a in mc["aux"]),
+            "driver": {k: (float(v) if k != "backend" else str(v))
+                       for k, v in drv.items()}}
+        mcr = res["moe_capture"]
+        print(f"  parallel moe4 captured: {mcr['captures']} capture, "
+              f"{mcr['replays']} replays against the eager steps: update "
+              f"err {errs[worst]:.3g} at {worst}, loss err {loss_err:.3g}, "
+              f"aux_loss diff {mcr['aux_diff']:.3g}; transformer_train "
+              f"--moeExperts 4 one epoch on {drv['backend']}: "
+              f"{int(drv['captures'])} capture, {int(drv['replays'])} "
+              f"replays, val loss {float(drv['val_loss']):.4f} in "
+              f"{float(drv['seconds']):.1f} s", flush=True)
+        if not (mcr["captures"] == 1
+                and mcr["replays"] == PAR_CAPTURE_STEPS
+                and errs[worst] <= PAR_CAPTURE_TOL
+                and loss_err <= PAR_CAPTURE_TOL
+                and mcr["aux_diff"] <= PAR_CAPTURE_TOL):
+            faults.append(f"moe4 captured: {mcr}")
+        if not (str(drv["backend"]) == "nccl" and int(drv["captures"]) >= 1
+                and int(drv["replays"]) >= 1
+                and math.isfinite(float(drv["val_loss"]))):
+            faults.append(f"transformer_train --moeExperts 4: {drv}")
+    if faults:
+        fail("parallel: " + "; ".join(faults))
+    res["seconds"] = time.perf_counter() - t0
+    print(f"parallel phase passed in {res['seconds']:.1f} s ({card})",
+          flush=True)
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    return res
+
+
 def kernel_tools(gen, dev):
     """The kernel checks' helpers over the generator ``gen`` on
     ``dev``: random operands of kernels 1-5 (``operands``), their
@@ -7006,6 +7538,11 @@ def main():
     # --------------------------------------------------- 15. data parallel
     device_memory("before phase 15 (dp)")
     dp = dp_phase(args, card, out)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 16. tp, sp, ep and pp of the LM
+    device_memory("before phase 16 (parallel)")
+    par = parallel_phase(args, card, out)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -7024,7 +7561,7 @@ def main():
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
          "recipe": recipe, "data": data, "basic": basic,
          "telemetry": tel, "observability": obs, "dp": dp,
-         "width12": width12},
+         "parallel": par, "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -7105,7 +7642,15 @@ def main():
             "transformer_train_main": lm["main"]["launches"],
             "generate_reforward_per_step": decode["greedy"]["flash_per_step"],
             "generate_reforward": decode["launches_6"],
-            "transformer_train_num_heads_1": lm["num_heads_1"]["launches"]},
+            "transformer_train_num_heads_1": lm["num_heads_1"]["launches"],
+            **{f"{name}_step_per_rank": par["plans"][name][
+                "flash_launches_per_rank"] for name, *_ in PAR_PLANS}},
+        "parallel_shapes": {name: par["plans"][name]["flash_shapes"]
+                            for name, *_ in PAR_PLANS},
+        "parallel_shape_rows": [{k: r[k] for k in (
+            "shape", "layout", "dtype", "ms", "plain_ms", "bound_ms",
+            "library_ms", "max_abs_err")} for r in flash_rows
+            if r["shape"] in ([8, 4, 512, 512, 32], [2, 8, 512, 512, 32])],
         "head_dim_256": [{k: r[k] for k in (
             "shape", "causal", "dtype", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "library_ms")} for r in flash_rows

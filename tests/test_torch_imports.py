@@ -47,7 +47,9 @@ def test_every_submodule_imports_without_jax_or_bigdl_tpu():
               "distributed", "distributed.checkpoint",
               "distributed.compression", "distributed.rendezvous",
               "distributed.elastic", "distributed.worker",
-              "optim.distri_optimizer", "optim.sparse_update"):
+              "optim.distri_optimizer", "optim.sparse_update",
+              "parallel.tensor_parallel", "parallel.sequence",
+              "parallel.expert", "parallel.pipeline"):
         assert f"bigdl_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

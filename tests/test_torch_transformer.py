@@ -287,9 +287,9 @@ def test_initializers_use_the_generator():
 
 
 def test_later_slices_raise():
-    """Decoding is ported (tests/test_torch_decode*.py); what the JAX
-    package refuses, the port refuses alike, and the parallelism slice's
-    options still raise."""
+    """Decoding and parallelism are ported (tests/test_torch_decode*.py,
+    tests/test_torch_{tensor,sequence}_parallel.py, test_torch_expert.py);
+    what the JAX package refuses, the port refuses alike."""
     tm = tnn.Transformer(VOCAB, D, HEADS, FILTER, 1, causal=False)
     with pytest.raises(ValueError, match="needs a causal Transformer"):
         tm.generate(torch.zeros(2, dtype=torch.int32), 4)
@@ -300,7 +300,7 @@ def test_later_slices_raise():
         with pytest.raises(ValueError, match="does not compose with "
                                              "seq_mesh"):
             call()
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        tnn.Transformer(VOCAB, D, HEADS, FILTER, 1, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="seq_mesh"):
-        tnn.MultiHeadAttention(D, HEADS, seq_mesh=object())
+    moe = tnn.Transformer(VOCAB, D, HEADS, FILTER, 1, moe_experts=4)
+    assert type(moe.layer0.ffn).__name__ == "MoE"
+    with pytest.raises(ValueError, match="unknown seq_mode"):
+        tnn.MultiHeadAttention(D, HEADS, seq_mesh=object(), seq_mode="x")
