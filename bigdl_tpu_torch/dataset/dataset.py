@@ -39,17 +39,20 @@ class AbstractDataSet:
 
 
 class LocalArrayDataSet(AbstractDataSet):
-    """Vectorised in-memory dataset over stacked feature/label arrays;
-    a last batch short of ``batch_size`` is dropped (batches keep one
-    shape)."""
+    """Vectorised in-memory dataset over stacked feature/label arrays.
+    With ``drop_remainder`` (the default) a last batch short of
+    ``batch_size`` is dropped, so batches keep one shape; without it the
+    short batch ends each pass."""
 
     def __init__(self, features: np.ndarray, labels: Optional[np.ndarray],
-                 batch_size: int, seed: int = 0):
+                 batch_size: int, seed: int = 0,
+                 drop_remainder: bool = True):
         self.features = np.asarray(features)
         self.labels = np.asarray(labels) if labels is not None else None
         self.batch_size = batch_size
         self.seed = seed
         self.epoch = 0
+        self.drop_remainder = drop_remainder
         self._perm = np.arange(self.features.shape[0])
         self._skip = 0  # batches to drop on the next training pass
 
@@ -57,7 +60,8 @@ class LocalArrayDataSet(AbstractDataSet):
         return self.features.shape[0]
 
     def batches_per_epoch(self):
-        return self.size() // self.batch_size
+        n, bs = self.size(), self.batch_size
+        return n // bs if self.drop_remainder else -(-n // bs)
 
     def shuffle(self):
         self.epoch += 1
@@ -91,8 +95,9 @@ class LocalArrayDataSet(AbstractDataSet):
             yield from self._one_pass()
 
     def _one_pass(self, start_batch: int = 0):
-        bs = self.batch_size
-        for i in range(start_batch * bs, self.batches_per_epoch() * bs, bs):
+        n, bs = self.size(), self.batch_size
+        stop = (n // bs) * bs if self.drop_remainder else n
+        for i in range(start_batch * bs, stop, bs):
             idx = self._perm[i:i + bs]
             yield MiniBatch(self.features[idx],
                             self.labels[idx] if self.labels is not None

@@ -408,7 +408,7 @@ def restore_checkpoint(path: str, shardings=None):
     return tree, manifest.get("host_state", {}), manifest
 
 
-def build_reshard_step(src_shardings, dst_shardings, mesh) -> Callable:
+def build_reshard_step(src_shardings, dst_shardings, *, mesh) -> Callable:
     """An on-device relayout ``tree -> tree`` from one layout tree to
     another over ``mesh``'s data axis (JAX's jitted identity between
     shardings): a :class:`RowShard` leaf that becomes
@@ -416,7 +416,8 @@ def build_reshard_step(src_shardings, dst_shardings, mesh) -> Callable:
     replicated leaf that becomes a row shard is cut to this rank's rows,
     any other leaf (``Replicated`` on both sides, say) is passed
     through.  Cross-world restores go through
-    :func:`restore_checkpoint` instead."""
+    :func:`restore_checkpoint` instead.  ``mesh`` is keyword-only, where
+    JAX's third parameter is ``donate`` (``jit`` plumbing)."""
     from bigdl_tpu_torch.parallel import comm
 
     src_of = _layout_lookup(src_shardings)

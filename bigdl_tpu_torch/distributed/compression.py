@@ -151,13 +151,19 @@ def build_compressed_dp_train_step(
         model: torch.nn.Module, criterion: Criterion,
         optim_methods: Dict[str, OptimMethod], mesh: Mesh,
         wire_dtype="bf16", grad_clip_const=None, grad_clip_norm=None,
-        numerics=None):
+        aux_loss_weight: float = 0.01, *, numerics=None):
     """The compressed data-parallel train step and its placement (JAX's
     ``(jitted_step, placement)``): a :class:`CompiledTrainStep` (one
     CUDA graph under NCCL, eager under gloo) called with this rank's
     rows of the batch and whole, replicated trees.  ``placement`` holds
-    the plan and ``wire_dtype`` (the type's name).  A mesh with any
-    degree above 1 but the data axis's raises ``ValueError``."""
+    the plan and ``wire_dtype`` (the type's name).  The auxiliary losses
+    of the model's state (the MoE load balance) join the loss times
+    ``aux_loss_weight`` (compression.py:139-140).  ``donate`` and
+    ``template_variables`` of the JAX function are ``jit`` plumbing with
+    no counterpart here (the step updates its trees in place), so
+    ``numerics`` is keyword-only: a positional call meant for JAX raises
+    instead of binding it to another parameter.  A mesh with any degree
+    above 1 but the data axis's raises ``ValueError``."""
     wire = _resolve_wire(wire_dtype)
     info = plan_info(mesh)
     for axis, deg in info.degrees:
@@ -167,8 +173,8 @@ def build_compressed_dp_train_step(
     dp = CompressedDataParallel(mesh, wire)
     step = CompiledTrainStep(
         make_train_step(model, criterion, optim_methods, grad_clip_const,
-                        grad_clip_norm, numerics=numerics,
-                        data_parallel=dp),
+                        grad_clip_norm, aux_loss_weight=aux_loss_weight,
+                        numerics=numerics, data_parallel=dp),
         capture=mesh.backend == "nccl")
     step.program = "compressed_dp_train_step"
     programs.get_program_registry().annotate(

@@ -73,3 +73,7 @@ class LookupTable(Module):
         y = w[local.clamp(0, per - 1)]
         y = torch.where(inside[..., None], y, torch.zeros_like(y))
         return comm.reduce_from(y, mesh, MODEL_AXIS)
+
+
+class Embedding(LookupTable):
+    """Keras-style alias of :class:`LookupTable`."""

@@ -17,7 +17,7 @@ from __future__ import annotations
 import itertools
 from typing import Dict, List, Optional, Sequence
 
-from bigdl_tpu_torch.nn.module import Container, Module
+from bigdl_tpu_torch.nn.module import Container, Module, Seed, call_child
 
 _ids = itertools.count(1)
 
@@ -48,6 +48,7 @@ class Graph(Container):
         self.output_nodes = list(outputs)
         self._order = self._topo_sort()
         self._node_key: Dict[int, str] = {}
+        self._key_idx: Dict[str, int] = {}
         counts: Dict[str, int] = {}
         for node in self._order:
             if node.module is None:
@@ -57,6 +58,7 @@ class Graph(Container):
             counts[base] = n + 1
             key = base if n == 0 else f"{base}_{n}"
             self._node_key[node.id] = key
+            self._key_idx[key] = len(self._keys)
             self._register_child(key, node.module)
 
     def replace_child(self, key: str, module: Module) -> Module:
@@ -88,7 +90,10 @@ class Graph(Container):
             visit(out)
         return order
 
-    def forward(self, *inputs):
+    def forward(self, *inputs, rng: Optional[Seed] = None):
+        """The outputs for ``inputs``; the child under key ``k`` gets the
+        seed ``split_rng(rng, i)``, ``i`` the key's position, when it
+        takes one (bigdl_tpu/nn/graph.py:93-115)."""
         if len(inputs) == 1 and isinstance(inputs[0], (tuple, list)):
             inputs = tuple(inputs[0])
         values: Dict[int, object] = {}
@@ -102,6 +107,8 @@ class Graph(Container):
                 continue
             args = [values[p.id] for p in node.in_nodes]
             x = args[0] if len(args) == 1 else tuple(args)
-            values[node.id] = self._modules[self._node_key[node.id]](x)
+            key = self._node_key[node.id]
+            values[node.id] = call_child(self._modules[key], x, rng,
+                                         self._key_idx[key])
         outs = tuple(values[n.id] for n in self.output_nodes)
         return outs[0] if len(outs) == 1 else outs

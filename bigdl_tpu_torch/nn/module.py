@@ -14,7 +14,9 @@ training forward, where the JAX package returns new state.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Union
+import functools
+import inspect
+from typing import Callable, List, Optional, Union
 
 import torch
 
@@ -68,6 +70,49 @@ def split_rng(rng: Optional[Seed], i: int) -> Optional[Seed]:
     if torch.is_tensor(rng):
         return _lsr(mix64(mix64(rng) + (i + 1)), 1)
     return _mix64((_mix64(rng & _MASK64) + i + 1) & _MASK64) >> 1
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_takes_rng(cls: type) -> bool:
+    return "rng" in inspect.signature(cls.forward).parameters
+
+
+def call_child(module: torch.nn.Module, x, rng: Optional[Seed] = None,
+               i: Optional[int] = None):
+    """``module(x)``, with ``rng=split_rng(rng, i)`` (``rng`` itself when
+    ``i`` is None) when its ``forward`` takes a seed (a random layer or a
+    container), as JAX hands child ``i`` the key ``fold_in(rng, i)``.  A
+    child that takes none costs no split."""
+    if _forward_takes_rng(type(module)):
+        return module(x, rng=rng if i is None else split_rng(rng, i))
+    return module(x)
+
+
+def tree_map(f: Callable, x):
+    """``f`` on every tensor of an activity (a tensor, or a tuple, list or
+    dict of them, nested), the structure kept, as ``jax.tree_util.
+    tree_map`` maps the JAX package's activities."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(f, v) for v in x)
+    if isinstance(x, dict):
+        out = type(x)()
+        for k, v in x.items():
+            out[k] = tree_map(f, v)
+        return out
+    return f(x)
+
+
+def constant_on(host: torch.Tensor, cache: dict, like: torch.Tensor
+                ) -> torch.Tensor:
+    """``host`` (a layer's fixed tensor that is not a buffer, so that the
+    module's variables stay the JAX package's) on ``like``'s device in
+    ``like``'s type, copied once per (device, type) into ``cache``: a
+    compiled call's warm-up makes the copy before its capture."""
+    key = (like.device, like.dtype)
+    t = cache.get(key)
+    if t is None:
+        t = cache[key] = host.to(device=like.device, dtype=like.dtype)
+    return t
 
 
 class Module(torch.nn.Module):
@@ -149,9 +194,32 @@ class Container(Module):
 
 
 class Sequential(Container):
-    """Feed-forward chain (bigdl_tpu/nn/module.py:328)."""
+    """Feed-forward chain (bigdl_tpu/nn/module.py:328).  Child ``i`` gets
+    the seed ``split_rng(rng, i)`` when it takes one, as ``_child_apply``
+    folds ``i`` into the key."""
+
+    def forward(self, x, rng: Optional[Seed] = None):
+        for i, k in enumerate(self._keys):
+            x = call_child(self._modules[k], x, rng, i)
+        return x
+
+
+class Identity(Module):
+    """Returns its input (bigdl_tpu/nn/module.py:348)."""
 
     def forward(self, x):
-        for k in self._keys:
-            x = self._modules[k](x)
+        return x
+
+
+class Echo(Module):
+    """Passes its input through and prints ``name: shape`` (the input
+    itself when it has no shape; reference nn/Echo).  JAX's ``Echo``
+    prints on every execution of a compiled step
+    (``jax.debug.print``); this one prints on every eager call, so a
+    captured step (``utils/graphs.py``) prints during its warm-up calls
+    and its capture and not on a replay."""
+
+    def forward(self, x):
+        print(f"{self.name}: {tuple(x.shape) if hasattr(x, 'shape') else x}",
+              flush=True)
         return x

@@ -44,8 +44,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.nn.conv import (PaddingT, SpatialConvolution,
-                                     conv2d_nhwc, resolve_padding)
+from bigdl_tpu_torch.nn.conv import (SpatialConvolution, conv2d_nhwc,
+                                     resolve_padding)
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Container, Module
 from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_dequant,
@@ -141,65 +141,61 @@ class QuantizedLinear(Module):
 
 
 class QuantizedSpatialConvolution(Module):
-    """int8 convolution, NHWC / HWIO (bigdl_tpu/nn/quantized.py:102):
-    ``weight_q`` (kh, kw, in, out) int8 (a 1x1 one with ``in`` contiguous,
-    :func:`_k_major`), ``scale`` (1, 1, 1, out) f32, ``bias`` (out,).
-    Keeps the float conv's geometry, not its weights."""
+    """int8 convolution, NHWC / HWIO (bigdl_tpu/nn/quantized.py:102),
+    built from the float ``conv``, of which it keeps a copy without
+    weights (``.conv``: kernel, stride, padding, groups, dilation, bias or
+    not):
+    ``weight_q`` (kh, kw, in / n_group, out) int8 (a 1x1 ungrouped one
+    with ``in`` contiguous, :func:`_k_major`), ``scale`` (1, 1, 1, out)
+    f32, ``bias`` (out,).  ``conv`` is held outside the module's
+    variables, as in the JAX package."""
 
-    def __init__(self, n_input_plane: int, n_output_plane: int,
-                 kernel_size=(1, 1), stride=(1, 1), padding: PaddingT = 0,
-                 with_bias: bool = True, weight_only: bool = False,
+    def __init__(self, conv: SpatialConvolution, weight_only: bool = False,
                  name: Optional[str] = None):
-        super().__init__(name)
-        self.n_input_plane = n_input_plane
-        self.n_output_plane = n_output_plane
-        self.kernel_size = tuple(kernel_size)
-        self.stride = tuple(stride)
-        self.padding = padding
-        self.with_bias = with_bias
+        super().__init__(name or conv.name)
+        geometry = copy.copy(conv)
+        geometry._parameters = {}  # the float weights are not kept
+        self.__dict__["conv"] = geometry
         self.weight_only = weight_only
         self.plain = False
-        kh, kw = self.kernel_size
+        kh, kw = conv.kernel_size
+        n_in = conv.n_input_plane // conv.n_group
+        n_out = conv.n_output_plane
         self.weight_q = _frozen(
-            _k_major(n_input_plane, n_output_plane)[None, None]
-            if (kh, kw) == (1, 1) else
-            torch.zeros(kh, kw, n_input_plane, n_output_plane,
-                        dtype=torch.int8))
-        self.scale = _frozen(torch.ones(1, 1, 1, n_output_plane))
-        self.bias = (_frozen(torch.zeros(n_output_plane)) if with_bias
+            _k_major(n_in, n_out)[None, None]
+            if (kh, kw) == (1, 1) and conv.n_group == 1 else
+            torch.zeros(kh, kw, n_in, n_out, dtype=torch.int8))
+        self.scale = _frozen(torch.ones(1, 1, 1, n_out))
+        self.bias = (_frozen(torch.zeros(n_out)) if conv.with_bias
                      else None)
-
-    @staticmethod
-    def like(m: SpatialConvolution, with_bias: bool, weight_only: bool
-             ) -> "QuantizedSpatialConvolution":
-        return QuantizedSpatialConvolution(
-            m.n_input_plane, m.n_output_plane, m.kernel_size, m.stride,
-            m.padding, with_bias, weight_only, name=m.name)
 
     @staticmethod
     def from_conv(m: SpatialConvolution, params: Dict[str, Any],
                   weight_only=False):
         q, scale = quantize_weight(_tensor(params["weight"]), axis=3)
-        with_bias = "bias" in params
-        new = QuantizedSpatialConvolution.like(m, with_bias, weight_only)
+        new = QuantizedSpatialConvolution(m, weight_only, name=m.name)
         p = {"weight_q": q.numpy(),
              "scale": scale.reshape(1, 1, 1, -1).numpy()}
-        if with_bias:
+        if m.with_bias and "bias" in params:
             p["bias"] = np.asarray(params["bias"])
         return new, p
 
+    def _conv(self, x, w, pads):
+        m = self.conv
+        return conv2d_nhwc(x, w, m.stride, pads, m.dilation, m.n_group)
+
     def forward(self, x: Tensor) -> Tensor:
+        m = self.conv
         wq, scale = self.weight_q, self.scale
-        pads = resolve_padding(self.padding, x.shape[1:3], self.kernel_size,
-                               self.stride)
+        pads = resolve_padding(m.padding, x.shape[1:3], m.kernel_size,
+                               m.stride, m.dilation)
         if self.weight_only:
-            y = conv2d_nhwc(x, wq.to(x.dtype) * scale.to(x.dtype),
-                            self.stride, pads)
+            y = self._conv(x, wq.to(x.dtype) * scale.to(x.dtype), pads)
         else:
             xq, sx = _quantize_activation(x)
             srow = sx * scale
-            if (self.kernel_size == (1, 1) and self.stride == (1, 1)
-                    and pads == [(0, 0), (0, 0)]):
+            if (m.kernel_size == (1, 1) and m.stride == (1, 1)
+                    and m.n_group == 1 and pads == [(0, 0), (0, 0)]):
                 # a 1x1 conv is a matmul over the (B*H*W, C) pixels
                 mm = int8_matmul_dequant_plain if self.plain \
                     else int8_matmul_dequant
@@ -209,8 +205,7 @@ class QuantizedSpatialConvolution(Module):
                        ).reshape(n, h, w, -1)
             else:
                 with torch.profiler.record_function("int8.library_conv"):
-                    acc = conv2d_nhwc(xq.float(), wq.float(), self.stride,
-                                      pads)
+                    acc = self._conv(xq.float(), wq.float(), pads)
                 y = (acc * srow).to(x.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
@@ -305,8 +300,8 @@ def load_quantized(path: str, float_model: Module
             return QuantizedLinear(m.input_size, m.output_size,
                                    "bias" in p, weight_only, name=m.name), p
         if isinstance(m, SpatialConvolution) and "weight_q" in p:
-            return QuantizedSpatialConvolution.like(m, "bias" in p,
-                                                    weight_only), p
+            return QuantizedSpatialConvolution(m, weight_only,
+                                               name=m.name), p
         return None
 
     model, _ = _rewrite_like(float_model, variables["params"], convert)

@@ -36,7 +36,11 @@ from bigdl_tpu_torch.telemetry.tracer import CAT_TRAIN, get_tracer
 
 
 class Metrics:
-    def __init__(self):
+    """``category`` is the tracer category of the spans it emits
+    (``"train"`` for the loop, ``"serve"`` for an engine)."""
+
+    def __init__(self, category: str = CAT_TRAIN):
+        self.category = category
         self._sums: Dict[str, float] = {}
         self._counts: Dict[str, int] = {}
         self._last: Dict[str, float] = {}
@@ -63,7 +67,7 @@ class Metrics:
         if tr.enabled and name not in self._no_span:
             # the phase just ended: [now - seconds, now]
             t1 = time.perf_counter()
-            tr.add_span(name, CAT_TRAIN, t1 - seconds, t1)
+            tr.add_span(name, self.category, t1 - seconds, t1)
 
     @contextmanager
     def time(self, name: str):

@@ -132,7 +132,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import inspect
 import logging
 import math
 import os
@@ -151,7 +150,7 @@ from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.prefetch import DevicePrefetcher, to_device
 from bigdl_tpu_torch.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.nn.criterion import Criterion
-from bigdl_tpu_torch.nn.module import _signed, split_rng
+from bigdl_tpu_torch.nn.module import _forward_takes_rng, _signed, split_rng
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.triggers import Trigger
@@ -238,10 +237,10 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
                     grad_clip_const: Optional[Tuple[float, float]] = None,
                     grad_clip_norm: Optional[float] = None,
                     compute_dtype: Optional[torch.dtype] = None,
+                    aux_loss_weight: float = 0.01,
                     accum_steps: int = 1,
                     numerics: Optional[numerics_mod.NumericsSpec] = None,
-                    data_parallel=None,
-                    aux_loss_weight: float = 0.01) -> Callable:
+                    data_parallel=None) -> Callable:
     """The train step of bigdl_tpu/optim/optimizer.py:266-373.
 
     ``train_step(params, model_state, opt_states, step, rng, features,
@@ -274,7 +273,7 @@ def make_train_step(model: torch.nn.Module, criterion: Criterion,
     method_items = sorted(optim_methods.items())
     collector = (numerics_mod.Collector(numerics) if numerics is not None
                  else None)
-    takes_rng = "rng" in inspect.signature(model.forward).parameters
+    takes_rng = _forward_takes_rng(type(model))
 
     def loss_and_grads(params, state, rng, features, targets):
         """One forward and backward; ``state`` is updated in place."""
@@ -475,20 +474,24 @@ def _eval_forward(model: torch.nn.Module, params: Tensors,
 
 @torch.no_grad()
 def evaluate(model: torch.nn.Module, params: Tensors, model_state: Tensors,
-             dataset: AbstractDataSet, methods: List[ValidationMethod]
+             dataset: AbstractDataSet, methods: List[ValidationMethod],
+             batch_to_device: bool = True
              ) -> List[Tuple[ValidationMethod, Optional[ValidationResult]]]:
     """Run ``methods`` over one pass of ``dataset`` with ``params`` and
     ``model_state`` swapped into ``model`` in evaluation mode (reference
     Evaluator.scala:40-100; optimizer.py:1110-1137), one compiled forward
     per input shape.  The parameters are used as given (the loop's f32
     masters).  Returns ``[(method, folded result)]``; a result is
-    ``None`` when the dataset had no batch."""
+    ``None`` when the dataset had no batch.  ``batch_to_device=False``
+    skips placing each batch on the parameters' device, for a dataset
+    whose batches are already there."""
     device = next(iter(params.values())).device
     model.eval()
     totals: List[Optional[ValidationResult]] = [None] * len(methods)
     for batch in dataset.data(train=False):
+        x = batch.get_input()
         out = _eval_forward(model, params, model_state,
-                            to_device(batch.get_input(), device))
+                            to_device(x, device) if batch_to_device else x)
         for i, m in enumerate(methods):
             r = m(out, batch.get_target())
             totals[i] = r if totals[i] is None else totals[i] + r

@@ -219,7 +219,7 @@ def build_dp_train_step(model: torch.nn.Module, criterion: Criterion,
                         grad_clip_norm=None,
                         compute_dtype: Optional[torch.dtype] = None,
                         param_shardings: Optional[Any] = None,
-                        seq_dim: Optional[int] = None,
+                        seq_dim: Optional[int] = None, *,
                         accum_steps: int = 1, numerics=None):
     """The data-parallel train step and its placement (JAX's
     ``(jitted_step, placement)``).
@@ -234,7 +234,9 @@ def build_dp_train_step(model: torch.nn.Module, criterion: Criterion,
     .local_state(state, params)`` cuts a method's state built over the
     local parameters to its ZeRO-1 rows).  ``placement`` also carries
     each parameter's layout (``"params"``), its ZeRO-1 layout
-    (``"opt_states"``) and the mesh's plan."""
+    (``"opt_states"``) and the mesh's plan.  JAX's ``donate`` and
+    ``template_variables`` (``jit`` plumbing) have no counterpart, so
+    ``accum_steps`` and ``numerics`` are keyword-only."""
     layouts = flat_layouts(model, param_shardings)
     dp = DataParallel(mesh, zero1, layouts, seq_dim)
     step = CompiledTrainStep(

@@ -30,7 +30,6 @@ each tick.
 from __future__ import annotations
 
 import copy
-import inspect
 import logging
 from typing import Callable, Dict, Optional
 
@@ -38,8 +37,9 @@ import torch
 import torch.utils.checkpoint
 from torch.func import functional_call
 
-from bigdl_tpu_torch.nn.module import Container, Module, Sequential, \
-    split_rng
+from bigdl_tpu_torch.nn.module import (Container, Module, Sequential,
+                                       _forward_takes_rng, call_child,
+                                       split_rng)
 from bigdl_tpu_torch.ops.partition import (current_kernel_mesh,
                                            current_seq_dim,
                                            kernel_mesh_scope)
@@ -49,40 +49,22 @@ from bigdl_tpu_torch.parallel.mesh import (PIPE_AXIS, Mesh, Replicated,
 
 logger = logging.getLogger("bigdl_tpu_torch.parallel")
 
-__all__ = ["PIPE_AXIS", "PipelinedLM", "RngSequential",
-           "build_pipeline_train_step", "init_stacked_params",
-           "pipeline_apply", "pipelined_transformer_lm",
-           "stacked_param_sharding"]
-
-
-class RngSequential(Sequential):
-    """A ``Sequential`` whose children get the seeds ``split_rng(rng,
-    i)``, as JAX's ``_child_apply`` hands child ``i`` ``fold_in(rng,
-    i)`` (the pipeline's head and stages carry dropout)."""
-
-    def forward(self, x, rng=None):
-        for i, key in enumerate(self._keys):
-            x = _call(self._modules[key], x, split_rng(rng, i))
-        return x
-
-
-def _takes_rng(module) -> bool:
-    return "rng" in inspect.signature(module.forward).parameters
-
-
-def _call(module, x, rng):
-    return module(x, rng=rng) if _takes_rng(module) else module(x)
+__all__ = ["PIPE_AXIS", "PipelinedLM", "build_pipeline_train_step",
+           "init_stacked_params", "pipeline_apply",
+           "pipelined_transformer_lm", "stacked_param_sharding"]
 
 
 def init_stacked_params(stage: Module, num_stages: int,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        dtype: torch.dtype = torch.float32
                         ) -> Dict[str, torch.Tensor]:
     """``stage``'s parameters initialised ``num_stages`` times from
-    ``generator``, stacked on a new dim 0: ``{name: (S, ...)}``."""
+    ``generator`` (the port's counterpart of JAX's key), in ``dtype``,
+    stacked on a new dim 0: ``{name: (S, ...)}``."""
     per = []
     for _ in range(num_stages):
         stage.initialize(generator)
-        per.append({k: p.detach().clone()
+        per.append({k: p.detach().to(dtype, copy=True)
                     for k, p in stage.named_parameters()})
     return {k: torch.stack([p[k] for p in per]) for k in per[0]}
 
@@ -110,7 +92,7 @@ def pipeline_apply(stage: Module, mesh: Mesh, num_microbatches: int,
     divided by the microbatches and averaged over ``data_axis``."""
     num_stages = mesh.shape.get(axis, 1)
     m_req = num_microbatches
-    rng_kw = _takes_rng(stage)
+    rng_kw = _forward_takes_rng(type(stage))
 
     def make_tick(scope_mesh, seq):
         def stage_tick(params, inp, key):
@@ -295,7 +277,7 @@ class PipelinedLM(Container):
         return out
 
     def forward(self, x, rng=None):
-        h = _call(self.head, x, rng)
+        h = call_child(self.head, x, rng)
         if self.embed_scale is not None:
             h = h * torch.tensor(self.embed_scale, dtype=h.dtype,
                                  device=h.device)
@@ -307,8 +289,7 @@ class PipelinedLM(Container):
             buf.detach_()  # no graph kept from an earlier forward
             buf.copy_(aux)
         if self.tail_module is not None:
-            h = _call(self.tail_module, h,
-                      split_rng(rng, 2) if rng is not None else None)
+            h = call_child(self.tail_module, h, rng, 2)
         if self.tied_embed_path is not None:
             from bigdl_tpu_torch.nn.attention import tied_logits
 
@@ -347,14 +328,14 @@ def pipelined_transformer_lm(
         f"num_layers={num_layers} must divide over {num_stages} pipe "
         "stages")
     per_stage = num_layers // num_stages
-    head = RngSequential(
+    head = Sequential(
         LookupTable(vocab_size, hidden_size,
                     weight_init=RandomNormal(0.0, hidden_size ** -0.5),
                     name="embed"),
         MulConstant(math.sqrt(hidden_size), name="scale"),
         PositionEncode(name="pos"),
         Dropout(dropout, name="drop"))
-    stage = RngSequential(*[
+    stage = Sequential(*[
         TransformerLayer(hidden_size, num_heads, filter_size,
                          attn_dropout=dropout, ffn_dropout=dropout,
                          causal=causal, use_flash=use_flash,

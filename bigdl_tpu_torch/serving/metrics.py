@@ -46,9 +46,13 @@ class ServingMetrics:
     """One engine's counters; safe to share across engine threads.
 
     Latency and occupancy keep the last ``window`` samples; percentiles
-    are nearest-rank over that window, as in the JAX package."""
+    are nearest-rank over that window, as in the JAX package.  JAX's
+    leading ``base`` (an ``optim.Metrics`` it records into) has no
+    counterpart: these counters keep their own windows.  So ``window``
+    is keyword-only, and ``ServingMetrics(m)`` raises instead of taking
+    ``m`` for the window."""
 
-    def __init__(self, window: int = 4096):
+    def __init__(self, *, window: int = 4096):
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
         self._latency = deque(maxlen=window)

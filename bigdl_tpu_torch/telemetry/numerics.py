@@ -35,7 +35,6 @@ Env knobs, the JAX package's: ``BIGDL_TPU_NUMERICS=1`` turns stats on,
 """
 from __future__ import annotations
 
-import inspect
 import logging
 import math
 import os
@@ -425,13 +424,6 @@ def _nonfinite(tree: Any) -> int:
     return n
 
 
-def _takes_rng(module) -> bool:
-    try:
-        return "rng" in inspect.signature(module.forward).parameters
-    except (TypeError, ValueError):
-        return False
-
-
 def _first_leaf(out: Any) -> torch.Tensor:
     while isinstance(out, (list, tuple)):
         out = out[0]
@@ -442,7 +434,7 @@ def _provenance(model, params, model_state, features, targets, criterion,
                 compute_dtype, rng) -> Dict[str, Any]:
     from torch.func import functional_call
 
-    from bigdl_tpu_torch.nn.module import split_rng
+    from bigdl_tpu_torch.nn.module import _forward_takes_rng, split_rng
     from bigdl_tpu_torch.utils.convert import subtree
 
     report: Dict[str, Any] = {"layer": None, "site": None, "loss": None,
@@ -474,8 +466,8 @@ def _provenance(model, params, model_state, features, targets, criterion,
         with torch.no_grad():
             for i, k in enumerate(keys):
                 child = model._modules[k]
-                kwargs = ({"rng": split_rng(rng, i)} if _takes_rng(child)
-                          else {})
+                kwargs = ({"rng": split_rng(rng, i)}
+                          if _forward_takes_rng(type(child)) else {})
                 try:
                     x = functional_call(child, {**subtree(cp, k),
                                                 **subtree(state, k)},
@@ -493,7 +485,7 @@ def _provenance(model, params, model_state, features, targets, criterion,
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         state = {k: v.detach().clone() for k, v in model_state.items()}
-        kwargs = {"rng": rng} if _takes_rng(model) else {}
+        kwargs = {"rng": rng} if _forward_takes_rng(type(model)) else {}
         with torch.enable_grad():
             out = functional_call(model, {**cast(leaves), **state},
                                   (features,), kwargs)

@@ -105,7 +105,9 @@ Phases:
    against eager, with cuDNN held to deterministic algorithms: the
    fused and the dynamic-int8 ResNet-50 forwards bit-equal at every
    declared bucket, each capture's launches and, by torch.profiler, the
-   kernels one replay runs exactly 36 + 13 and 34; 512 requests served
+   kernels one replay runs exactly 36 + 13 and 34 (that replay writes
+   into an output filled with NaN first, and whether it came out
+   bit-equal to the eager forward is recorded and named on a failure); 512 requests served
    eagerly and compiled (images/s, p50, p99), the batch-32 forwards'
    wall time eager and compiled beside their device time; three
    ResNet-50 train steps at batch 32 (remat on and off) and three LM
@@ -299,6 +301,20 @@ Phases:
    ``--moeExperts 4`` LM's step in one CUDA graph against the same steps
    eager, then ``transformer_train --moeExperts 4`` for one epoch, its
    world-1 NCCL step captured.
+17. zoo: (a) every case of tests/torch_zoo_cases.py (each class of the
+   zoo's core layer files) forward and backward on the card against the
+   same module on the CPU, f32 within 1e-4 and a bf16 forward within
+   5e-2 of the largest |value|, the random layers also in training mode
+   from one fixed seed (an int and a 0-dim int64 tensor on the card)
+   with their keep masks, 32-bit draws and uniforms bit-equal to the
+   CPU's and their normals within 1e-4, the forwards that are not
+   bit-stable named; (b) ``lenet_train.main`` at batch 128 for 20 iterations (its
+   loss must fall; the train step and the evaluation forward captured),
+   the compiled LeNet-5 step's ms, images/s and device ms at batch 128,
+   ``lenet_graph`` against ``LeNet5`` from the same weights; (c) 10
+   captured autoencoder steps with ``MSECriterion``, the loss falling,
+   and the step's ms, images/s and device ms at batch 128.
+   Kernels 1-7 must launch 0 times in (b) and (c).
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Per-shape timings and the nvcc output
@@ -542,15 +558,22 @@ def replay_ms(graph, n=50) -> float:
     return a.elapsed_time(b) / n
 
 
-def check_graph(what: str, compiled, want: dict, replay) -> dict:
+def check_graph(what: str, compiled, want: dict, replay, same=None) -> dict:
     """The kernels of one compiled call, exactly: the launches its capture
     counted on the host and the kernels one replay runs on the card (by
-    profiler) must both be ``want``."""
+    profiler) must both be ``want``.  ``same()``, when given, says
+    whether that profiled replay's output is right (recorded, and named
+    on a failure: a short replay from a lost profiler event)."""
     ran, device = replay_kernels(replay)
+    rec = {"kernels": ran, "replay_device_ms": device}
+    if same is not None:
+        rec["replay_bit_equal"] = bool(same())
     if compiled.launches != want or ran != want:
         fail(f"{what}: the capture launched {compiled.launches} and a replay "
-             f"ran {ran}; expected {want}")
-    return {"kernels": ran, "replay_device_ms": device}
+             f"ran {ran}; expected {want}" + (
+                 "" if same is None else "; that replay's output bit-equal "
+                 f"to the eager forward: {rec['replay_bit_equal']}"))
+    return rec
 
 
 def host_launches(per_capture: dict, captures: int) -> dict:
@@ -1665,13 +1688,15 @@ def graphs_phase(args):
         for (batch, dims), g in sorted(engine._compiled.items()):
             xb = torch.randn((batch,) + dims, generator=gen,
                              device=dev).to(bf16)
-            yg = g(xb).clone()
-            if not torch.equal(yg, engine._forward(xb)):
+            out, ye = g(xb), engine._forward(xb)
+            if not torch.equal(out, ye):
                 fail(f"{name} forward at batch {batch}: the replay is not "
                      "bit-equal to the eager forward")
+            with torch.inference_mode():  # the graph's own output
+                out.fill_(float("nan"))  # the profiled replay rewrites it
             r["buckets"][batch] = check_graph(
                 f"{name} forward at batch {batch}", g, per_capture,
-                lambda: g(xb))
+                lambda: g(xb), same=lambda: torch.equal(out, ye))
         g32 = engine._compiled[(32, (224, 224, 3))]
         x32 = torch.randn((32, 224, 224, 3), generator=gen,
                           device=dev).to(bf16)
@@ -1692,7 +1717,9 @@ def graphs_phase(args):
         f, sv = r["forward_32"], r["served_images_per_s"]
         print(f"graphs: {name} ResNet-50, every bucket's replay bit-equal to "
               f"the eager forward, kernels per capture and per replay "
-              f"{per_capture}; forward at batch 32 eager {f['eager_ms']:.3f}"
+              f"{per_capture}, the profiled replays bit-equal by batch "
+              f"{ {b: v['replay_bit_equal'] for b, v in r['buckets'].items()} }"
+              f"; forward at batch 32 eager {f['eager_ms']:.3f}"
               f" ms, compiled {f['compiled_ms']:.3f} ms, device "
               f"{f['device_ms']:.3f} ms (the dispatcher pads a batch of 32 "
               f"in {r['dispatch_32']['pad_ms']:.3f} ms and copies it to the "
@@ -6888,6 +6915,342 @@ def kernel_tools(gen, dev):
         close_sums=close_sums, check=check, same=same, bound=bound)
 
 
+# ------------------------------------------------------- phase 17: zoo
+# every layer case of tests/torch_zoo_cases.py (the zoo's core layer
+# files), one module from the port's own seeded init, forward and
+# backward on the card against the same module on the CPU: f32 outputs
+# and every input and parameter gradient to ZOO_F32_TOL of the largest
+# |value| (TF32 off: sum order only), a bf16 forward on the card against
+# the CPU's f32 one to ZOO_BF16_TOL (one bf16 rounding of the input and
+# of the output, a few in the layers that chain ops); the random layers
+# also train from one seed on both, their normals (log1p, cos) to
+# ZOO_F32_TOL and every other draw bit for bit
+ZOO_F32_TOL = 1e-4
+ZOO_BF16_TOL = 5e-2
+LENET_BATCH = 128    # lenet_train's default batch, 28x28x1 images
+LENET_STEPS = 20     # lenet_train.main: one epoch of 20 iterations
+AE_STEPS = 10        # captured autoencoder steps on one batch
+
+
+def _zoo_run(module, act, rs_cot, dev, dtype, backward=True, rng=None):
+    """The outputs and, with ``backward``, the input and parameter
+    gradients (seeded cotangents from ``rs_cot``) of ``module`` on the
+    activity ``act`` (numpy) on ``dev``, given the seed ``rng`` when it
+    is not None."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.utils.table import Table
+    from torch_zoo_cases import build, is_float, leaves, out_leaves
+
+    ts = [torch.tensor(a, dtype=dtype, device=dev, requires_grad=backward)
+          if is_float(a) else torch.from_numpy(np.asarray(a)).to(dev)
+          for a in leaves(act)]
+    with torch.set_grad_enabled(backward):
+        inp = build(act, list(ts), Table, lambda t: t)
+        outs = out_leaves(module(inp) if rng is None
+                          else module(inp, rng=rng))
+    res = {f"output {i}": o.detach().float().cpu()
+           for i, o in enumerate(outs)}
+    if not backward:
+        return res
+    pairs = [(o, torch.tensor(rs_cot.randn(*o.shape), dtype=o.dtype,
+                              device=dev)) for o in outs if o.requires_grad]
+    if pairs:
+        torch.autograd.backward([o for o, _ in pairs],
+                                [c for _, c in pairs])
+    for i, t in enumerate(ts):
+        if t.requires_grad:
+            res[f"input grad {i}"] = (torch.zeros(t.shape) if t.grad is None
+                                      else t.grad.float().cpu())
+    for k, p in module.named_parameters():
+        res[f"grad {k}"] = (torch.zeros(p.shape) if p.grad is None
+                            else p.grad.float().cpu())
+    return res
+
+
+def _zoo_err(got: dict, want: dict) -> float:
+    """The largest |got - want| over the entries, each over its own
+    largest |want| (at least 1)."""
+    err = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            fail(f"zoo: {k} shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if w.numel():
+            scale = max(1.0, w.abs().max().item())
+            err = max(err, (g - w).abs().max().item() / scale)
+    return err
+
+
+def _zoo_streams(shape, rng, dev) -> dict:
+    """The seed streams the random layers draw from (nn/dropout.py) for
+    seed ``rng`` at ``shape`` on ``dev``, on the CPU: a keep mask at p
+    0.4, the 32-bit draws, the uniforms and the normals."""
+    import math as _math
+
+    from bigdl_tpu_torch.nn import dropout as drop
+
+    return {"keep_mask": drop.keep_mask(shape, 0.4, rng, dev).cpu(),
+            "random_bits": drop.random_bits(_math.prod(shape), rng,
+                                            dev).cpu(),
+            "uniform": drop.uniform(shape, rng, dev).cpu(),
+            "normal": drop.normal(shape, rng, dev).cpu()}
+
+
+def zoo_phase(args, card, dev="cuda"):
+    """Phase 17, the zoo's core layers, LeNet-5 and the autoencoder:
+    (a) every case of tests/torch_zoo_cases.py on the card against the
+    CPU (``_zoo_run``; training mode too where the case keeps state;
+    the random layers also in training mode from one fixed seed, given
+    as an int and as a 0-dim int64 tensor on the card, with their seed
+    streams bit-equal to the CPU's, ``_zoo_streams``), the layers whose
+    card forward is not bit-stable from run to run named; (b)
+    ``lenet_train.main`` at batch LENET_BATCH for LENET_STEPS
+    iterations on synthetic MNIST (one captured train step, replayed;
+    its loss must fall), ms per step, images/s and device ms of the
+    compiled step at that batch, and ``lenet_graph`` against the
+    Sequential form from the same weights; (c) AE_STEPS captured
+    autoencoder steps with ``MSECriterion`` (the loss must fall), then
+    its step timed as LeNet's.  The
+    seven kernels' launch counters stay 0 across (b) and (c): none of
+    them is on this path.  ``dev="cpu"`` serves a rehearsal (no
+    timing, no capture counts).  Returns the results."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+    from bigdl_tpu_torch.models import Autoencoder, LeNet5, lenet_graph
+    from bigdl_tpu_torch.models import lenet_train
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import fused_matmul as fm
+    from bigdl_tpu_torch.ops import int8_matmul as i8
+    from bigdl_tpu_torch.optim.optimizer import (CompiledTrainStep,
+                                                 make_train_step)
+    from bigdl_tpu_torch.utils import graphs
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_zoo_cases import CASES, leaves
+
+    cuda = dev != "cpu"
+    t0 = time.perf_counter()
+    worst = {"f32": 0.0, "bf16": 0.0, "normal": 0.0}
+    unstable, checked, random_checked = [], 0, 0
+    for i, (name, case) in enumerate(sorted(CASES.items())):
+        seed = args.seed + 1000 + i
+        base = case.build(nn).initialize(torch.Generator().manual_seed(seed))
+        act = case.inputs(np.random.RandomState(seed))
+        for training in (False, True) if case.train else (False,):
+            cpu = copy.deepcopy(base).train(training)
+            card_m = copy.deepcopy(base).to(dev).train(training)
+            want = _zoo_run(cpu, act, np.random.RandomState(seed), "cpu",
+                            torch.float32)
+            got = _zoo_run(card_m, act, np.random.RandomState(seed), dev,
+                           torch.float32)
+            err = _zoo_err(got, want)
+            worst["f32"] = max(worst["f32"], err)
+            if err > ZOO_F32_TOL:
+                fail(f"zoo: {name} ({'train' if training else 'eval'}) on "
+                     f"the card differs from the CPU by {err:.3g}")
+            checked += 1
+        if case.random:
+            # training mode: the draws are a hash of the seed, so the
+            # card must draw what the CPU draws, from either seed form
+            rng = nn.split_rng(seed, 0)
+            drawn_nothing = want["output 0"]  # the eval forward's
+            want = _zoo_run(copy.deepcopy(base).train(), act,
+                            np.random.RandomState(seed), "cpu",
+                            torch.float32, rng=rng)
+            if torch.equal(want["output 0"], drawn_nothing):
+                fail(f"zoo: {name} in training mode drew nothing")
+            shape = np.shape(leaves(act)[0])  # the first input's
+            streams = _zoo_streams(shape, rng, "cpu")
+            for form, r in (("int", rng), ("tensor", torch.tensor(
+                    rng, dtype=torch.int64, device=dev))):
+                got = _zoo_run(copy.deepcopy(base).to(dev).train(), act,
+                               np.random.RandomState(seed), dev,
+                               torch.float32, rng=r)
+                err = _zoo_err(got, want)
+                worst["f32"] = max(worst["f32"], err)
+                if err > ZOO_F32_TOL:
+                    fail(f"zoo: {name} (train, {form} seed) on the card "
+                         f"differs from the CPU by {err:.3g}")
+                drawn = _zoo_streams(shape, r, dev)
+                for k in ("keep_mask", "random_bits", "uniform"):
+                    if not torch.equal(drawn[k], streams[k]):
+                        fail(f"zoo: {name}'s {k} stream ({form} seed, "
+                             f"{shape}) on the card is not bit-equal to "
+                             "the CPU's")
+                err = _zoo_err({"normal": drawn["normal"]},
+                               {"normal": streams["normal"]})
+                worst["normal"] = max(worst["normal"], err)
+                if err > ZOO_F32_TOL:
+                    fail(f"zoo: {name}'s normal stream ({form} seed) on the "
+                         f"card differs from the CPU's by {err:.3g}")
+                random_checked += 1
+        once = copy.deepcopy(base).to(dev).eval()
+        a = _zoo_run(once, act, None, dev, torch.float32, backward=False)
+        b = _zoo_run(once, act, None, dev, torch.float32, backward=False)
+        if any(not torch.equal(a[k], b[k]) for k in a):
+            unstable.append(name)
+        if case.bf16:
+            half = _zoo_run(once, act, None, dev, torch.bfloat16,
+                            backward=False)
+            ref = _zoo_run(copy.deepcopy(base).eval(), act, None, "cpu",
+                           torch.float32, backward=False)
+            err = _zoo_err(half, ref)
+            worst["bf16"] = max(worst["bf16"], err)
+            if err > ZOO_BF16_TOL:
+                fail(f"zoo: {name} bf16 forward on the card differs from "
+                     f"the CPU's f32 by {err:.3g}")
+    layers_s = time.perf_counter() - t0
+    print(f"zoo: {checked} layer checks of {len(CASES)} cases "
+          f"({len({n.split('/')[0] for n in CASES})} classes) and "
+          f"{random_checked} training-mode checks of the random layers "
+          f"from a fixed seed (int and tensor) on the card against the CPU "
+          f"in {layers_s:.1f} s: f32 max err {worst['f32']:.3g} (tol "
+          f"{ZOO_F32_TOL}), bf16 forward max err {worst['bf16']:.3g} (tol "
+          f"{ZOO_BF16_TOL}); keep masks, 32-bit draws and uniforms "
+          f"bit-equal, normals max err {worst['normal']:.3g}; not "
+          f"bit-stable from run to run: {unstable or 'none'}", flush=True)
+
+    def reset():
+        fm.reset_launches()
+        fa.reset_launches()
+        i8.reset_launches()
+        graphs.reset_counts()
+
+    def launched():
+        return (sum(fm.LAUNCHES.values()) + sum(fa.LAUNCHES.values())
+                + sum(i8.LAUNCHES.values()))
+
+    # (b) the LeNet driver, its loss from the reference log lines
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("[Epoch") and "Loss is " in msg:
+                losses.append(float(msg.split("Loss is ")[1].split(". ")[0]))
+
+    grab = Losses()
+    logging.getLogger("bigdl_tpu_torch.optim").addHandler(grab)
+    argv = ["-b", str(LENET_BATCH), "--maxEpoch", "1", "--syntheticSize",
+            str(LENET_BATCH * LENET_STEPS)] + ([] if cuda else
+                                               ["--device", "cpu"])
+    reset()
+    t1 = time.perf_counter()
+    res = lenet_train.main(argv)
+    if cuda:
+        torch.cuda.synchronize()
+    main_s = time.perf_counter() - t1
+    counts, main_launches = dict(graphs.COUNTS), launched()
+    logging.getLogger("bigdl_tpu_torch.optim").removeHandler(grab)
+    if main_launches:
+        fail(f"lenet_train.main launched the kernels {main_launches} times")
+    if not (losses and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0]):
+        fail(f"lenet_train.main: the loss did not fall: {losses}")
+    if cuda and (counts["captures"] != 2
+                 or counts["replays"] < LENET_STEPS):
+        fail(f"lenet_train.main: {counts['captures']} captures and "
+             f"{counts['replays']} replays; expected 2 (the train step and "
+             f"the evaluation forward) and at least {LENET_STEPS}")
+    print(f"lenet_train.main (batch {LENET_BATCH}, {LENET_STEPS} "
+          f"iterations, 28x28x1) in {main_s:.1f} s: logged losses "
+          f"{losses}, validation {res}; {counts['captures']} captures, "
+          f"{counts['replays']} replays; kernel launches {main_launches}",
+          flush=True)
+
+    gen = torch.Generator().manual_seed(args.seed)
+    model = LeNet5(10, device=dev, generator=gen)
+    x, y = synthetic_mnist(LENET_BATCH, seed=args.seed)
+    x = torch.from_numpy(x[..., None]).to(dev)
+    y = torch.from_numpy(y).long().to(dev)
+    graph = lenet_graph(10, device=dev)
+    with torch.no_grad():
+        for (_, pg), (_, ps) in zip(graph.named_parameters(),
+                                    model.named_parameters()):
+            pg.copy_(ps)
+        graph_err = (graph.eval()(x) - model.eval()(x)).abs().max().item()
+    if graph_err > 1e-5:
+        fail(f"lenet_graph differs from LeNet5 by {graph_err:.3g}")
+    method = optim.SGD(0.05, momentum=0.9)
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    state = {k: b.detach().clone() for k, b in model.named_buffers()}
+    step = CompiledTrainStep(make_train_step(
+        model, nn.ClassNLLCriterion(logits=True), {"__all__": method}))
+    trees = [params, state, {"__all__": method.init_state(params)}]
+    reset()
+    timing = (step_ms(step, trees, 1, lambda i: args.seed + i, x, y,
+                      [0.05]) if cuda else {})
+    lenet_launches = launched()
+
+    # (c) the autoencoder, MSE against its input
+    ae = Autoencoder(32, device=dev, generator=gen)
+    xa, _ = synthetic_mnist(LENET_BATCH, seed=args.seed + 1)
+    xa = torch.from_numpy(np.clip(xa, 0.0, 1.0)[..., None]).to(dev)
+    target = xa.reshape(LENET_BATCH, -1)
+    adam = optim.Adam(1e-2)
+    ap = {k: p.detach().clone() for k, p in ae.named_parameters()}
+    ae_step = CompiledTrainStep(make_train_step(
+        ae, nn.MSECriterion(), {"__all__": adam}))
+    ae_trees = [ap, {}, {"__all__": adam.init_state(ap)}]
+    ae_losses = []
+    for i in range(AE_STEPS):
+        *ae_trees, loss = ae_step(*ae_trees, i + 1, None, xa, target,
+                                  [1e-2])
+        ae_losses.append(loss.item())
+    ae_timing = (step_ms(ae_step, ae_trees, AE_STEPS + 1, lambda i: None,
+                         xa, target, [1e-2]) if cuda else {})
+    ae_launches = launched()
+    if lenet_launches or ae_launches:
+        fail(f"LeNet and autoencoder steps launched the kernels "
+             f"{lenet_launches} and {ae_launches} times")
+    if not (all(map(math.isfinite, ae_losses))
+            and ae_losses[-1] < ae_losses[0]):
+        fail(f"autoencoder: the loss did not fall: {ae_losses}")
+    if cuda and (ae_step.captures != 1 or ae_step.replays < 1):
+        fail(f"autoencoder: {ae_step.captures} captures and "
+             f"{ae_step.replays} replays")
+    out = {"cases": len(CASES), "checks": checked,
+           "random_train_checks": random_checked,
+           "max_err": worst, "not_bit_stable": unstable,
+           "layers_s": layers_s, "lenet_main": {
+               "seconds": main_s, "losses": losses, "validation": res,
+               "captures": counts["captures"],
+               "replays": counts["replays"], "launches": main_launches},
+           "lenet_graph_max_abs_err": graph_err,
+           "autoencoder_losses": ae_losses,
+           "step_launches": lenet_launches + ae_launches}
+    if cuda:
+        out["lenet_step"] = dict(timing, batch=LENET_BATCH,
+                                 images_per_s=LENET_BATCH * 1e3
+                                 / timing["ms_per_step"])
+        out["autoencoder_step"] = dict(ae_timing, batch=LENET_BATCH,
+                                       images_per_s=LENET_BATCH * 1e3
+                                       / ae_timing["ms_per_step"])
+        print(f"LeNet-5 compiled train step at batch {LENET_BATCH} on "
+              f"{card}: {timing['ms_per_step']:.4f} ms per step (CUDA-graph "
+              f"replay), {out['lenet_step']['images_per_s']:.0f} images/s, "
+              f"device {timing['device_ms']:.4f} ms per step, host enqueue "
+              f"{timing['host_enqueue_ms']:.4f} ms; lenet_graph vs "
+              f"Sequential max |d| {graph_err:.3g}", flush=True)
+        print(f"autoencoder, {AE_STEPS} captured steps (MSE, Adam 1e-2, "
+              f"batch {LENET_BATCH}): losses {ae_losses[0]:.5f} -> "
+              f"{ae_losses[-1]:.5f}; {ae_step.captures} capture, "
+              f"{ae_step.replays} replays; on {card}: "
+              f"{ae_timing['ms_per_step']:.4f} ms per step (CUDA-graph "
+              f"replay), {out['autoencoder_step']['images_per_s']:.0f} "
+              f"images/s, device {ae_timing['device_ms']:.4f} ms per step; "
+              f"kernel launches across phase 17's steps: "
+              f"{lenet_launches + ae_launches}", flush=True)
+    print(f"phase 17 (zoo) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7543,6 +7906,11 @@ def main():
     # ------------------------------------- 16. tp, sp, ep and pp of the LM
     device_memory("before phase 16 (parallel)")
     par = parallel_phase(args, card, out)
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 17. zoo
+    device_memory("before phase 17 (zoo)")
+    zoo = zoo_phase(args, card)
 
     (out / "chip_smoke_kernels.json").write_text(json.dumps(
         {"card": card, "batch": BATCH, "rows": rows, "forward": fwd,
@@ -7561,7 +7929,7 @@ def main():
          "graphs": graph_res, "decode": decode, "checkpoint": ckpt,
          "recipe": recipe, "data": data, "basic": basic,
          "telemetry": tel, "observability": obs, "dp": dp,
-         "parallel": par, "width12": width12},
+         "parallel": par, "zoo": zoo, "width12": width12},
         indent=1, default=str))
 
     # ---------------------------------------------------------- summary
@@ -7608,7 +7976,9 @@ def main():
                 "dp_resnet50_nccl_world1_per_step":
                     dp["world1"]["distri"]["capture_launches"][name],
                 "dp_cifar20_gloo_world2_per_step":
-                    dp["gloo"]["launches_per_step"][name]},
+                    dp["gloo"]["launches_per_step"][name],
+                "lenet_train_main": zoo["lenet_main"]["launches"],
+                "lenet_and_autoencoder_steps": zoo["step_launches"]},
             "no_prologue": {
                 f"{r['model']} {r['dtype']}": {key: sum(
                     q["calls_per_forward"] * q[key]
@@ -7644,7 +8014,9 @@ def main():
             "generate_reforward": decode["launches_6"],
             "transformer_train_num_heads_1": lm["num_heads_1"]["launches"],
             **{f"{name}_step_per_rank": par["plans"][name][
-                "flash_launches_per_rank"] for name, *_ in PAR_PLANS}},
+                "flash_launches_per_rank"] for name, *_ in PAR_PLANS},
+            "lenet_train_main": zoo["lenet_main"]["launches"],
+            "lenet_and_autoencoder_steps": zoo["step_launches"]},
         "parallel_shapes": {name: par["plans"][name]["flash_shapes"]
                             for name, *_ in PAR_PLANS},
         "parallel_shape_rows": [{k: r[k] for k in (
@@ -7686,7 +8058,9 @@ def main():
                 decode["engine"]["int8"]["kernel7_host_launches"],
             "int8_spec_verify_per_round":
                 decode["engine"]["int8_spec"]["verify_kernels"][
-                    "int8_matmul"]},
+                    "int8_matmul"],
+            "lenet_train_main": zoo["lenet_main"]["launches"],
+            "lenet_and_autoencoder_steps": zoo["step_launches"]},
         "int8_kv_scores": {key: decode["int8"][key] for key in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
             "chunk_ms", "ms_per_chunk")},

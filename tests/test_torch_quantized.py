@@ -303,7 +303,8 @@ def test_resnet50_each_quantized_layer_matches_jax(resnet):
         with torch.inference_mode():
             got = layer(torch.from_numpy(xin)).numpy()
         if isinstance(layer, pq.QuantizedLinear) or (
-                layer.kernel_size == (1, 1) and layer.stride == (1, 1)):
+                layer.conv.kernel_size == (1, 1)
+                and layer.conv.stride == (1, 1)):
             np.testing.assert_array_equal(got, want, err_msg=key)
             exact += 1
         else:

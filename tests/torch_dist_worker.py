@@ -349,11 +349,12 @@ def _reshard(mesh, results):
     tree = {"w": whole[lo:hi].clone(), "b": torch.ones(5)}
     gather = build_reshard_step({"w": RowShard(mesh.rank(), n),
                                  "b": Replicated()},
-                                {"w": Replicated(), "b": Replicated()}, mesh)
+                                {"w": Replicated(), "b": Replicated()},
+                                mesh=mesh)
     out = gather(tree)
     results["reshard.gathered"] = out["w"].numpy()
     cut = build_reshard_step({"w": Replicated()},
-                             {"w": RowShard(mesh.rank(), n)}, mesh)
+                             {"w": RowShard(mesh.rank(), n)}, mesh=mesh)
     results["reshard.cut_ok"] = np.asarray(bool(torch.equal(
         cut({"w": whole})["w"], whole[lo:hi])))
     # accumulation's layout: micro-batch i of the global batch, split
